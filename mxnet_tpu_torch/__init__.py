@@ -1,0 +1,15 @@
+"""mxnet_tpu_torch: the PyTorch and CUDA port of `mxnet_tpu`.
+
+The port runs on one NVIDIA Hopper card. Plain tensor code is PyTorch; each
+kernel the JAX package wrote in Pallas for the TPU is a kernel written by
+hand for Hopper, under `ops/csrc/`, built with nvcc at first use. Entry
+points run on ``cuda`` unless the caller passes ``device="cpu"``, and raise
+when no card is present.
+
+Ported so far: `models.transformer.TransformerLM` (dense forward, loss and
+the Adam train step) with the flash-attention forward kernel
+(`ops.flash_attention`).
+"""
+from .context import resolve_device
+
+__all__ = ["resolve_device"]

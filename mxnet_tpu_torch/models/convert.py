@@ -1,0 +1,70 @@
+"""Carry TransformerLM weights between the JAX package and the port.
+
+The JAX package keeps a flat dict with names such as ``"embed"``,
+``"l0.wqkv"`` and ``"ln_f_scale"``; the port's `TransformerLM` is an
+`nn.Module`, whose parameter names cannot hold ``l0.wqkv`` as one attribute,
+so layer ``i``'s weights live at ``layers.{i}.*``. Both keep the same
+layouts, so a conversion is a rename and a copy.
+"""
+from __future__ import annotations
+
+import re
+
+import numpy as np
+import torch
+
+from ..context import resolve_device
+
+__all__ = ["params_from_jax", "params_to_jax", "port_name", "jax_name"]
+
+_JAX_LAYER = re.compile(r"^l(\d+)\.(\w+)$")
+_PORT_LAYER = re.compile(r"^layers\.(\d+)\.(\w+)$")
+
+
+def port_name(name: str) -> str:
+    """``"l3.wqkv"`` -> ``"layers.3.wqkv"``; other names are unchanged."""
+    m = _JAX_LAYER.match(name)
+    return f"layers.{m.group(1)}.{m.group(2)}" if m else name
+
+
+def jax_name(name: str) -> str:
+    """``"layers.3.wqkv"`` -> ``"l3.wqkv"``; other names are unchanged."""
+    m = _PORT_LAYER.match(name)
+    return f"l{m.group(1)}.{m.group(2)}" if m else name
+
+
+def _to_tensor(arr) -> torch.Tensor:
+    arr = np.asarray(arr)
+    if arr.dtype.name == "bfloat16":  # numpy has no bf16: move the bits
+        bits = np.ascontiguousarray(arr).view(np.int16)
+        return torch.from_numpy(bits.copy()).view(torch.bfloat16)
+    return torch.from_numpy(np.array(arr))
+
+
+def params_from_jax(np_params, device=None, dtype=None):
+    """A state dict for the port's `TransformerLM` from the JAX package's
+    flat params (numpy arrays or anything `np.asarray` takes, bf16 included).
+    `device` follows `resolve_device` (``cuda`` unless the caller says
+    otherwise); `dtype` casts every tensor, else each keeps its own. Load it
+    with ``lm.load_state_dict(...)``."""
+    dev = resolve_device(device)
+    out = {}
+    for name, arr in np_params.items():
+        t = _to_tensor(arr)
+        out[port_name(name)] = t.to(device=dev, dtype=dtype or t.dtype)
+    return out
+
+
+def params_to_jax(state):
+    """The JAX package's flat params (numpy arrays) from a port state dict or
+    module. bf16 tensors come back as float32 arrays, which hold every bf16
+    value exactly; cast them with ``.astype(jnp.bfloat16)``."""
+    if isinstance(state, torch.nn.Module):
+        state = state.state_dict()
+    out = {}
+    for name, t in state.items():
+        t = t.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            t = t.float()
+        out[jax_name(name)] = t.numpy().copy()
+    return out

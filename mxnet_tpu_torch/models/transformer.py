@@ -1,0 +1,194 @@
+"""Transformer language model: the port of `mxnet_tpu/models/transformer.py`
+(dense branch on one card).
+
+The JAX package's `TransformerLM` is a pure function of a flat parameter
+dict bound to a mesh; here it is an `nn.Module` on one device. Parameters
+keep the JAX layouts (``x @ w``, `wqkv` as [D, 3D], the tied head as
+``embed.T``) so weights cross over by copy (`models.convert`). Local
+attention goes through `ops.flash_attention`: the hand-written kernel on a
+CUDA tensor, the plain version on a CPU tensor. Not ported: the mesh and its
+sharding constraints, ring attention (sequence parallelism), the MoE FFN,
+and the incremental-decoding methods.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..context import resolve_device
+from ..ops.flash_attention import flash_attention
+
+__all__ = ["TransformerLMConfig", "TransformerLM"]
+
+
+@dataclasses.dataclass(frozen=True)
+class TransformerLMConfig:
+    vocab_size: int = 32768
+    d_model: int = 512
+    n_heads: int = 8
+    d_ff: int = 2048
+    n_layers: int = 4
+    max_len: int = 2048
+    dtype: str = "bfloat16"
+    causal: bool = True
+    tie_embeddings: bool = True
+    # the Mixture-of-Experts fields of the JAX config; the port takes only
+    # moe_experts == 0 (dense FFN)
+    moe_experts: int = 0
+    moe_every: int = 2
+    moe_capacity_factor: float = 1.5
+    moe_aux_loss: float = 0.01
+
+
+def _empty(device, dtype):
+    return lambda *shape: nn.Parameter(
+        torch.empty(shape, device=device, dtype=dtype))
+
+
+class _Layer(nn.Module):
+    """One pre-LN block's parameters, named as the JAX package's ``l{i}.*``."""
+
+    def __init__(self, c, device, dtype):
+        super().__init__()
+        p = _empty(device, dtype)
+        d, f = c.d_model, c.d_ff
+        self.ln1_scale, self.ln1_bias = p(d), p(d)
+        self.wqkv, self.wo = p(d, 3 * d), p(d, d)
+        self.ln2_scale, self.ln2_bias = p(d), p(d)
+        self.w1, self.b1 = p(d, f), p(f)
+        self.w2, self.b2 = p(f, d), p(d)
+
+
+class TransformerLM(nn.Module):
+    """Decoder-only transformer LM on one device.
+
+    `device` defaults to ``cuda`` and raises without a card; pass
+    ``device="cpu"`` for the CPU. Parameters are created in the config's
+    compute dtype and initialised from `generator` (a `torch.Generator`,
+    seeded 0 on `device` when omitted)."""
+
+    def __init__(self, config, device=None, generator=None):
+        super().__init__()
+        if config.moe_experts:
+            raise NotImplementedError(
+                "the port's TransformerLM has no MoE FFN (moe_experts > 0)")
+        if config.d_model % config.n_heads:
+            raise ValueError("d_model must be a multiple of n_heads")
+        self.cfg = config
+        self.device = resolve_device(device)
+        dt = getattr(torch, config.dtype)
+        c = config
+        p = _empty(self.device, dt)
+        self.embed = p(c.vocab_size, c.d_model)
+        self.pos_embed = p(c.max_len, c.d_model)
+        self.ln_f_scale, self.ln_f_bias = p(c.d_model), p(c.d_model)
+        self.layers = nn.ModuleList(
+            _Layer(c, self.device, dt) for _ in range(c.n_layers))
+        if not c.tie_embeddings:
+            self.lm_head = p(c.d_model, c.vocab_size)
+        if generator is None:
+            generator = torch.Generator(device=self.device).manual_seed(0)
+        self.init_params(generator)
+
+    # -- parameters ---------------------------------------------------------
+
+    @torch.no_grad()
+    def init_params(self, generator):
+        """The JAX package's rule: scales one, biases zero, every matrix
+        normal / sqrt(fan_in), in the compute dtype. Draws on the
+        generator's device, in sorted parameter-name order. The values
+        differ from the JAX package's, whose generator is another."""
+        for name, p in sorted(self.named_parameters()):
+            if name.endswith("_scale"):
+                p.fill_(1)
+            elif name.endswith(("_bias", ".b1", ".b2")):
+                p.zero_()
+            else:
+                x = torch.randn(p.shape, generator=generator,
+                                device=generator.device, dtype=torch.float32)
+                p.copy_(x / math.sqrt(p.shape[0]))
+
+    # -- forward ------------------------------------------------------------
+
+    @staticmethod
+    def _ln(x, scale, bias):
+        """LayerNorm in fp32 with the population variance, eps 1e-5."""
+        x32 = x.float()
+        mu = x32.mean(-1, keepdim=True)
+        var = x32.var(-1, keepdim=True, correction=0)
+        out = (x32 - mu) * torch.rsqrt(var + 1e-5)
+        return (out * scale.float() + bias.float()).to(x.dtype)
+
+    def _attention(self, q, k, v):
+        # the kernel on a CUDA tensor, the plain version on a CPU tensor
+        return flash_attention(q, k, v, causal=self.cfg.causal)
+
+    def forward(self, tokens):
+        """tokens [B, L] integer -> logits [B, L, V] in the compute dtype."""
+        c = self.cfg
+        b, seq = tokens.shape
+        hd = c.d_model // c.n_heads
+        h = F.embedding(tokens, self.embed) + self.pos_embed[None, :seq]
+        for layer in self.layers:
+            ln1 = self._ln(h, layer.ln1_scale, layer.ln1_bias)
+            q, k, v = (ln1 @ layer.wqkv).split(c.d_model, dim=-1)
+            # strided views of the projection: the kernel reads them in place
+            q, k, v = (t.view(b, seq, c.n_heads, hd) for t in (q, k, v))
+            attn = self._attention(q, k, v).reshape(b, seq, c.d_model)
+            h = h + attn @ layer.wo
+            ln2 = self._ln(h, layer.ln2_scale, layer.ln2_bias)
+            ff = F.gelu(ln2 @ layer.w1 + layer.b1, approximate="tanh")
+            h = h + ff @ layer.w2 + layer.b2
+        h = self._ln(h, self.ln_f_scale, self.ln_f_bias)
+        head = self.embed.t() if c.tie_embeddings else self.lm_head
+        return h @ head
+
+    # -- training -----------------------------------------------------------
+
+    def loss(self, tokens, targets):
+        """Mean next-token negative log-likelihood, the softmax in fp32."""
+        logp = torch.log_softmax(self.forward(tokens).float(), dim=-1)
+        return -logp.gather(-1, targets[..., None]).mean()
+
+    def make_train_step(self, lr=1e-3):
+        """Return (step, init_opt), the JAX package's Adam train step.
+
+        ``init_opt()`` gives the Adam state, {name: (m, v)} in fp32.
+        ``step(opt_state, tokens, targets, step_no)`` takes one step and
+        returns the loss. Unlike the JAX step it updates the parameters and
+        the state in place. As there, the parameters stay in the compute
+        dtype (no fp32 master copy): each update is computed in fp32 from
+        the parameter and cast back, with t = step_no + 1."""
+        b1, b2, eps = 0.9, 0.999, 1e-8
+
+        def init_opt():
+            return {name: (torch.zeros_like(p, dtype=torch.float32),
+                           torch.zeros_like(p, dtype=torch.float32))
+                    for name, p in self.named_parameters()}
+
+        def step(opt_state, tokens, targets, step_no):
+            params = dict(self.named_parameters())
+            for p in params.values():
+                p.grad = None
+            loss = self.loss(tokens, targets)
+            loss.backward()
+            with torch.no_grad():
+                t = torch.tensor(float(step_no) + 1, dtype=torch.float32,
+                                 device=self.device)
+                bc1 = 1 - torch.pow(b1, t)
+                bc2 = 1 - torch.pow(b2, t)
+                for name, p in params.items():
+                    g = p.grad.float()
+                    m, v = opt_state[name]
+                    m.mul_(b1).add_((1 - b1) * g)
+                    v.mul_(b2).add_((1 - b2) * g * g)
+                    upd = lr * (m / bc1) / (torch.sqrt(v / bc2) + eps)
+                    p.copy_((p.float() - upd).to(p.dtype))
+                    p.grad = None
+            return loss.detach()
+
+        return step, init_opt
