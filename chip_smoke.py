@@ -8,26 +8,35 @@ Phases, each printed as one JSON line:
   card     the card's name and power limit (nvidia-smi), torch and CUDA
            versions, compute capability;
   build    nvcc of every `mxnet_tpu_torch/ops/csrc/*.cu`, one process each;
-  train    the main path: 3 Adam steps of `TransformerLM` at the default
+  train    slice 1's path: 3 Adam steps of `TransformerLM` at the default
            `TransformerLMConfig` width (bf16, 4 layers, d_model 512, 8 heads,
-           vocab 32768) on one batch of 8 x 2048 tokens, with every kernel's
-           launch count set to 0 just before and read just after; then the
-           same path on a small fp32 input on the card and on the CPU;
+           vocab 32768) on one batch of 8 x 2048 tokens; then the same path
+           on a small fp32 input on the card and on the CPU;
+  trainer  slice 2's path: the same model and batch trained 3 steps by
+           `gluon.Trainer` (multi-precision Adam) through a `dist_sync`
+           kvstore with 2-bit gradient compression, in a one-rank NCCL
+           process group opened on a free localhost port: per parameter a
+           K3 quantize, an all-gather of the packed words, a dequantize and
+           a pull; the group is destroyed at the end of the phase;
   kernels  each kernel against its plain PyTorch version on the card, at the
            shapes the main path gives it and at extra cases, with times
            (CUDA events, warmed up, median), the plain version's, one
-           PyTorch library call's as a yardstick, and the least time the
-           card could take (`bound_ms`, H100 SXM peaks);
-and last {"ok": true, "device": {...}}. Any failed check raises, so the
-script exits non-zero and prints no last line; so does a machine without a
-CUDA card. `--profile` also writes a torch.profiler breakdown of one more
-train step, by kernel, to OUT.json.
+           PyTorch library call's as a yardstick where one exists, and the
+           least time the card could take (`bound_ms`, H100 SXM peaks);
+and last {"ok": true, "device": {...}}. Every kernel's launch count is set
+to 0 just before each path and read just after. Any failed check raises, so
+the script exits non-zero and prints no last line; so does a machine
+without a CUDA card. `--profile` also writes a torch.profiler breakdown of
+one more step of each path, by kernel, to OUT.json.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
+import os
+import socket
 import statistics
 import subprocess
 import sys
@@ -40,6 +49,7 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 
 TRAIN_STEPS = 3
 TRAIN_BATCH, TRAIN_LEN = 8, 2048
+COMPRESSION = {"type": "2bit", "threshold": 0.5}  # MXNet's default threshold
 
 
 def emit(**obj):
@@ -49,6 +59,24 @@ def emit(**obj):
 def check(cond, msg):
     if not cond:
         raise RuntimeError(f"chip_smoke: {msg}")
+
+
+def kernel_wrappers():
+    """{kernel name: its wrapper}, each wrapper counting its launches."""
+    from mxnet_tpu_torch import gradient_compression as gcm
+    from mxnet_tpu_torch.ops import flash_attention as fa
+
+    return {"flash_attention_fwd": fa.flash_attention_fwd_kernel,
+            "quantize_2bit": gcm.quantize_2bit_kernel}
+
+
+def reset_launches():
+    for fn in kernel_wrappers().values():
+        fn.launches = 0
+
+
+def read_launches():
+    return {name: fn.launches for name, fn in kernel_wrappers().items()}
 
 
 def card_line():
@@ -91,7 +119,7 @@ def attention_bound(b, lq, lk, h, d, dtype, causal):
                                        else "operations")
 
 
-def train_phase(torch, fa):
+def train_phase(torch):
     from mxnet_tpu_torch.models import TransformerLM, TransformerLMConfig
 
     cfg = TransformerLMConfig()
@@ -108,7 +136,7 @@ def train_phase(torch, fa):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
-    fa.flash_attention_fwd_kernel.launches = 0
+    reset_launches()
     losses, seconds = [], []
     for i in range(TRAIN_STEPS):
         t0 = time.perf_counter()
@@ -116,7 +144,7 @@ def train_phase(torch, fa):
         losses.append(float(loss))  # waits for the step
         torch.cuda.synchronize()
         seconds.append(time.perf_counter() - t0)
-    launches = {"flash_attention_fwd": fa.flash_attention_fwd_kernel.launches}
+    launches = read_launches()
 
     check(all(math.isfinite(x) for x in losses), f"non-finite loss {losses}")
     # one batch repeated: three Adam steps must bring its loss down
@@ -169,6 +197,148 @@ def small_reference_phase(torch):
             "loss_card": loss_gpu, "loss_cpu": loss_cpu}
 
 
+def free_port():
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+@contextlib.contextmanager
+def one_rank_group_env():
+    """The environment of a one-rank process group on a free localhost port,
+    restored on exit."""
+    env = {"MXNET_COORDINATOR": f"127.0.0.1:{free_port()}",
+           "MXNET_NUM_PROCESSES": "1", "MXNET_PROCESS_ID": "0"}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield env
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def nonzero_code_share(packs, n_values):
+    """Share of the n_values whose 2-bit code is not 0, over packed words."""
+    import torch
+
+    shifts = torch.arange(16, dtype=torch.int32, device=packs[0].device) * 2
+    nonzero = sum(int((((p.unsqueeze(-1) >> shifts) & 3) != 0).sum())
+                  for p in packs)
+    return nonzero / n_values
+
+
+def trainer_phase(torch, profile=False):
+    """Slice 2's path: `gluon.Trainer` over a compressed `dist_sync` store in
+    a one-rank NCCL group, at the default config. Returns the result and,
+    when `profile`, the profile of one more step (else None)."""
+    import torch.distributed as dist
+
+    from mxnet_tpu_torch import gradient_compression as gcm
+    from mxnet_tpu_torch.gluon import Trainer
+    from mxnet_tpu_torch.models import TransformerLM, TransformerLMConfig
+    from mxnet_tpu_torch.parallel import KVStoreDistTPUSync
+
+    cfg = TransformerLMConfig()
+    n_tokens = TRAIN_BATCH * TRAIN_LEN
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    lm = TransformerLM(cfg, device="cuda", generator=gen)
+    shape = (TRAIN_BATCH, TRAIN_LEN)
+    tokens = torch.randint(0, cfg.vocab_size, shape, generator=gen,
+                           device="cuda")
+    targets = torch.randint(0, cfg.vocab_size, shape, generator=gen,
+                            device="cuda")
+    n_keys = len(list(lm.parameters()))  # the tied head is embed itself
+    n_values = sum(p.numel() for p in lm.parameters())
+
+    # observe the packed words the store hands to the all-gather, to count
+    # the codes that fired; the launches still go through the kernel wrapper
+    packs = []
+    real_quantize = gcm.GradientCompression.quantize
+
+    def observed(self, key, grad):
+        packed = real_quantize(self, key, grad)
+        packs.append(packed)
+        return packed
+
+    def one_step(trainer):
+        from torch.profiler import record_function
+
+        with record_function("forward_backward"):
+            loss = lm.loss(tokens, targets) * n_tokens  # sum of token NLLs
+            loss.backward()
+        with record_function("trainer.step"):
+            trainer.step(n_tokens)  # rescale_grad = 1/batch, after the push
+        return loss
+
+    with one_rank_group_env() as env:
+        try:
+            trainer = Trainer(dict(lm.named_parameters()), "adam",
+                              {"learning_rate": 1e-3,
+                               "multi_precision": True},
+                              kvstore="dist_sync",
+                              compression_params=COMPRESSION)
+            gcm.GradientCompression.quantize = observed
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches()
+            losses, seconds, shares = [], [], []
+            for _ in range(TRAIN_STEPS):
+                t0 = time.perf_counter()
+                loss = one_step(trainer)
+                losses.append(float(loss.detach()) / n_tokens)
+                torch.cuda.synchronize()
+                seconds.append(time.perf_counter() - t0)
+                shares.append(nonzero_code_share(packs, n_values))
+                packs.clear()
+            launches = read_launches()
+            gcm.GradientCompression.quantize = real_quantize
+            kv = trainer._kvstore
+            check(isinstance(kv, KVStoreDistTPUSync) and kv.num_workers == 1
+                  and dist.get_backend() == "nccl",
+                  "the trainer's store is not a one-rank NCCL dist store")
+            check(not trainer._update_on_kvstore,
+                  "a dist store must update on the worker")
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            check(all(math.isfinite(x) for x in losses),
+                  f"non-finite trainer loss {losses}")
+            check(losses[-1] < losses[0], f"trainer loss did not fall: "
+                  f"{losses} (nonzero code shares {shares})")
+            check(all(bool(torch.isfinite(p).all())
+                      for p in lm.parameters()),
+                  "non-finite parameter after trainer steps")
+            want = {"quantize_2bit": n_keys * TRAIN_STEPS,
+                    "flash_attention_fwd": cfg.n_layers * TRAIN_STEPS}
+            check(launches == want,
+                  f"trainer path launched {launches}, want {want}")
+            profiled = profile_steps(
+                torch, lambda: one_step(trainer),
+                must_run=("K1 flash_attention_fwd", "K3 quantize_2bit")) \
+                if profile else None
+        finally:
+            gcm.GradientCompression.quantize = real_quantize
+            if dist.is_initialized():
+                dist.destroy_process_group()
+    tail = statistics.median(seconds[1:])
+    return {
+        "config": "TransformerLMConfig() defaults", "params": n_values,
+        "keys": n_keys, "batch": TRAIN_BATCH, "seq_len": TRAIN_LEN,
+        "steps": TRAIN_STEPS, "optimizer": "adam, lr 1e-3, multi_precision",
+        "kvstore": "dist_sync, one rank, NCCL",
+        "coordinator": env["MXNET_COORDINATOR"],
+        "compression": COMPRESSION,
+        "losses_are": "mean token NLL (the summed loss over B*L)",
+        "losses": losses, "step_s": seconds,
+        "tokens_per_s": n_tokens / tail,
+        "tokens_per_s_from": "median of steps 2..3",
+        "nonzero_code_share": shares,
+        "peak_mem_gb": peak, "kernel_launches": launches,
+    }, profiled
+
+
 def attention_case(torch, fa, F, *, b, l, h, d, dtype, causal, tol, timed):
     """Kernel vs plain version on inputs shaped as the transformer makes
     them: q, k, v strided views of one [B, L, 3*H*D] projection."""
@@ -203,7 +373,54 @@ def attention_case(torch, fa, F, *, b, l, h, d, dtype, causal, tol, timed):
     return case
 
 
-def kernels_phase(torch, fa, launches):
+def quantize_case(torch, gcm, *, shape, dtype, threshold, timed, nan=False):
+    """K3 vs its plain version on one gradient and a nonzero fp32 residual:
+    the packed words and the new residual must be equal bit for bit (NaN
+    where the plain version has NaN)."""
+    n = math.prod(shape)
+    gen = torch.Generator(device="cuda").manual_seed(n + int(threshold * 10))
+    grad = torch.randn(shape, generator=gen, device="cuda").to(
+        getattr(torch, dtype))
+    if nan:
+        grad.view(-1)[::7] = float("nan")
+    residual = (torch.rand(shape, generator=gen, device="cuda") * 2 - 1) \
+        * threshold
+    want, want_res = gcm.quantize_2bit(grad, residual, threshold)
+    packed, res = gcm.quantize_2bit_kernel(grad, residual.clone(), threshold)
+    torch.cuda.synchronize()
+    name = f"{dtype} {'x'.join(map(str, shape))} t={threshold}" + (
+        " with NaN" if nan else "")
+    check(packed.shape == want.shape and packed.dtype == torch.int32,
+          f"{name}: packed words {packed.shape} {packed.dtype}")
+    words_equal = bool(torch.equal(packed, want))
+    same = (res.view(torch.int32) == want_res.view(torch.int32)) | (
+        res.isnan() & want_res.isnan())
+    finite = ~want_res.isnan()
+    err = float((res[finite] - want_res[finite]).abs().max()) \
+        if bool(finite.any()) else 0.0
+    check(words_equal, f"{name}: packed words differ from the plain version")
+    check(bool(same.all()), f"{name}: residual differs from the plain "
+          f"version (max abs err {err})")
+    case = {"case": name, "n": n, "words_equal": words_equal,
+            "residual_bit_equal": True, "max_abs_err": err}
+    if timed:
+        elt = grad.element_size()
+        nbytes = n * (elt + 4 + 4) + 4 * gcm.compressed_size(n)
+        t_bytes = nbytes / PEAK_BYTES_PER_S
+        t_ops = 3 * n / PEAK_FLOPS["float32"]  # an add and two compares
+        scratch = residual.clone()
+        case.update(
+            ms=cuda_ms(lambda: gcm.quantize_2bit_kernel(grad, scratch,
+                                                        threshold)),
+            plain_ms=cuda_ms(lambda: gcm.quantize_2bit(grad, residual,
+                                                       threshold)),
+            bytes=nbytes, bound_ms=max(t_bytes, t_ops) * 1e3,
+            bound_by="bytes" if t_bytes > t_ops else "operations")
+    return case
+
+
+def kernels_phase(torch, fa, gcm, launches):
+    """The kernels line; `launches` maps each path to its launch counts."""
     import torch.nn.functional as F
 
     main = attention_case(torch, fa, F, b=TRAIN_BATCH, l=TRAIN_LEN, h=8, d=64,
@@ -218,11 +435,13 @@ def kernels_phase(torch, fa, launches):
         attention_case(torch, fa, F, b=1, l=130, h=2, d=128, dtype="float32",
                        causal=False, tol=1e-5, timed=False),
     ]
-    entry = {
+    k1 = {
         "name": "flash_attention_fwd", "route": "cuda",
         "source": "mxnet_tpu_torch/ops/csrc/flash_attention_fwd.cu",
         "replaces": "mxnet_tpu/ops/pallas_attention.py:66",
-        "launches": launches["flash_attention_fwd"],
+        "launches": launches["train"]["flash_attention_fwd"],
+        "launches_by_path": {p: c["flash_attention_fwd"]
+                             for p, c in launches.items()},
         "max_abs_err": main["max_abs_err"], "tol": main["tol"],
         "ms": main["ms"], "kernel_ms": main["ms"],
         "plain_ms": main["plain_ms"], "library_ms": main["library_ms"],
@@ -230,35 +449,61 @@ def kernels_phase(torch, fa, launches):
         "bound_by": main["bound_by"], "case": main["case"],
         "extra_cases": extra,
     }
-    return [entry]
+    # the largest key of the trainer path: embed's gradient, [32768, 512] bf16
+    q_main = quantize_case(torch, gcm, shape=(32768, 512), dtype="bfloat16",
+                           threshold=COMPRESSION["threshold"], timed=True)
+    q_extra = [quantize_case(torch, gcm, shape=(n,), dtype="float32",
+                             threshold=t, timed=False)
+               for t in (0.5, 0.1) for n in (1, 100, 2048, 2049, 33 * 65)]
+    q_extra.append(quantize_case(torch, gcm, shape=(33, 65), dtype="bfloat16",
+                                 threshold=0.1, timed=False, nan=True))
+    k3 = {
+        "name": "quantize_2bit", "route": "cuda",
+        "source": "mxnet_tpu_torch/ops/csrc/quantize_2bit.cu",
+        "replaces": "mxnet_tpu/gradient_compression.py:106",
+        "launches": launches["trainer"]["quantize_2bit"],
+        "launches_by_path": {p: c["quantize_2bit"]
+                             for p, c in launches.items()},
+        "max_abs_err": q_main["max_abs_err"], "tol": 0.0,
+        "exact": "packed words and residual bit-equal to the plain version",
+        "ms": q_main["ms"], "kernel_ms": q_main["ms"],
+        "plain_ms": q_main["plain_ms"], "library_ms": None,
+        "library": "none: no single PyTorch call computes this function",
+        "bound_ms": q_main["bound_ms"], "bound_by": q_main["bound_by"],
+        "case": q_main["case"], "extra_cases": q_extra,
+    }
+    return [k1, k3]
 
 
 KERNEL_GROUPS = (  # substring of a device kernel's name -> its group
     ("flash_attention_fwd_kernel", "K1 flash_attention_fwd"),
+    ("quantize_2bit_kernel", "K3 quantize_2bit"),
+    ("nccl", "NCCL collectives"),
     ("gemm", "matmul"), ("nvjet", "matmul"), ("xmma", "matmul"),
     ("softmax", "softmax"), ("SoftMax", "softmax"),
     ("reduce", "reductions"), ("Reduce", "reductions"),
     ("Memcpy", "copies"), ("copy", "copies"),
 )
-RANGES = ("_FlashAttentionBackward", "_FlashAttention")
+RANGES = ("_FlashAttentionBackward", "_FlashAttention", "forward_backward",
+          "trainer.step")
 
 
-def profile_step(torch, path, lm_state):
-    """One more train step under torch.profiler (after one warm-up step under
-    it): device time by kernel and by group, the inclusive device time of
-    the attention forward and backward, and the device's idle share of the
-    step's wall time (which the profiler itself lengthens)."""
+def profile_steps(torch, step_fn, must_run):
+    """One more step of a path under torch.profiler (after one warm-up step
+    under it): device time by kernel and by group, the inclusive device and
+    host time of the attention forward and backward and of the step's
+    ranges, and the device's idle share of the step's wall time (which the
+    profiler itself lengthens)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
 
-    _, step, state, tokens, targets = lm_state
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  schedule=schedule(wait=0, warmup=1, active=1,
                                    repeat=1)) as prof:
-        for i in range(2):
+        for _ in range(2):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            step(state, tokens, targets, TRAIN_STEPS + i)
+            step_fn()
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
             prof.step()
@@ -274,32 +519,44 @@ def profile_step(torch, path, lm_state):
             row["count"] += 1
     rows = sorted(kernels.values(), key=lambda r: -r["device_ms"])
     busy = sum(r["device_ms"] for r in rows)
-    groups = {}
+    groups, counts = {}, {}
     for r in rows:
         group = next((g for key, g in KERNEL_GROUPS if key in r["name"]),
                      "elementwise and other")
         groups[group] = groups.get(group, 0.0) + r["device_ms"]
+        counts[group] = counts.get(group, 0) + r["count"]
     ranges = {}
     for ev in prof.key_averages():
         for name in RANGES:
             if ev.key.endswith(name):
-                ranges[name] = ev.device_time_total / 1e3
-    result = {"step_wall_ms": wall_ms, "device_busy_ms": busy,
-              "idle_share": max(0.0, 1 - busy / wall_ms),
-              "groups_ms": groups, "ranges_device_ms": ranges}
-    check(groups.get("K1 flash_attention_fwd", 0) > 0,
-          "the profiled step ran no flash_attention_fwd kernel")
-    with open(path, "w") as f:
-        json.dump(dict(result, kernels=rows), f, indent=1)
-    return dict(result, path=path, top=[
-        {"name": r["name"][:80], "device_ms": r["device_ms"],
-         "count": r["count"]} for r in rows[:8]])
+                # a user range appears twice, on the host track and on the
+                # device track: keep the larger of each time
+                r = ranges.setdefault(name, {"device_ms": 0.0,
+                                             "host_ms": 0.0})
+                r["device_ms"] = max(r["device_ms"],
+                                     ev.device_time_total / 1e3)
+                r["host_ms"] = max(r["host_ms"], ev.cpu_time_total / 1e3)
+    for group in must_run:
+        check(groups.get(group, 0) > 0, f"the profiled step ran no {group}")
+    return {"step_wall_ms": wall_ms, "device_busy_ms": busy,
+            "idle_share": max(0.0, 1 - busy / wall_ms),
+            "groups_ms": groups, "groups_launches": counts,
+            "ranges": ranges, "kernels": rows}
+
+
+def profile_summary(profile):
+    """A profile without its full kernel list, with the top 8 kernels."""
+    out = {k: v for k, v in profile.items() if k != "kernels"}
+    out["top"] = [{"name": r["name"][:80], "device_ms": r["device_ms"],
+                   "count": r["count"]} for r in profile["kernels"][:8]]
+    return out
 
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", metavar="OUT.json",
-                        help="also profile one train step into OUT.json")
+                        help="also profile one step of each path into "
+                        "OUT.json")
     args = parser.parse_args(argv)
 
     import torch
@@ -308,6 +565,7 @@ def main(argv=None):
         print("chip_smoke: no CUDA device; this script runs only on a card",
               file=sys.stderr)
         return 2
+    from mxnet_tpu_torch import gradient_compression as gcm
     from mxnet_tpu_torch.ops import _build
     from mxnet_tpu_torch.ops import flash_attention as fa
 
@@ -330,13 +588,27 @@ def main(argv=None):
     emit(build={"seconds": build_s, "sources": names, "built": built,
                 "ptxas": ptxas})
 
-    train, lm_state = train_phase(torch, fa)
+    train, lm_state = train_phase(torch)
     small = small_reference_phase(torch)
-    kernels = kernels_phase(torch, fa, train["kernel_launches"])
+    trainer, trainer_profile = trainer_phase(torch, profile=bool(args.profile))
+    kernels = kernels_phase(torch, fa, gcm, {
+        "train": train["kernel_launches"],
+        "trainer": trainer["kernel_launches"]})
     emit(kernels=kernels)
     emit(train=train, small_reference=small)
+    emit(trainer=trainer)
     if args.profile:
-        emit(profile=profile_step(torch, args.profile, lm_state))
+        _, step, state, tokens, targets = lm_state
+        step_no = iter(range(TRAIN_STEPS, TRAIN_STEPS + 2))
+        profiles = {
+            "train": profile_steps(
+                torch, lambda: step(state, tokens, targets, next(step_no)),
+                must_run=("K1 flash_attention_fwd",)),
+            "trainer": trainer_profile}
+        with open(args.profile, "w") as f:
+            json.dump(profiles, f, indent=1)
+        emit(profile={"path": args.profile, **{
+            k: profile_summary(v) for k, v in profiles.items()}})
     emit(ok=True, device={"platform": "gpu",
                           "kind": torch.cuda.get_device_name(0),
                           "count": torch.cuda.device_count()})

@@ -8,7 +8,10 @@ when no card is present.
 
 Ported so far: `models.transformer.TransformerLM` (dense forward, loss and
 the Adam train step) with the flash-attention forward kernel
-(`ops.flash_attention`).
+(`ops.flash_attention`); data-parallel training through the kvstore
+(`gluon.Trainer`, `kvstore`, `parallel.dist`, `optimizer`, `model`) with
+2-bit gradient compression, whose quantizer is a kernel
+(`gradient_compression`).
 """
 from .context import resolve_device
 

@@ -1,0 +1,207 @@
+"""The port's kvstores (`mxnet_tpu_torch.kvstore`, `.parallel.dist`) held to
+the JAX package's on the CPU, with 2-bit gradient compression.
+
+- The local store's compression ladder with the ``test`` optimizer (the port
+  of `test_local_kvstore_compression`).
+- Error feedback: the local store and the one-worker ``dist_sync`` store
+  pull the same values for the same pushes, and those equal the JAX stores'
+  (the port of `test_compression_error_feedback_parity_local_vs_dist`).
+- Two worker processes over gloo: each pushes its own gradients, and every
+  worker pulls the sum over workers of the reference's expected-value
+  simulation (`expected_2bit`, as in `test_gradient_compression.py`).
+
+Pulled values are compared exactly: every step of the path is exact fp32
+(codes times the threshold, summed over at most two workers).
+"""
+import os
+import queue
+import socket
+import time
+
+import numpy as np
+import pytest
+import torch
+import torch.multiprocessing as tmp
+
+from mxnet_tpu_torch import kvstore as kvs
+from mxnet_tpu_torch import optimizer as topt
+from mxnet_tpu_torch.base import MXNetError
+from mxnet_tpu_torch.parallel import KVStoreDistTPUSync
+
+WORKERS = 2
+DIST_SHAPES = {"a": (2, 3), "b": (33, 65)}
+DIST_STEPS = 3
+DEADLINE_S = 60
+
+
+@pytest.fixture(autouse=True)
+def _one_process(monkeypatch):
+    """No coordinator in this process: dist stores are single-process."""
+    for name in ("MXNET_COORDINATOR", "DMLC_PS_ROOT_URI"):
+        monkeypatch.delenv(name, raising=False)
+
+
+def expected_2bit(arr, curr_residual, threshold):
+    """The reference's simulation: the residual folds in; {-t, 0, +t} out."""
+    r = np.asarray(arr, np.float32) + curr_residual
+    decompr = np.zeros_like(r)
+    new_residual = r.copy()
+    pos = r >= threshold
+    neg = r <= -threshold
+    decompr[pos] = threshold
+    decompr[neg] = -threshold
+    new_residual[pos] -= threshold
+    new_residual[neg] += threshold
+    return new_residual, decompr
+
+
+def test_local_kvstore_compression_ladder():
+    """One worker, compression and the ``test`` optimizer at rate 2: a push
+    below the threshold leaves the value, the next one fires."""
+    rate, t, shape = 2, 0.5, (2, 3)
+    kv = kvs.create("device")
+    kv.set_optimizer(topt.create("test", rescale_grad=rate))
+    kv.set_gradient_compression({"type": "2bit", "threshold": t})
+    kv.init("a", torch.zeros(shape))
+    val = torch.zeros(shape)
+    for push, want in [(0.4, 0.0), (t - 0.4, t * rate), (0.0, t * rate)]:
+        kv.push("a", torch.full(shape, push))
+        kv.pull("a", out=val)
+        np.testing.assert_allclose(val.numpy(), want)
+    with pytest.raises(MXNetError):
+        kv.init("a", torch.zeros(shape))
+    with pytest.raises(MXNetError):
+        kv.push("never_inited", torch.zeros(shape))
+    with pytest.raises(MXNetError):
+        kvs.create("dist_async")
+
+
+def _pulled_after_each_push(kv, seq, zeros, tensor):
+    kv.set_gradient_compression({"type": "2bit", "threshold": 0.5})
+    kv.init("w", zeros())
+    outs = []
+    for g in seq:
+        kv.push("w", tensor(g))
+        out = zeros()
+        kv.pull("w", out=out)
+        outs.append(np.asarray(out.numpy() if isinstance(out, torch.Tensor)
+                               else out.asnumpy()).copy())
+    return outs
+
+
+def test_error_feedback_parity_local_vs_dist_and_jax():
+    """Both stores keep the residual per key: with one worker the dist
+    store's per-worker residual and the local store's are the same state, so
+    the same pushes pull the same values, and the JAX stores' values."""
+    # imported here, not at the top: the gloo test's worker processes
+    # import this module, and need neither JAX nor the JAX package
+    import mxnet_tpu as mx
+    from mxnet_tpu import kvstore as jkvs
+
+    rng = np.random.RandomState(5)
+    seq = [rng.uniform(-1, 1, (64,)).astype(np.float32) for _ in range(4)]
+    port = {name: _pulled_after_each_push(
+        kvs.create(name, device="cpu"), seq, lambda: torch.zeros(64),
+        torch.from_numpy) for name in ("local", "dist_sync")}
+    ref = {name: _pulled_after_each_push(
+        jkvs.create(name), seq, lambda: mx.nd.zeros((64,)), mx.nd.array)
+        for name in ("local", "dist_tpu_sync")}
+    for step in range(len(seq)):
+        want = ref["local"][step]
+        for got in (port["local"], port["dist_sync"], ref["dist_tpu_sync"]):
+            np.testing.assert_array_equal(got[step], want,
+                                          err_msg=f"step {step}")
+    # the residual carries: sub-threshold values come out at a later push
+    assert any(np.abs(x).max() > 0 for x in port["local"])
+
+
+def _free_port():
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _dist_worker(rank, port, results):
+    """One worker of the two-process test: a compressed store fed this
+    rank's gradients through grouped pushes, and a dense store."""
+    os.environ.update(MXNET_COORDINATOR=f"127.0.0.1:{port}",
+                      MXNET_NUM_PROCESSES=str(WORKERS),
+                      MXNET_PROCESS_ID=str(rank), MXNET_INIT_TIMEOUT_S="30")
+    try:
+        kv = kvs.create("dist_sync", device="cpu")
+        assert isinstance(kv, KVStoreDistTPUSync)
+        assert (kv.rank, kv.num_workers) == (rank, WORKERS)
+        kv.set_gradient_compression({"type": "2bit", "threshold": 0.5})
+        keys = sorted(DIST_SHAPES)
+        for k in keys:
+            kv.init(k, torch.zeros(DIST_SHAPES[k]))
+        rng = np.random.RandomState(100 + rank)
+        pulled = []
+        for _ in range(DIST_STEPS):
+            grads = [torch.from_numpy(rng.uniform(
+                -1, 1, DIST_SHAPES[k]).astype(np.float32)) for k in keys]
+            kv.push(keys, grads)
+            outs = [torch.zeros(DIST_SHAPES[k]) for k in keys]
+            kv.pull(keys, out=outs)
+            pulled.append([o.numpy() for o in outs])
+        dense = kvs.create("dist_sync", device="cpu")
+        dense.init("d", torch.zeros(4))
+        dense.push("d", torch.arange(4.0) * (rank + 1))
+        out = torch.zeros(4)
+        dense.pull("d", out=out)
+        kv.barrier()
+        results.put((rank, pulled, out.numpy()))
+    except BaseException as e:  # report to the parent, which fails the test
+        results.put((rank, repr(e), None))
+        raise
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+
+
+def test_two_workers_gloo_compressed_sum():
+    ctx = tmp.get_context("spawn")
+    results = ctx.Queue()
+    port = _free_port()
+    procs = [ctx.Process(target=_dist_worker, args=(r, port, results))
+             for r in range(WORKERS)]
+    for p in procs:
+        p.start()
+    got = {}
+    deadline = time.monotonic() + DEADLINE_S  # a hang fails, within 60 s
+    try:
+        for _ in range(WORKERS):
+            rank, pulled, dense = results.get(
+                timeout=max(0.0, deadline - time.monotonic()))
+            got[rank] = (pulled, dense)
+    except queue.Empty:
+        pass
+    finally:
+        for p in procs:
+            p.join(timeout=max(1.0, deadline - time.monotonic()))
+            if p.is_alive():
+                p.kill()
+                p.join()
+    assert sorted(got) == list(range(WORKERS)), f"workers answered: {got}"
+    for rank, (pulled, dense) in got.items():
+        assert not isinstance(pulled, str), f"worker {rank}: {pulled}"
+        np.testing.assert_array_equal(dense, np.arange(4.0) * 3)
+    assert all(p.exitcode == 0 for p in procs)
+    # every worker's residuals, simulated; the pull is the sum over workers
+    keys = sorted(DIST_SHAPES)
+    rngs = [np.random.RandomState(100 + r) for r in range(WORKERS)]
+    residual = [[np.zeros(DIST_SHAPES[k], np.float32) for k in keys]
+                for _ in range(WORKERS)]
+    for step in range(DIST_STEPS):
+        want = [np.zeros(DIST_SHAPES[k], np.float32) for k in keys]
+        for r in range(WORKERS):
+            for i, k in enumerate(keys):
+                g = rngs[r].uniform(-1, 1, DIST_SHAPES[k]).astype(np.float32)
+                residual[r][i], decompr = expected_2bit(g, residual[r][i],
+                                                        0.5)
+                want[i] += decompr
+        for rank in range(WORKERS):
+            for i, k in enumerate(keys):
+                np.testing.assert_array_equal(
+                    got[rank][0][step][i], want[i],
+                    err_msg=f"rank {rank} step {step} key {k}")
