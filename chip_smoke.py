@@ -12,6 +12,11 @@ Phases, each printed as one JSON line:
            `TransformerLMConfig` width (bf16, 4 layers, d_model 512, 8 heads,
            vocab 32768) on one batch of 8 x 2048 tokens; then the same path
            on a small fp32 input on the card and on the CPU;
+  ring     slice 3's path: the same model, weights and batch trained 3 steps
+           with a 4-way `sp` mesh whose positions all sit on cuda:0, so
+           attention is ring attention: per layer and step 4 x 4 K2 hops
+           and their streaming combine, the backward through the ring; then
+           the small fp32 input with sp = 4 on the card and on the CPU;
   trainer  slice 2's path: the same model and batch trained 3 steps by
            `gluon.Trainer` (multi-precision Adam) through a `dist_sync`
            kvstore with 2-bit gradient compression, in a one-rank NCCL
@@ -24,10 +29,12 @@ Phases, each printed as one JSON line:
            PyTorch library call's as a yardstick where one exists, and the
            least time the card could take (`bound_ms`, H100 SXM peaks);
 and last {"ok": true, "device": {...}}. Every kernel's launch count is set
-to 0 just before each path and read just after. Any failed check raises, so
-the script exits non-zero and prints no last line; so does a machine
-without a CUDA card. `--profile` also writes a torch.profiler breakdown of
-one more step of each path, by kernel, to OUT.json.
+to 0 just before each path and read just after; each path must launch its
+own kernels and no other. Any failed check raises, so the script exits
+non-zero and prints no last line; so does a machine without a CUDA card.
+`--profile` also writes a torch.profiler breakdown of one more step of each
+path, by kernel, to OUT.json; each profile must hold every launch of the
+port's kernels that its step made.
 """
 from __future__ import annotations
 
@@ -50,6 +57,11 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 TRAIN_STEPS = 3
 TRAIN_BATCH, TRAIN_LEN = 8, 2048
 COMPRESSION = {"type": "2bit", "threshold": 0.5}  # MXNet's default threshold
+RING_SP = 4
+# the ring's first loss against the train path's: the same weights and
+# tokens, attention rounded to bf16 at other places (K2 hops and the combine
+# against K1), over 4 layers
+RING_FIRST_LOSS_TOL = 2e-2
 
 
 def emit(**obj):
@@ -67,6 +79,7 @@ def kernel_wrappers():
     from mxnet_tpu_torch.ops import flash_attention as fa
 
     return {"flash_attention_fwd": fa.flash_attention_fwd_kernel,
+            "flash_block_partials": fa.flash_block_partials_kernel,
             "quantize_2bit": gcm.quantize_2bit_kernel}
 
 
@@ -106,12 +119,17 @@ def cuda_ms(fn, reps=20, warmup=3):
     return statistics.median(times)
 
 
-def attention_bound(b, lq, lk, h, d, dtype, causal):
+def attention_bound(b, lq, lk, h, d, dtype, causal, bias=False,
+                    stats=False):
     """(ms, "bytes" | "operations"): the least time for one attention call,
     counting q, k, v read once and o written once, and the 2*2*d FLOP of
-    QK^T and PV for each (query, key) pair the mask keeps."""
+    QK^T and PV for each (query, key) pair the causal mask keeps (every
+    pair when `causal` is false: a bias is data, and K2 computes every
+    tile). `bias` adds the read of one (lq, lk) fp32 bias, `stats` the
+    writes of the fp32 row max and sum-exp ([b, h, lq] each)."""
     elt = 2 if dtype == "bfloat16" else 4
     nbytes = elt * h * d * b * (2 * lq + 2 * lk)
+    nbytes += 4 * lq * lk * bias + 2 * 4 * b * h * lq * stats
     pairs = b * h * (lq * (lq + 1) // 2 if causal else lq * lk)
     t_bytes = nbytes / PEAK_BYTES_PER_S
     t_ops = 4 * d * pairs / PEAK_FLOPS[dtype]
@@ -119,20 +137,35 @@ def attention_bound(b, lq, lk, h, d, dtype, causal):
                                        else "operations")
 
 
-def train_phase(torch):
+def default_model_and_batch(torch, mesh=None):
+    """The default `TransformerLM` on cuda from seed 0 and one batch of
+    tokens and targets drawn after its weights: the same weights and tokens
+    for every path."""
     from mxnet_tpu_torch.models import TransformerLM, TransformerLMConfig
 
     cfg = TransformerLMConfig()
     gen = torch.Generator(device="cuda").manual_seed(0)
-    lm = TransformerLM(cfg, device="cuda", generator=gen)
-    n_params = sum(p.numel() for p in lm.parameters())
-    step, init_opt = lm.make_train_step(lr=1e-3)
-    state = init_opt()
+    lm = TransformerLM(cfg, device="cuda", generator=gen, mesh=mesh)
     shape = (TRAIN_BATCH, TRAIN_LEN)
     tokens = torch.randint(0, cfg.vocab_size, shape, generator=gen,
                            device="cuda")
     targets = torch.randint(0, cfg.vocab_size, shape, generator=gen,
                             device="cuda")
+    return cfg, lm, tokens, targets
+
+
+def train_phase(torch, mesh=None):
+    """3 Adam steps of the default model (`make_train_step`); with a mesh
+    whose sp axis is above 1, attention is ring attention over it (slice
+    3), else the local flash-attention forward (slice 1)."""
+    from mxnet_tpu_torch.parallel import axis_size
+
+    held = torch.cuda.memory_allocated() / 1e9  # by earlier phases
+    cfg, lm, tokens, targets = default_model_and_batch(torch, mesh)
+    sp = axis_size(mesh, "sp")
+    n_params = sum(p.numel() for p in lm.parameters())
+    step, init_opt = lm.make_train_step(lr=1e-3)
+    state = init_opt()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
@@ -151,9 +184,12 @@ def train_phase(torch):
     check(losses[-1] < losses[0], f"loss did not fall: {losses}")
     check(all(bool(torch.isfinite(p).all()) for p in lm.parameters()),
           "non-finite parameter after training")
-    want = TRAIN_STEPS * cfg.n_layers
-    check(launches["flash_attention_fwd"] == want,
-          f"flash_attention_fwd launched {launches} times, want {want}")
+    attention = TRAIN_STEPS * cfg.n_layers
+    want = {"flash_attention_fwd": attention if sp == 1 else 0,
+            # every position against every K/V block, in every layer
+            "flash_block_partials": attention * sp * sp if sp > 1 else 0,
+            "quantize_2bit": 0}
+    check(launches == want, f"path launched {launches}, want {want}")
     tail = statistics.median(seconds[1:])
     result = {
         "config": "TransformerLMConfig() defaults", "params": n_params,
@@ -162,22 +198,51 @@ def train_phase(torch):
         "tokens_per_s": TRAIN_BATCH * TRAIN_LEN / tail,
         "tokens_per_s_from": "median of steps 2..3",
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-        "kernel_launches": launches,
+        "held_before_gb": held, "kernel_launches": launches,
     }
+    if mesh is not None:
+        result["mesh"] = {"shape": mesh.shape,
+                          "positions": [str(d) for d in mesh.devices]}
     return result, (lm, step, state, tokens, targets)
 
 
-def small_reference_phase(torch):
-    """The main path on a small fp32 input, on the card (through the kernel)
-    and on the CPU (through the plain version), from the same weights."""
+def ring_phase(torch, train):
+    """Slice 3's path: the train phase's model, weights and batch with a
+    4-way sp mesh whose positions all sit on cuda:0. Its first loss must be
+    the train phase's, up to bf16 rounding: the same function, with
+    attention through K2 and the combine instead of K1."""
+    from mxnet_tpu_torch.parallel import create_mesh
+
+    mesh = create_mesh(devices=[torch.device("cuda", 0)] * RING_SP,
+                       sp=RING_SP)
+    ring, ring_state = train_phase(torch, mesh)
+    diff = abs(ring["losses"][0] - train["losses"][0])
+    check(diff <= RING_FIRST_LOSS_TOL,
+          f"ring first loss {ring['losses'][0]} vs the train path's "
+          f"{train['losses'][0]}: {diff} > {RING_FIRST_LOSS_TOL}")
+    ring.update(first_loss_vs_train=diff,
+                first_loss_tol=RING_FIRST_LOSS_TOL)
+    return ring, ring_state
+
+
+def small_reference_phase(torch, sp=1):
+    """The main path on a small fp32 input, on the card (through the
+    kernels) and on the CPU (through the plain versions), from the same
+    weights; with `sp` > 1, ring attention over that many positions, on
+    cuda:0 and on the CPU."""
     from mxnet_tpu_torch.models import TransformerLM, TransformerLMConfig
+    from mxnet_tpu_torch.parallel import create_mesh
 
     cfg = TransformerLMConfig(vocab_size=512, d_model=128, n_heads=2,
                               d_ff=256, n_layers=2, max_len=256,
                               dtype="float32")
+
+    def mesh(device):
+        return create_mesh(devices=[device] * sp, sp=sp) if sp > 1 else None
+
     gen = torch.Generator().manual_seed(1)
-    cpu = TransformerLM(cfg, device="cpu", generator=gen)
-    gpu = TransformerLM(cfg, device="cuda")
+    cpu = TransformerLM(cfg, device="cpu", generator=gen, mesh=mesh("cpu"))
+    gpu = TransformerLM(cfg, device="cuda", mesh=mesh("cuda:0"))
     gpu.load_state_dict(cpu.state_dict())
     tokens = torch.randint(0, cfg.vocab_size, (2, 200), generator=gen)
     targets = torch.randint(0, cfg.vocab_size, (2, 200), generator=gen)
@@ -193,7 +258,7 @@ def small_reference_phase(torch):
     check(abs(loss_gpu - loss_cpu) <= tol,
           f"small fp32 loss card {loss_gpu} vs CPU {loss_cpu}")
     return {"shape": [2, 200], "config": "vocab 512, d_model 128, 2 heads, "
-            "2 layers, fp32", "logits_max_abs_err": err, "tol": tol,
+            "2 layers, fp32", "sp": sp, "logits_max_abs_err": err, "tol": tol,
             "loss_card": loss_gpu, "loss_cpu": loss_cpu}
 
 
@@ -239,18 +304,11 @@ def trainer_phase(torch, profile=False):
 
     from mxnet_tpu_torch import gradient_compression as gcm
     from mxnet_tpu_torch.gluon import Trainer
-    from mxnet_tpu_torch.models import TransformerLM, TransformerLMConfig
     from mxnet_tpu_torch.parallel import KVStoreDistTPUSync
 
-    cfg = TransformerLMConfig()
+    held = torch.cuda.memory_allocated() / 1e9  # by earlier phases
+    cfg, lm, tokens, targets = default_model_and_batch(torch)
     n_tokens = TRAIN_BATCH * TRAIN_LEN
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    lm = TransformerLM(cfg, device="cuda", generator=gen)
-    shape = (TRAIN_BATCH, TRAIN_LEN)
-    tokens = torch.randint(0, cfg.vocab_size, shape, generator=gen,
-                           device="cuda")
-    targets = torch.randint(0, cfg.vocab_size, shape, generator=gen,
-                            device="cuda")
     n_keys = len(list(lm.parameters()))  # the tied head is embed itself
     n_values = sum(p.numel() for p in lm.parameters())
 
@@ -311,10 +369,11 @@ def trainer_phase(torch, profile=False):
                       for p in lm.parameters()),
                   "non-finite parameter after trainer steps")
             want = {"quantize_2bit": n_keys * TRAIN_STEPS,
-                    "flash_attention_fwd": cfg.n_layers * TRAIN_STEPS}
+                    "flash_attention_fwd": cfg.n_layers * TRAIN_STEPS,
+                    "flash_block_partials": 0}
             check(launches == want,
                   f"trainer path launched {launches}, want {want}")
-            profiled = profile_steps(
+            profiled = profile_step(
                 torch, lambda: one_step(trainer),
                 must_run=("K1 flash_attention_fwd", "K3 quantize_2bit")) \
                 if profile else None
@@ -335,7 +394,8 @@ def trainer_phase(torch, profile=False):
         "tokens_per_s": n_tokens / tail,
         "tokens_per_s_from": "median of steps 2..3",
         "nonzero_code_share": shares,
-        "peak_mem_gb": peak, "kernel_launches": launches,
+        "peak_mem_gb": peak, "held_before_gb": held,
+        "kernel_launches": launches,
     }, profiled
 
 
@@ -419,6 +479,83 @@ def quantize_case(torch, gcm, *, shape, dtype, threshold, timed, nan=False):
     return case
 
 
+def hop_bias(torch, kind, lq, lk):
+    """One hop's (Lq, Lk) fp32 bias on the card, or None. The causal kinds
+    are the ring's mask for query rows q0.. and keys k0.. (0 where
+    q >= k, else -1e30). The ring's hops of equal blocks are of three kinds:
+    "diagonal", a position's own block; "past", a block wholly before the
+    queries, whose bias is all zeros (6 of the 16 hops a layer at sp = 4);
+    "masked", a block wholly in the queries' future. "offset", keys starting
+    half a block before the queries, is a partly masked off-diagonal hop that
+    blocks of unequal length would give."""
+    if kind == "none":
+        return None
+    if kind == "random":
+        gen = torch.Generator(device="cuda").manual_seed(lq + lk)
+        return torch.randn(lq, lk, generator=gen, device="cuda")
+    q0, k0 = {"offset": (lk, lk // 2), "diagonal": (0, 0),
+              "past": (lk, 0), "masked": (0, lq)}[kind]
+    q_pos = q0 + torch.arange(lq, device="cuda")[:, None]
+    k_pos = k0 + torch.arange(lk, device="cuda")[None, :]
+    return torch.where(q_pos >= k_pos, 0.0, -1e30).float()
+
+
+def partials_case(torch, fa, F, *, b, lq, lk, h, d, dtype, bias, tol, timed):
+    """K2 vs its plain version (`_block_attn`) on inputs shaped as the ring
+    gives them: q, k, v strided views of one [B, L, 3*H*D] projection. m and
+    l must agree to rtol 1e-4 (fp32 statistics of scores summed in another
+    order), the normalized output o / l to `tol`."""
+    from mxnet_tpu_torch.parallel.ring_attention import _block_attn
+
+    gen = torch.Generator(device="cuda").manual_seed(lq * d + lk)
+    qkv = torch.randn(b, max(lq, lk), 3 * h * d, device="cuda",
+                      generator=gen).to(getattr(torch, dtype))
+    q = qkv[:, :lq, :h * d].view(b, lq, h, d)
+    k, v = (t.view(b, lk, h, d)
+            for t in qkv[:, :lk, h * d:].split(h * d, dim=-1))
+    bias_t = hop_bias(torch, bias, lq, lk)
+    scale = 1.0 / math.sqrt(d)
+    o, m, l = fa.flash_block_partials_kernel(q, k, v, bias_t, scale)
+    ro, rm, rl = _block_attn(q, k, v, bias_t, scale)
+    torch.cuda.synchronize()
+    name = f"{dtype} B={b} Lq={lq} Lk={lk} H={h} D={d} bias={bias}"
+    check(o.shape == q.shape and o.dtype == q.dtype and m.shape == l.shape
+          == (b, h, lq, 1), f"{name}: output shapes")
+    # relative errors (absolute where |m| < 1); m is -1e30 in fully masked
+    # rows
+    m_err = float(((m - rm).abs() / rm.abs().clamp_min(1.0)).max())
+    l_err = float(((l - rl).abs() / rl.abs()).max())
+    out = o.float() / l.permute(0, 2, 1, 3)
+    ref = ro.float() / rl.permute(0, 2, 1, 3)
+    diff = (out - ref).abs()
+    err = float(diff.max())
+    check(m_err <= 1e-4 and l_err <= 1e-4,
+          f"{name}: m rel err {m_err}, l rel err {l_err} beyond 1e-4")
+    # allclose with atol = rtol = tol, the JAX package's kernel-test bound
+    check(bool((diff <= tol + tol * ref.abs()).all()),
+          f"{name}: o / l max abs err {err} beyond {tol}")
+    case = {"case": name, "max_abs_err": err, "tol": tol,
+            "m_rel_err": m_err, "l_rel_err": l_err, "stats_rtol": 1e-4}
+    if timed:
+        bound_ms, bound_by = attention_bound(b, lq, lk, h, d, dtype,
+                                             causal=False,
+                                             bias=bias_t is not None,
+                                             stats=True)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        mask = None if bias_t is None else bias_t.to(q.dtype)
+        case.update(
+            ms=cuda_ms(lambda: fa.flash_block_partials_kernel(
+                q, k, v, bias_t, scale)),
+            plain_ms=cuda_ms(lambda: _block_attn(q, k, v, bias_t, scale)),
+            library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, scale=scale)),
+            library="torch.nn.functional.scaled_dot_product_attention with "
+            "the bias as attn_mask: the same work, normalized output (no "
+            "single PyTorch call returns the unnormalized partials)",
+            bound_ms=bound_ms, bound_by=bound_by)
+    return case
+
+
 def kernels_phase(torch, fa, gcm, launches):
     """The kernels line; `launches` maps each path to its launch counts."""
     import torch.nn.functional as F
@@ -472,11 +609,50 @@ def kernels_phase(torch, fa, gcm, launches):
         "bound_ms": q_main["bound_ms"], "bound_by": q_main["bound_by"],
         "case": q_main["case"], "extra_cases": q_extra,
     }
-    return [k1, k3]
+    # one ring hop at the ring path's shapes, Lq = Lk = 2048 / sp, with the
+    # bias the ring passes most: a past block's all-zero mask
+    hop = TRAIN_LEN // RING_SP
+    p_main = partials_case(torch, fa, F, b=TRAIN_BATCH, lq=hop, lk=hop, h=8,
+                           d=64, dtype="bfloat16", bias="past", tol=2e-2,
+                           timed=True)
+    p_extra = [
+        partials_case(torch, fa, F, b=TRAIN_BATCH, lq=hop, lk=hop, h=8, d=64,
+                      dtype="bfloat16", bias=kind, tol=2e-2, timed=False)
+        for kind in ("masked", "diagonal", "offset", "none", "random")]
+    p_extra += [
+        partials_case(torch, fa, F, b=2, lq=100, lk=300, h=3, d=64,
+                      dtype="float32", bias="offset", tol=1e-5, timed=False),
+        partials_case(torch, fa, F, b=2, lq=100, lk=300, h=3, d=64,
+                      dtype="float32", bias="masked", tol=1e-5, timed=False),
+        partials_case(torch, fa, F, b=2, lq=256, lk=256, h=4, d=32,
+                      dtype="bfloat16", bias="diagonal", tol=2e-2,
+                      timed=False),
+        partials_case(torch, fa, F, b=2, lq=256, lk=256, h=4, d=128,
+                      dtype="bfloat16", bias="offset", tol=2e-2, timed=False),
+        partials_case(torch, fa, F, b=1, lq=130, lk=70, h=2, d=128,
+                      dtype="float32", bias="random", tol=1e-5, timed=False),
+    ]
+    k2 = {
+        "name": "flash_block_partials", "route": "cuda",
+        "source": "mxnet_tpu_torch/ops/csrc/flash_block_partials.cu",
+        "replaces": "mxnet_tpu/ops/pallas_attention.py:188",
+        "launches": launches["ring"]["flash_block_partials"],
+        "launches_by_path": {p: c["flash_block_partials"]
+                             for p, c in launches.items()},
+        "max_abs_err": p_main["max_abs_err"], "tol": p_main["tol"],
+        "m_rel_err": p_main["m_rel_err"], "l_rel_err": p_main["l_rel_err"],
+        "ms": p_main["ms"], "kernel_ms": p_main["ms"],
+        "plain_ms": p_main["plain_ms"], "library_ms": p_main["library_ms"],
+        "library": p_main["library"], "bound_ms": p_main["bound_ms"],
+        "bound_by": p_main["bound_by"], "case": p_main["case"],
+        "extra_cases": p_extra,
+    }
+    return [k1, k2, k3]
 
 
 KERNEL_GROUPS = (  # substring of a device kernel's name -> its group
     ("flash_attention_fwd_kernel", "K1 flash_attention_fwd"),
+    ("flash_block_partials_kernel", "K2 flash_block_partials"),
     ("quantize_2bit_kernel", "K3 quantize_2bit"),
     ("nccl", "NCCL collectives"),
     ("gemm", "matmul"), ("nvjet", "matmul"), ("xmma", "matmul"),
@@ -484,34 +660,39 @@ KERNEL_GROUPS = (  # substring of a device kernel's name -> its group
     ("reduce", "reductions"), ("Reduce", "reductions"),
     ("Memcpy", "copies"), ("copy", "copies"),
 )
-RANGES = ("_FlashAttentionBackward", "_FlashAttention", "forward_backward",
+RANGES = ("_FlashAttentionBackward", "_FlashAttention",
+          "_BlockPartialsBackward", "_BlockPartials", "forward_backward",
           "trainer.step")
 
 
-def profile_steps(torch, step_fn, must_run):
-    """One more step of a path under torch.profiler (after one warm-up step
-    under it): device time by kernel and by group, the inclusive device and
-    host time of the attention forward and backward and of the step's
-    ranges, and the device's idle share of the step's wall time (which the
-    profiler itself lengthens)."""
+def profile_step(torch, step_fn, must_run):
+    """One more step of a path under torch.profiler: device time by kernel
+    and by group, the inclusive device and host time of the attention
+    forward and backward and of the step's ranges, and the device's idle
+    share of the step's wall time (which the profiler itself lengthens).
+    The step is profiled alone, with no schedule, after a tiny profile that
+    starts the tracer, and the profile must hold every launch of the port's
+    kernels that the step made."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile, schedule
+    from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=1,
-                                   repeat=1)) as prof:
-        for _ in range(2):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            step_fn()
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-            prof.step()
+    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=activities):
+        torch.ones(1, device="cuda").add_(1)
+        torch.cuda.synchronize()
+    before = read_launches()
+    with profile(activities=activities) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step_fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    launched = {name: count - before[name]
+                for name, count in read_launches().items()}
     kernels = {}
     for ev in prof.events():
-        # device work only: skip the step's own range on the device track
+        # device work only: skip user ranges on the device track
         if (ev.device_type == DeviceType.CUDA
-                and not ev.name.startswith("ProfilerStep")
                 and not getattr(ev, "is_user_annotation", False)):
             row = kernels.setdefault(ev.name, {"name": ev.name,
                                                "device_ms": 0.0, "count": 0})
@@ -538,8 +719,14 @@ def profile_steps(torch, step_fn, must_run):
                 r["host_ms"] = max(r["host_ms"], ev.cpu_time_total / 1e3)
     for group in must_run:
         check(groups.get(group, 0) > 0, f"the profiled step ran no {group}")
+    for name in launched:
+        group = next(g for key, g in KERNEL_GROUPS if key == f"{name}_kernel")
+        check(counts.get(group, 0) == launched[name],
+              f"the profile holds {counts.get(group, 0)} of the step's "
+              f"{launched[name]} launches of {name}")
     return {"step_wall_ms": wall_ms, "device_busy_ms": busy,
             "idle_share": max(0.0, 1 - busy / wall_ms),
+            "kernel_launches": launched,
             "groups_ms": groups, "groups_launches": counts,
             "ranges": ranges, "kernels": rows}
 
@@ -590,20 +777,27 @@ def main(argv=None):
 
     train, lm_state = train_phase(torch)
     small = small_reference_phase(torch)
+    ring, ring_state = ring_phase(torch, train)
+    small_ring = small_reference_phase(torch, sp=RING_SP)
     trainer, trainer_profile = trainer_phase(torch, profile=bool(args.profile))
     kernels = kernels_phase(torch, fa, gcm, {
         "train": train["kernel_launches"],
+        "ring": ring["kernel_launches"],
         "trainer": trainer["kernel_launches"]})
     emit(kernels=kernels)
     emit(train=train, small_reference=small)
+    emit(ring=ring, small_reference=small_ring)
     emit(trainer=trainer)
     if args.profile:
-        _, step, state, tokens, targets = lm_state
-        step_no = iter(range(TRAIN_STEPS, TRAIN_STEPS + 2))
+        def one_more_step(state_of_path):
+            _, step, state, tokens, targets = state_of_path
+            return lambda: step(state, tokens, targets, TRAIN_STEPS)
+
         profiles = {
-            "train": profile_steps(
-                torch, lambda: step(state, tokens, targets, next(step_no)),
-                must_run=("K1 flash_attention_fwd",)),
+            "train": profile_step(torch, one_more_step(lm_state),
+                                  must_run=("K1 flash_attention_fwd",)),
+            "ring": profile_step(torch, one_more_step(ring_state),
+                                 must_run=("K2 flash_block_partials",)),
             "trainer": trainer_profile}
         with open(args.profile, "w") as f:
             json.dump(profiles, f, indent=1)

@@ -11,7 +11,10 @@ the Adam train step) with the flash-attention forward kernel
 (`ops.flash_attention`); data-parallel training through the kvstore
 (`gluon.Trainer`, `kvstore`, `parallel.dist`, `optimizer`, `model`) with
 2-bit gradient compression, whose quantizer is a kernel
-(`gradient_compression`).
+(`gradient_compression`); sequence parallelism by ring attention over the
+`sp` axis of a mesh that one process holds (`parallel.mesh`,
+`parallel.ring_attention`, `TransformerLM(..., mesh=...)`), whose hop is a
+kernel (`ops.flash_attention.flash_block_partials`).
 """
 from .context import resolve_device
 

@@ -6,9 +6,12 @@ dict bound to a mesh; here it is an `nn.Module` on one device. Parameters
 keep the JAX layouts (``x @ w``, `wqkv` as [D, 3D], the tied head as
 ``embed.T``) so weights cross over by copy (`models.convert`). Local
 attention goes through `ops.flash_attention`: the hand-written kernel on a
-CUDA tensor, the plain version on a CPU tensor. Not ported: the mesh and its
-sharding constraints, ring attention (sequence parallelism), the MoE FFN,
-and the incremental-decoding methods.
+CUDA tensor, the plain version on a CPU tensor. With a mesh whose `sp`
+axis is above 1, attention is ring attention over the mesh's positions
+(`parallel.ring_attention`, whose hops are the ring-hop kernel on a CUDA
+tensor), as the JAX model's `_attention` takes it. Not ported: the other
+mesh axes and the sharding constraints, the MoE FFN, and the
+incremental-decoding methods.
 """
 from __future__ import annotations
 
@@ -21,6 +24,8 @@ from torch import nn
 
 from ..context import resolve_device
 from ..ops.flash_attention import flash_attention
+from ..parallel.mesh import AXIS_SP, axis_size
+from ..parallel.ring_attention import ring_self_attention
 
 __all__ = ["TransformerLMConfig", "TransformerLM"]
 
@@ -69,9 +74,12 @@ class TransformerLM(nn.Module):
     `device` defaults to ``cuda`` and raises without a card; pass
     ``device="cpu"`` for the CPU. Parameters are created in the config's
     compute dtype and initialised from `generator` (a `torch.Generator`,
-    seeded 0 on `device` when omitted)."""
+    seeded 0 on `device` when omitted). `mesh` (a `parallel.DeviceMesh`)
+    with an `sp` axis above 1 shards attention's sequence over its
+    positions, whose devices must be of `device`'s type; the parameters and
+    the rest of the model stay on `device`."""
 
-    def __init__(self, config, device=None, generator=None):
+    def __init__(self, config, device=None, generator=None, mesh=None):
         super().__init__()
         if config.moe_experts:
             raise NotImplementedError(
@@ -80,6 +88,12 @@ class TransformerLM(nn.Module):
             raise ValueError("d_model must be a multiple of n_heads")
         self.cfg = config
         self.device = resolve_device(device)
+        if axis_size(mesh, AXIS_SP) > 1 and any(
+                d.type != self.device.type for d in mesh.devices):
+            raise ValueError(f"mesh positions {mesh.devices} are not all "
+                             f"on {self.device.type} devices, as the model "
+                             f"({self.device}) is")
+        self.mesh = mesh
         dt = getattr(torch, config.dtype)
         c = config
         p = _empty(self.device, dt)
@@ -124,7 +138,13 @@ class TransformerLM(nn.Module):
         return (out * scale.float() + bias.float()).to(x.dtype)
 
     def _attention(self, q, k, v):
-        # the kernel on a CUDA tensor, the plain version on a CPU tensor
+        """Ring attention when the mesh's `sp` axis is above 1 (q, k and v
+        split along L over its positions, the output joined on the model's
+        device), else local attention; each runs its kernel on a CUDA
+        tensor and its plain version on a CPU tensor."""
+        if axis_size(self.mesh, AXIS_SP) > 1:
+            return ring_self_attention(q, k, v, mesh=self.mesh,
+                                       causal=self.cfg.causal)
         return flash_attention(q, k, v, causal=self.cfg.causal)
 
     def forward(self, tokens):

@@ -13,6 +13,15 @@ contiguous), so the strided views that split the transformer's fused QKV
 projection go to it without a copy. Unlike the Pallas kernel it masks the
 ragged edge of L itself, so it takes any length; like it, it refuses causal
 attention between sequences of different lengths.
+
+`flash_block_partials` is one hop of ring attention (`_partial_kernel`,
+`flash_block_partials`, `_make_partials_vjp` and `block_partials_pallas` of
+the JAX module): the unnormalized partials `(o, m, l)` of one query block
+against one K/V block under an additive (Lq, Lk) bias. On a CUDA tensor it
+launches `csrc/flash_block_partials.cu` or raises; on a CPU tensor it
+computes the plain version, the ring's `_block_attn`. `block_partials` makes
+it differentiable, recomputing through `_block_attn` as the JAX `custom_vjp`
+does.
 """
 from __future__ import annotations
 
@@ -23,11 +32,13 @@ import torch
 
 from . import _build
 
-__all__ = ["flash_attention", "flash_attention_fwd_kernel",
+__all__ = ["block_partials", "flash_attention", "flash_attention_fwd_kernel",
+           "flash_block_partials", "flash_block_partials_kernel",
            "reference_attention"]
 
 _NEG_INF = -1e30
 _KERNEL = "flash_attention_fwd"
+_PARTIALS_KERNEL = "flash_block_partials"
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 64, 128)
 
@@ -45,33 +56,29 @@ def reference_attention(q, k, v, causal=False, scale=None):
     return torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype), v)
 
 
-def _check_kernel_args(q, k, v):
-    """Raise ValueError for inputs the kernel does not take."""
+def _check_kernel_args(q, k, v, what="flash_attention kernel"):
+    """Raise ValueError for inputs the kernel `what` does not take."""
     if not (q.is_cuda and k.device == q.device and v.device == q.device):
-        raise ValueError("flash_attention kernel: q, k and v must lie on one "
-                         f"CUDA device, got {q.device}, {k.device}, {v.device}")
+        raise ValueError(f"{what}: q, k and v must lie on one CUDA device, "
+                         f"got {q.device}, {k.device}, {v.device}")
     if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise ValueError("flash_attention kernel: q, k and v must all be "
-                         f"float32 or bfloat16, got {q.dtype}, {k.dtype}, "
-                         f"{v.dtype}")
+        raise ValueError(f"{what}: q, k and v must all be float32 or "
+                         f"bfloat16, got {q.dtype}, {k.dtype}, {v.dtype}")
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
-        raise ValueError("flash_attention kernel: expected [B, L, H, D] "
-                         "tensors")
+        raise ValueError(f"{what}: expected [B, L, H, D] tensors")
     b, lq, h, d = q.shape
     if k.shape != v.shape or k.shape[0] != b or k.shape[2:] != (h, d):
-        raise ValueError(f"flash_attention kernel: shapes q {tuple(q.shape)}, "
+        raise ValueError(f"{what}: shapes q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}, v {tuple(v.shape)} disagree")
     if d not in _HEAD_DIMS:
-        raise ValueError(f"flash_attention kernel: head dim {d} not in "
-                         f"{_HEAD_DIMS}")
+        raise ValueError(f"{what}: head dim {d} not in {_HEAD_DIMS}")
     if min(b, lq, h, k.shape[1]) == 0:
-        raise ValueError("flash_attention kernel: empty input")
+        raise ValueError(f"{what}: empty input")
     if b * h > 65535:
-        raise ValueError(f"flash_attention kernel: B*H = {b * h} exceeds the "
-                         "grid limit 65535")
+        raise ValueError(f"{what}: B*H = {b * h} exceeds the grid limit "
+                         "65535")
     if any(t.stride(-1) != 1 for t in (q, k, v)):
-        raise ValueError("flash_attention kernel: the head-dim axis must be "
-                         "contiguous")
+        raise ValueError(f"{what}: the head-dim axis must be contiguous")
 
 
 def _kernel_lib():
@@ -156,3 +163,126 @@ def flash_attention(q, k, v, causal=False, scale=None):
             f"flash_attention: causal requires lq == lk, got ({lq}, {lk})")
     scale = float(scale if scale is not None else 1.0 / math.sqrt(q.shape[-1]))
     return _FlashAttention.apply(q, k, v, bool(causal), scale)
+
+
+# ---------------------------------------------------------------------------
+# One ring hop: the unnormalized partials of one query block against one K/V
+# block (`_partial_kernel` of the JAX module), for `parallel.ring_attention`.
+# ---------------------------------------------------------------------------
+
+
+def _partials_lib():
+    lib = _build.library(_PARTIALS_KERNEL)
+    fn = lib.mxtt_flash_block_partials
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i,
+                       ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, p]
+        fn.restype = ctypes.c_int
+        lib.mxtt_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.mxtt_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def flash_block_partials_kernel(q, k, v, bias, scale):
+    """Launch the CUDA kernel on q [B, Lq, H, D], k, v [B, Lk, H, D] (fp32 or
+    bf16, on one card) and `bias`, a contiguous (Lq, Lk) fp32 tensor on the
+    same card or None. Returns `(o, m, l)`: o [B, Lq, H, D] in q's dtype,
+    unnormalized; m and l [B, H, Lq, 1] fp32. Counts each launch in
+    `flash_block_partials_kernel.launches`."""
+    what = "flash_block_partials kernel"
+    _check_kernel_args(q, k, v, what)
+    b, lq, h, d = q.shape
+    lk = k.shape[1]
+    if bias is not None and not (
+            bias.device == q.device and bias.dtype == torch.float32
+            and tuple(bias.shape) == (lq, lk) and bias.is_contiguous()):
+        raise ValueError(f"{what}: bias must be a contiguous ({lq}, {lk}) "
+                         f"float32 tensor on {q.device}, got "
+                         f"{tuple(bias.shape)} {bias.dtype} on {bias.device}")
+    o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    m = torch.empty((b, h, lq, 1), dtype=torch.float32, device=q.device)
+    l = torch.empty((b, h, lq, 1), dtype=torch.float32, device=q.device)
+    strides = (ctypes.c_longlong * 12)(*(
+        s for t in (q, k, v, o) for s in t.stride()[:3]))
+    lib = _partials_lib()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.mxtt_flash_block_partials(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            None if bias is None else bias.data_ptr(), o.data_ptr(),
+            m.data_ptr(), l.data_ptr(), _DTYPE_CODES[q.dtype], b, h, lq, lk,
+            d, strides, float(scale), stream)
+    if err != 0:
+        msg = lib.mxtt_cuda_error_string(err).decode()
+        raise RuntimeError(f"flash_block_partials kernel launch failed: {msg}")
+    flash_block_partials_kernel.launches += 1
+    return o, m, l
+
+
+flash_block_partials_kernel.launches = 0
+
+
+def flash_block_partials(q, k, v, bias=None, scale=None):
+    """The partials `(o, m, l)` of `_block_attn`: o = exp(s - m) @ v,
+    UNNORMALIZED, [B, Lq, H, D] in q's dtype; m the row max and l the row
+    sum-exp of s = q k^T * scale + bias, [B, H, Lq, 1] fp32. `bias` is one
+    additive (Lq, Lk) mask shared by every batch row and head (any shape of
+    Lq * Lk elements, such as the ring's [1, 1, Lq, Lk]); another size raises
+    ValueError. The kernel on a CUDA tensor, the plain version on a CPU
+    tensor."""
+    lq, lk = q.shape[1], k.shape[1]
+    scale = float(scale if scale is not None else 1.0 / math.sqrt(q.shape[-1]))
+    if bias is not None:
+        if bias.numel() != lq * lk:
+            # one (Lq, Lk) mask for every batch row and head: collapsing a
+            # per-head bias would be wrong
+            raise ValueError(
+                f"flash_block_partials: bias shape {tuple(bias.shape)} is "
+                f"not a broadcastable ({lq}, {lk}) mask")
+        bias = bias.to(device=q.device, dtype=torch.float32).reshape(
+            lq, lk).contiguous()
+    if q.device.type == "cuda":
+        return flash_block_partials_kernel(q, k, v, bias, scale)
+    if q.device.type == "cpu":
+        from ..parallel.ring_attention import _block_attn
+
+        return _block_attn(q, k, v, bias, scale)
+    raise ValueError(f"flash_block_partials: unsupported device {q.device}")
+
+
+class _BlockPartials(torch.autograd.Function):
+    """Forward `flash_block_partials`; the backward recomputes through the
+    plain `_block_attn` and gives the bias no gradient (the JAX package's
+    `_make_partials_vjp` custom_vjp). An output that receives no gradient
+    (the ring's `m`, which only shifts) is left out of the recompute's
+    backward, as XLA drops the work of a zero cotangent."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias, scale):
+        ctx.save_for_backward(q, k, v, bias)
+        ctx.scale = scale
+        ctx.set_materialize_grads(False)
+        return flash_block_partials(q, k, v, bias, scale)
+
+    @staticmethod
+    def backward(ctx, *cotangents):
+        from ..parallel.ring_attention import _block_attn
+
+        q, k, v, bias = ctx.saved_tensors
+        with torch.enable_grad():
+            inputs = [t.detach().requires_grad_() for t in (q, k, v)]
+            outs = _block_attn(*inputs, bias, ctx.scale)
+            pairs = [(o, g) for o, g in zip(outs, cotangents)
+                     if g is not None]
+            grads = torch.autograd.grad([o for o, _ in pairs], inputs,
+                                        [g for _, g in pairs],
+                                        allow_unused=True)
+        return (*grads, None, None)
+
+
+def block_partials(q, k, v, bias, scale):
+    """Ring-hop entry point: `_block_attn`'s contract with the kernel forward
+    (on a CUDA tensor) and an exact recomputed backward. `bias` may be
+    None."""
+    return _BlockPartials.apply(q, k, v, bias, float(scale))
