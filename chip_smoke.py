@@ -7,7 +7,9 @@ both.
 Phases, each printed as one JSON line:
   card     the card's name and power limit (nvidia-smi), torch and CUDA
            versions, compute capability;
-  build    nvcc of every `mxnet_tpu_torch/ops/csrc/*.cu`, one process each;
+  build    nvcc of every `mxnet_tpu_torch/ops/csrc/*.cu`, one process each,
+           ptxas's register report, and the count of tensor-core (HGMMA)
+           instructions in each library's SASS where `cuobjdump` exists;
   train    slice 1's path: 3 Adam steps of `TransformerLM` at the default
            `TransformerLMConfig` width (bf16, 4 layers, d_model 512, 8 heads,
            vocab 32768) on one batch of 8 x 2048 tokens; then the same path
@@ -24,10 +26,14 @@ Phases, each printed as one JSON line:
            K3 quantize, an all-gather of the packed words, a dequantize and
            a pull; the group is destroyed at the end of the phase;
   kernels  each kernel against its plain PyTorch version on the card, at the
-           shapes the main path gives it and at extra cases, with times
-           (CUDA events, warmed up, median), the plain version's, one
-           PyTorch library call's as a yardstick where one exists, and the
-           least time the card could take (`bound_ms`, H100 SXM peaks);
+           shapes the main path gives it and at extra cases (every head dim
+           and dtype variant of K1 and K2), with times (`cuda_ms`: many calls
+           back to back between one pair of CUDA events, queued behind a
+           sleep on the card so that it never waits on the host; `call_ms`:
+           one call between two events, host time of the wrapper included),
+           the plain version's, one PyTorch library call's as a yardstick
+           where one exists, the least time the card could take (`bound_ms`,
+           H100 SXM peaks), its share of `ms`, and the achieved TFLOP/s;
 and last {"ok": true, "device": {...}}. Every kernel's launch count is set
 to 0 just before each path and read just after; each path must launch its
 own kernels and no other. Any failed check raises, so the script exits
@@ -100,8 +106,9 @@ def card_line():
     return out.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps=20, warmup=3):
-    """Median time of fn() on the card, from CUDA events around each call."""
+def call_ms(fn, reps=20, warmup=3):
+    """Median time of one fn() call between two CUDA events: the kernel and
+    whatever host time of the wrapper the card waits for."""
     import torch
 
     for _ in range(warmup):
@@ -119,9 +126,48 @@ def cuda_ms(fn, reps=20, warmup=3):
     return statistics.median(times)
 
 
+SM_HZ = 1.98e9  # H100 SXM boost clock, to size the sleep in cycles
+
+
+def cuda_ms(fn, reps=5, warmup=3, batch_ms=20.0):
+    """Device time of one fn() call: n calls back to back between one pair
+    of CUDA events, queued behind `torch.cuda._sleep` long enough to cover
+    the host's enqueueing of all n, so the card never waits on the host;
+    the median over `reps` batches of the elapsed time over n."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    n = max(1, min(200, int(batch_ms / max(call_ms(fn, reps=3), 1e-3))))
+    t0 = time.perf_counter()
+    fn()  # the host's time to enqueue one call
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    sleep_cycles = int(min(1e9, max(1e6, 2 * n * host_s * SM_HZ)))
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(sleep_cycles)
+        start.record()
+        for _ in range(n):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / n)
+    return statistics.median(times)
+
+
+def rates(ms, bound_ms, flop):
+    """The share of the bound that `ms` reaches and the achieved TFLOP/s."""
+    return {"bound_share": bound_ms / ms, "tflops": flop / (ms * 1e-3) / 1e12}
+
+
 def attention_bound(b, lq, lk, h, d, dtype, causal, bias=False,
                     stats=False):
-    """(ms, "bytes" | "operations"): the least time for one attention call,
+    """(ms, "bytes" | "operations", FLOP): the least time for one attention
+    call and the operations it counts,
     counting q, k, v read once and o written once, and the 2*2*d FLOP of
     QK^T and PV for each (query, key) pair the causal mask keeps (every
     pair when `causal` is false: a bias is data, and K2 computes every
@@ -133,8 +179,8 @@ def attention_bound(b, lq, lk, h, d, dtype, causal, bias=False,
     pairs = b * h * (lq * (lq + 1) // 2 if causal else lq * lk)
     t_bytes = nbytes / PEAK_BYTES_PER_S
     t_ops = 4 * d * pairs / PEAK_FLOPS[dtype]
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes > t_ops
-                                       else "operations")
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes > t_ops else "operations", 4 * d * pairs)
 
 
 def default_model_and_batch(torch, mesh=None):
@@ -417,19 +463,25 @@ def attention_case(torch, fa, F, *, b, l, h, d, dtype, causal, tol, timed):
     name = f"{dtype} B={b} L={l} H={h} D={d} {'causal' if causal else 'full'}"
     check(out.shape == q.shape and out.dtype == q.dtype, f"{name}: output")
     check(ok, f"{name}: kernel vs plain max abs err {err} beyond {tol}")
-    case = {"case": name, "max_abs_err": err, "tol": tol}
+    case = {"case": name, "variant": fa.kernel_variant(q.dtype),
+            "max_abs_err": err, "tol": tol}
     if timed:
-        bound_ms, bound_by = attention_bound(b, l, l, h, d, dtype, causal)
+        bound_ms, bound_by, flop = attention_bound(b, l, l, h, d, dtype,
+                                                   causal)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+
+        def kernel():
+            return fa.flash_attention_fwd_kernel(q, k, v, causal, scale)
+
+        ms = cuda_ms(kernel)
         case.update(
-            ms=cuda_ms(lambda: fa.flash_attention_fwd_kernel(
-                q, k, v, causal, scale)),
+            ms=ms, call_ms=call_ms(kernel),
             plain_ms=cuda_ms(lambda: fa.reference_attention(
                 q, k, v, causal, scale)),
             library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, is_causal=causal, scale=scale)),
             library="torch.nn.functional.scaled_dot_product_attention",
-            bound_ms=bound_ms, bound_by=bound_by)
+            bound_ms=bound_ms, bound_by=bound_by, **rates(ms, bound_ms, flop))
     return case
 
 
@@ -469,13 +521,19 @@ def quantize_case(torch, gcm, *, shape, dtype, threshold, timed, nan=False):
         t_bytes = nbytes / PEAK_BYTES_PER_S
         t_ops = 3 * n / PEAK_FLOPS["float32"]  # an add and two compares
         scratch = residual.clone()
+        bound_ms = max(t_bytes, t_ops) * 1e3
+
+        def kernel():
+            return gcm.quantize_2bit_kernel(grad, scratch, threshold)
+
+        ms = cuda_ms(kernel)
         case.update(
-            ms=cuda_ms(lambda: gcm.quantize_2bit_kernel(grad, scratch,
-                                                        threshold)),
+            ms=ms, call_ms=call_ms(kernel),
             plain_ms=cuda_ms(lambda: gcm.quantize_2bit(grad, residual,
                                                        threshold)),
-            bytes=nbytes, bound_ms=max(t_bytes, t_ops) * 1e3,
-            bound_by="bytes" if t_bytes > t_ops else "operations")
+            bytes=nbytes, bound_ms=bound_ms,
+            bound_by="bytes" if t_bytes > t_ops else "operations",
+            **rates(ms, bound_ms, 3 * n))
     return case
 
 
@@ -515,7 +573,13 @@ def partials_case(torch, fa, F, *, b, lq, lk, h, d, dtype, bias, tol, timed):
             for t in qkv[:, :lk, h * d:].split(h * d, dim=-1))
     bias_t = hop_bias(torch, bias, lq, lk)
     scale = 1.0 / math.sqrt(d)
-    o, m, l = fa.flash_block_partials_kernel(q, k, v, bias_t, scale)
+    # the bias as `flash_block_partials` hands it to the kernel: rows
+    # `bias_pitch` apart (padded for the bf16 kernel when Lk % 4 != 0)
+    kbias = bias_t
+    pitch = fa.bias_pitch(lk, fa.kernel_variant(q.dtype))
+    if bias_t is not None and pitch != lk:
+        kbias = torch.zeros(lq, pitch, device="cuda")[:, :lk].copy_(bias_t)
+    o, m, l = fa.flash_block_partials_kernel(q, k, v, kbias, scale)
     ro, rm, rl = _block_attn(q, k, v, bias_t, scale)
     torch.cuda.synchronize()
     name = f"{dtype} B={b} Lq={lq} Lk={lk} H={h} D={d} bias={bias}"
@@ -534,18 +598,22 @@ def partials_case(torch, fa, F, *, b, lq, lk, h, d, dtype, bias, tol, timed):
     # allclose with atol = rtol = tol, the JAX package's kernel-test bound
     check(bool((diff <= tol + tol * ref.abs()).all()),
           f"{name}: o / l max abs err {err} beyond {tol}")
-    case = {"case": name, "max_abs_err": err, "tol": tol,
+    case = {"case": name, "variant": fa.kernel_variant(q.dtype),
+            "max_abs_err": err, "tol": tol,
             "m_rel_err": m_err, "l_rel_err": l_err, "stats_rtol": 1e-4}
     if timed:
-        bound_ms, bound_by = attention_bound(b, lq, lk, h, d, dtype,
-                                             causal=False,
-                                             bias=bias_t is not None,
-                                             stats=True)
+        bound_ms, bound_by, flop = attention_bound(
+            b, lq, lk, h, d, dtype, causal=False, bias=bias_t is not None,
+            stats=True)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         mask = None if bias_t is None else bias_t.to(q.dtype)
+
+        def kernel():
+            return fa.flash_block_partials_kernel(q, k, v, kbias, scale)
+
+        ms = cuda_ms(kernel)
         case.update(
-            ms=cuda_ms(lambda: fa.flash_block_partials_kernel(
-                q, k, v, bias_t, scale)),
+            ms=ms, call_ms=call_ms(kernel), **rates(ms, bound_ms, flop),
             plain_ms=cuda_ms(lambda: _block_attn(q, k, v, bias_t, scale)),
             library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, attn_mask=mask, scale=scale)),
@@ -556,19 +624,32 @@ def partials_case(torch, fa, F, *, b, lq, lk, h, d, dtype, bias, tol, timed):
     return case
 
 
+def timed_fields(case):
+    """A kernel's entry on the kernels line from its timed main case."""
+    keys = ("case", "variant", "max_abs_err", "tol", "ms", "call_ms",
+            "plain_ms", "library_ms", "library", "bound_ms", "bound_by",
+            "bound_share", "tflops")
+    return {k: case[k] for k in keys if k in case}
+
+
 def kernels_phase(torch, fa, gcm, launches):
     """The kernels line; `launches` maps each path to its launch counts."""
     import torch.nn.functional as F
 
     main = attention_case(torch, fa, F, b=TRAIN_BATCH, l=TRAIN_LEN, h=8, d=64,
                           dtype="bfloat16", causal=True, tol=2e-2, timed=True)
-    extra = [
+    extra = [  # every head dim of the bf16 tensor-core kernel, ragged L
+        attention_case(torch, fa, F, b=2, l=77, h=3, d=32, dtype="bfloat16",
+                       causal=True, tol=2e-2, timed=False),
+        attention_case(torch, fa, F, b=2, l=1000, h=4, d=64, dtype="bfloat16",
+                       causal=False, tol=2e-2, timed=False),
+        attention_case(torch, fa, F, b=1, l=300, h=2, d=128, dtype="bfloat16",
+                       causal=True, tol=2e-2, timed=False),
+        # and the fp32 FMA kernel
         attention_case(torch, fa, F, b=2, l=1000, h=4, d=64, dtype="float32",
                        causal=False, tol=1e-5, timed=True),
         attention_case(torch, fa, F, b=2, l=77, h=3, d=32, dtype="float32",
                        causal=True, tol=1e-5, timed=False),
-        attention_case(torch, fa, F, b=1, l=300, h=2, d=128, dtype="bfloat16",
-                       causal=True, tol=2e-2, timed=False),
         attention_case(torch, fa, F, b=1, l=130, h=2, d=128, dtype="float32",
                        causal=False, tol=1e-5, timed=False),
     ]
@@ -579,12 +660,7 @@ def kernels_phase(torch, fa, gcm, launches):
         "launches": launches["train"]["flash_attention_fwd"],
         "launches_by_path": {p: c["flash_attention_fwd"]
                              for p, c in launches.items()},
-        "max_abs_err": main["max_abs_err"], "tol": main["tol"],
-        "ms": main["ms"], "kernel_ms": main["ms"],
-        "plain_ms": main["plain_ms"], "library_ms": main["library_ms"],
-        "library": main["library"], "bound_ms": main["bound_ms"],
-        "bound_by": main["bound_by"], "case": main["case"],
-        "extra_cases": extra,
+        **timed_fields(main), "extra_cases": extra,
     }
     # the largest key of the trainer path: embed's gradient, [32768, 512] bf16
     q_main = quantize_case(torch, gcm, shape=(32768, 512), dtype="bfloat16",
@@ -601,13 +677,11 @@ def kernels_phase(torch, fa, gcm, launches):
         "launches": launches["trainer"]["quantize_2bit"],
         "launches_by_path": {p: c["quantize_2bit"]
                              for p, c in launches.items()},
-        "max_abs_err": q_main["max_abs_err"], "tol": 0.0,
+        **timed_fields(q_main), "tol": 0.0,
         "exact": "packed words and residual bit-equal to the plain version",
-        "ms": q_main["ms"], "kernel_ms": q_main["ms"],
-        "plain_ms": q_main["plain_ms"], "library_ms": None,
+        "library_ms": None,
         "library": "none: no single PyTorch call computes this function",
-        "bound_ms": q_main["bound_ms"], "bound_by": q_main["bound_by"],
-        "case": q_main["case"], "extra_cases": q_extra,
+        "extra_cases": q_extra,
     }
     # one ring hop at the ring path's shapes, Lq = Lk = 2048 / sp, with the
     # bias the ring passes most: a past block's all-zero mask
@@ -615,11 +689,17 @@ def kernels_phase(torch, fa, gcm, launches):
     p_main = partials_case(torch, fa, F, b=TRAIN_BATCH, lq=hop, lk=hop, h=8,
                            d=64, dtype="bfloat16", bias="past", tol=2e-2,
                            timed=True)
+    # timed without a bias too: what reading the bias costs the hop
     p_extra = [
         partials_case(torch, fa, F, b=TRAIN_BATCH, lq=hop, lk=hop, h=8, d=64,
-                      dtype="bfloat16", bias=kind, tol=2e-2, timed=False)
+                      dtype="bfloat16", bias=kind, tol=2e-2,
+                      timed=kind == "none")
         for kind in ("masked", "diagonal", "offset", "none", "random")]
-    p_extra += [
+    p_extra += [  # ragged blocks and every head dim of the bf16 kernel
+        partials_case(torch, fa, F, b=2, lq=100, lk=300, h=3, d=64,
+                      dtype="bfloat16", bias="masked", tol=2e-2, timed=False),
+        partials_case(torch, fa, F, b=2, lq=100, lk=300, h=3, d=64,
+                      dtype="bfloat16", bias="offset", tol=2e-2, timed=False),
         partials_case(torch, fa, F, b=2, lq=100, lk=300, h=3, d=64,
                       dtype="float32", bias="offset", tol=1e-5, timed=False),
         partials_case(torch, fa, F, b=2, lq=100, lk=300, h=3, d=64,
@@ -631,6 +711,9 @@ def kernels_phase(torch, fa, gcm, launches):
                       dtype="bfloat16", bias="offset", tol=2e-2, timed=False),
         partials_case(torch, fa, F, b=1, lq=130, lk=70, h=2, d=128,
                       dtype="float32", bias="random", tol=1e-5, timed=False),
+        # an odd Lk: the bias read element by element, not in pairs
+        partials_case(torch, fa, F, b=1, lq=130, lk=71, h=2, d=64,
+                      dtype="bfloat16", bias="random", tol=2e-2, timed=False),
     ]
     k2 = {
         "name": "flash_block_partials", "route": "cuda",
@@ -639,21 +722,24 @@ def kernels_phase(torch, fa, gcm, launches):
         "launches": launches["ring"]["flash_block_partials"],
         "launches_by_path": {p: c["flash_block_partials"]
                              for p, c in launches.items()},
-        "max_abs_err": p_main["max_abs_err"], "tol": p_main["tol"],
-        "m_rel_err": p_main["m_rel_err"], "l_rel_err": p_main["l_rel_err"],
-        "ms": p_main["ms"], "kernel_ms": p_main["ms"],
-        "plain_ms": p_main["plain_ms"], "library_ms": p_main["library_ms"],
-        "library": p_main["library"], "bound_ms": p_main["bound_ms"],
-        "bound_by": p_main["bound_by"], "case": p_main["case"],
-        "extra_cases": p_extra,
+        **timed_fields(p_main), "m_rel_err": p_main["m_rel_err"],
+        "l_rel_err": p_main["l_rel_err"], "extra_cases": p_extra,
     }
     return [k1, k2, k3]
 
 
+# the port's kernels by wrapper name -> their group in a profile
+PORT_GROUPS = {"flash_attention_fwd": "K1 flash_attention_fwd",
+               "flash_block_partials": "K2 flash_block_partials",
+               "quantize_2bit": "K3 quantize_2bit"}
 KERNEL_GROUPS = (  # substring of a device kernel's name -> its group
-    ("flash_attention_fwd_kernel", "K1 flash_attention_fwd"),
-    ("flash_block_partials_kernel", "K2 flash_block_partials"),
-    ("quantize_2bit_kernel", "K3 quantize_2bit"),
+    # fp32 FMA kernels, and the bf16 tensor-core kernel by its policy
+    # (`sm90::attention_sm90_kernel<D, ...Policy>`)
+    ("flash_attention_fwd_kernel", PORT_GROUPS["flash_attention_fwd"]),
+    ("FlashAttentionFwdPolicy", PORT_GROUPS["flash_attention_fwd"]),
+    ("flash_block_partials_kernel", PORT_GROUPS["flash_block_partials"]),
+    ("FlashBlockPartialsPolicy", PORT_GROUPS["flash_block_partials"]),
+    ("quantize_2bit_kernel", PORT_GROUPS["quantize_2bit"]),
     ("nccl", "NCCL collectives"),
     ("gemm", "matmul"), ("nvjet", "matmul"), ("xmma", "matmul"),
     ("softmax", "softmax"), ("SoftMax", "softmax"),
@@ -720,7 +806,7 @@ def profile_step(torch, step_fn, must_run):
     for group in must_run:
         check(groups.get(group, 0) > 0, f"the profiled step ran no {group}")
     for name in launched:
-        group = next(g for key, g in KERNEL_GROUPS if key == f"{name}_kernel")
+        group = PORT_GROUPS[name]
         check(counts.get(group, 0) == launched[name],
               f"the profile holds {counts.get(group, 0)} of the step's "
               f"{launched[name]} launches of {name}")
@@ -737,6 +823,21 @@ def profile_summary(profile):
     out["top"] = [{"name": r["name"][:80], "device_ms": r["device_ms"],
                    "count": r["count"]} for r in profile["kernels"][:8]]
     return out
+
+
+def hgmma_counts(build, names):
+    """{source: the count of HGMMA (wgmma) instructions in its library's
+    SASS}, or a note that cuobjdump is missing: the check never fails."""
+    tool = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
+    if not os.path.isfile(tool):
+        return "cuobjdump not found beside nvcc"
+    counts = {}
+    for name in names:
+        sass = subprocess.run([tool, "-sass", str(build._output(name))],
+                              capture_output=True, text=True, timeout=300,
+                              check=True).stdout
+        counts[name] = sass.count("HGMMA")
+    return counts
 
 
 def main(argv=None):
@@ -773,7 +874,7 @@ def main(argv=None):
     ptxas = [line.strip() for n in names for line in _build.build_log(n)
              .splitlines() if "registers" in line or "spill" in line]
     emit(build={"seconds": build_s, "sources": names, "built": built,
-                "ptxas": ptxas})
+                "ptxas": ptxas, "hgmma": hgmma_counts(_build, names)})
 
     train, lm_state = train_phase(torch)
     small = small_reference_phase(torch)

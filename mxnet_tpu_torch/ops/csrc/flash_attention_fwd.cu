@@ -1,4 +1,5 @@
-// Flash-attention forward for Hopper (sm_90a), plain fp32 FMAs.
+// Flash-attention forward for Hopper (sm_90a): bf16 on the tensor cores,
+// fp32 on the FMA pipes.
 //
 // Replaces the TPU kernel `_fwd_kernel` of mxnet_tpu/ops/pallas_attention.py
 // (launched by `_pallas_forward` through `pl.pallas_call`). It computes the
@@ -12,18 +13,27 @@
 // views of one [B, L, 3*d_model] projection, so nothing is copied or
 // transposed before the launch.
 //
-// Design. One thread block of 256 threads takes one (batch*head, 64-row
-// query tile). The 16x16 threads each own a 4x4 patch of the 64x64 score
-// tile and 4 rows x D/16 columns of the output accumulator, so a thread's
-// score rows and output rows are the same rows and its running max and
-// sum-exp stay in registers. K/V tiles of 64 keys are staged through shared
-// memory, converted to fp32 on load; the loop over them replaces the Pallas
-// `fori_loop`. Row maxima and sums are reduced across the 16 threads of a
-// row with warp shuffles. Under the causal mask the loop stops after the
-// diagonal tile: every key past it has a score of -1e30, whose exp(-1e30-m)
-// is exactly 0, so the result is the same function. Keys and query rows past
-// the end of L are masked inside the kernel, so any L works. Query tiles are
-// launched in reverse order so the longest causal rows start first.
+// bf16: the tile loop of `attention_sm90.cuh` (TMA K/V ring, wgmma for Q K^T
+// and P V, online softmax on the accumulator fragment) with
+// FlashAttentionFwdPolicy below: a CTA of 128 query rows reads key tiles up
+// to its last row only and
+// each warpgroup stops after its own diagonal tile, whose keys past a row are
+// masked to -1e30 element by element (every key past the diagonal has a
+// score of -1e30, whose exp(-1e30 - m) is exactly 0, so skipping them is the
+// same function); keys past Lk are masked too, so any L works; the query
+// tiles are launched longest first; the epilogue divides by max(l, 1e-30)
+// and stores bf16. TMA needs 16-byte aligned bases and (B, L, H) strides;
+// the wrapper raises on other inputs.
+//
+// fp32: the first port's kernel, unchanged: one block of 256 threads takes
+// one (batch*head, 64-row query tile). The 16x16 threads each own a 4x4
+// patch of the 64x64 score tile and 4 rows x D/16 columns of the output
+// accumulator, so a thread's score rows and output rows are the same rows and
+// its running max and sum-exp stay in registers. K/V tiles of 64 keys are
+// staged through shared memory; row maxima and sums are reduced across the
+// 16 threads of a row with warp shuffles. It keeps full fp32 products (the
+// TF32 tensor cores keep about three digits, the JAX package's fp32 kernel
+// bound is 1e-5), and serves the small fp32 checks, not the bf16 main path.
 //
 // Bound at the slice shape (B=8, L=2048, H=8, D=64, bf16, causal):
 //   operations  two products (QK^T and PV) of 2*D FLOP for each of the
@@ -32,13 +42,17 @@
 //               -> 34.8 us at 989 TFLOP/s (the bf16 peak);
 //   bytes       Q, K, V read once and O written once:
 //               4 * 8*2048*8*64 * 2 B = 67.1 MB -> 20.0 us at 3.35 TB/s;
-// so the function is bound by operations. This first kernel does not use
-// the tensor cores (no mma.sync / wgmma, no TMA); its arithmetic runs on the
-// fp32 FMA pipes and its inner loops are limited by shared-memory loads.
-// Making it fast (wgmma on bf16 tiles, a TMA ring) is later work.
+// so the function is bound by operations, which the bf16 path now runs on
+// the tensor cores. What keeps it from the bound: at D = 64 the softmax's
+// exponentials (one MUFU op per score, 16 an SM a cycle) take as long as
+// the products, and within a warpgroup the softmax of a tile still waits
+// for its Q K^T product; only the other warpgroups of the SM (two CTAs of
+// two) overlap it. The diagonal tiles also compute their masked halves.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "attention_sm90.cuh"
 
 namespace {
 
@@ -57,18 +71,11 @@ struct Strides {
 };
 
 __device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 
 template <typename T>
 __device__ __forceinline__ T from_float(float x);
 template <>
 __device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);  // round to nearest even, as torch's .to()
-}
 
 template <int D>
 constexpr size_t smem_bytes() {
@@ -259,11 +266,85 @@ cudaError_t dispatch_d(const void* q, const void* k, const void* v, void* o,
   }
 }
 
+// The bf16 tensor-core kernel's policy: the causal mask with diagonal skip,
+// and the normalized epilogue.
+struct FlashAttentionFwdPolicy {
+  static constexpr int kN = sm90::kBlockN;
+
+  // the longest causal query tiles first
+  static __device__ __forceinline__ int q_tile(int y, int ny) {
+    return ny - 1 - y;
+  }
+
+  // key tiles read by rows r0 .. r0 + rows - 1
+  static __device__ __forceinline__ int kv_tiles(const sm90::Params& p,
+                                                 int r0, int rows) {
+    const int end = p.causal ? min(p.Lk, r0 + rows) : p.Lk;
+    return (end + kN - 1) / kN;
+  }
+
+  // Scores stay unscaled: the scale is folded into the exponent,
+  // p = 2^(s * c - m * c) with c = scale * log2(e), one FFMA an element.
+  // Every row keeps its key 0, so m is never the mask value and the fused
+  // form is exact enough.
+  static constexpr bool kFusedExp = true;
+  static __device__ __forceinline__ float exp_scale(const sm90::Params& p) {
+    return p.scale * sm90::kLog2e;
+  }
+
+  static constexpr int kStages = 4;     // the K/V ring
+  static constexpr int kExtraBytes = 0;  // no tile beside K and V
+  static int make_extra_map(CUtensorMap*, const sm90::Params&) { return 0; }
+  static __device__ __forceinline__ void load(const sm90::Params&,
+                                              const sm90::Slot&, int) {}
+
+  static __device__ __forceinline__ void scores(const sm90::Params& p,
+                                                const sm90::Slot&,
+                                                float (&s)[kN / 2], int row0,
+                                                int t, int c0) {
+    const int k0 = t * kN;
+    // a tile wholly below the diagonal and inside Lk needs no mask; row0 is
+    // the thread's lower row
+    const bool edge = k0 + kN > p.Lk || (p.causal && k0 + kN - 1 > row0);
+    if (!edge) return;
+#pragma unroll
+    for (int j = 0; j < kN / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = k0 + 8 * j + c0 + (e & 1);
+        const int row = row0 + 8 * (e >> 1);
+        const bool keep = key < p.Lk && (!p.causal || key <= row);
+        if (!keep) s[4 * j + e] = kNegInf;
+      }
+  }
+
+  template <int D>
+  static __device__ __forceinline__ void epilogue(
+      const sm90::Params& p, const float (&o)[D / 2], const float (&m)[2],
+      const float (&l)[2], int b, int h, int row0, int c0, bool leader) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = row0 + 8 * i;
+      if (row >= p.Lq) continue;
+      // one division a row; the product differs from o / l by at most an
+      // ulp of fp32 before the rounding to bf16
+      const float inv = 1.f / fmaxf(l[i], 1e-30f);
+      __nv_bfloat16* dst = p.o + b * p.so_b + row * p.so_l + h * p.so_h + c0;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j) =
+            __floats2bfloat162_rn(o[4 * j + 2 * i] * inv,
+                                  o[4 * j + 2 * i + 1] * inv);
+    }
+  }
+};
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. strides: 12 element strides, the
-// (B, L, H) strides of q, k, v and o in that order. Returns the CUDA error
-// of the launch (0 when it was accepted); the wrapper raises on any other.
+// dtype: 0 = float32 (the FMA kernel), 1 = bfloat16 (the tensor-core
+// kernel). strides: 12 element strides, the (B, L, H) strides of q, k, v and
+// o in that order. Returns 0 when the launch was accepted, else a CUDA error
+// or a tensor-map error; `mxtt_cuda_error_string` names either.
 extern "C" int mxtt_flash_attention_fwd(const void* q, const void* k,
                                         const void* v, void* o, int dtype,
                                         int B, int H, int Lq, int Lk, int D,
@@ -272,11 +353,22 @@ extern "C" int mxtt_flash_attention_fwd(const void* q, const void* k,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return dispatch_d<float>(q, k, v, o, B, H, Lq, Lk, D, strides, scale, causal, s);
-  if (dtype == 1)
-    return dispatch_d<__nv_bfloat16>(q, k, v, o, B, H, Lq, Lk, D, strides, scale, causal, s);
+  if (dtype == 1) {
+    sm90::Params p{};
+    p.H = H;
+    p.Lq = Lq;
+    p.Lk = Lk;
+    p.scale = scale;
+    p.o = static_cast<__nv_bfloat16*>(o);
+    p.so_b = strides[9];
+    p.so_l = strides[10];
+    p.so_h = strides[11];
+    p.causal = causal;
+    return sm90::dispatch<FlashAttentionFwdPolicy>(q, k, v, B, Lq, Lk, D, strides, p, s);
+  }
   return cudaErrorInvalidValue;
 }
 
 extern "C" const char* mxtt_cuda_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
+  return sm90::error_string(err);
 }

@@ -1,4 +1,5 @@
-// One ring hop of partial attention for Hopper (sm_90a), plain fp32 FMAs.
+// One ring hop of partial attention for Hopper (sm_90a): bf16 on the tensor
+// cores, fp32 on the FMA pipes.
 //
 // Replaces the TPU kernel `_partial_kernel` of
 // mxnet_tpu/ops/pallas_attention.py (launched by `flash_block_partials`
@@ -18,12 +19,7 @@
 // shared by every batch row and head, read as bias[q, k] in place; a null
 // pointer means zero bias.
 //
-// Design. K1's tile loop (`flash_attention_fwd.cu`): one block of 256
-// threads takes one (batch*head, 64-row query tile); the 16x16 threads each
-// own a 4x4 patch of the 64x64 score tile and 4 rows x D/16 columns of the
-// accumulator, so a thread's running max and sum-exp stay in registers; K/V
-// tiles of 64 keys are staged through shared memory in fp32. What differs
-// from K1:
+// What differs from K1 (both kernels, both dtypes):
 //  - every key tile is computed. The bias is data: a row whose bias is -1e30
 //    everywhere (a hop whose K/V block lies wholly in the query's future)
 //    must give m = -1e30, p = exp(0) = 1, l = Lk and o = sum of V, as the
@@ -33,18 +29,41 @@
 //    masked with -1e30, which would give them weight 1 in such a row;
 //  - the output is the unnormalized accumulator, with m and l beside it.
 //
+// bf16: the tile loop of `attention_sm90.cuh` (TMA K/V ring, wgmma for Q K^T
+// and P V, online softmax on the accumulator fragment) with
+// FlashBlockPartialsPolicy below. The fp32 bias reaches the score fragment
+// through shared memory: each warpgroup's 64 rows x 64 keys of it (16 KB) are
+// loaded by TMA from a 2-D map with the 128-byte swizzle, so the fragment's
+// float2 reads are free of bank conflicts, and the buffer is refilled with
+// the next tile's as soon as its scores are read, so the load lands during
+// the softmax and the next products. (Read into registers from L2 just
+// before its use instead, its latency was exposed and its 32 registers
+// spilled: the hop took 45 % longer on an H100.) Keys past Lk get -inf, and
+// the epilogue stores o in bf16 and m, l in fp32. TMA needs 16-byte aligned
+// bases and (B, L, H) strides, and bias rows a multiple of 16 bytes apart;
+// the wrappers raise on other q, k, v and pad the bias rows.
+//
+// fp32: the first port's FMA kernel, unchanged: K1's fp32 tile loop, one
+// block of 256 threads per (batch*head, 64-row query tile), K/V tiles of 64
+// keys staged through shared memory. It keeps full fp32 products for the
+// small fp32 checks (TF32 keeps about three digits).
+//
 // Bound at the slice shape (one hop: B=8, Lq=Lk=512, H=8, D=64, bf16, with a
 // bias): bytes  Q, K, V and O once (16.8 MB), the bias (1.05 MB), m and l
 // (0.26 MB): 18.1 MB -> 5.4 us at 3.35 TB/s; operations 4*D FLOP for each of
 // the B*H*Lq*Lk pairs (every tile is computed): 4.29e9 -> 4.3 us at 989
-// TFLOP/s. So the function is bound by bytes. Like K1, this first kernel
-// runs on the fp32 FMA pipes, limited by shared-memory loads, far above that
-// bound; tensor cores (wgmma) and TMA are later work.
+// TFLOP/s. So the function is bound by bytes. What keeps the tensor-core
+// kernel from it: the bias is read 64 times over (once per batch row and
+// head) through L2, 64 MB against the bound's 1 MB; the 256 CTAs of 8 key
+// tiles each fill the card's 264 CTA slots once, so the prologue (Q and the
+// first tiles) and the epilogue are not overlapped by other CTAs.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <math_constants.h>
+
+#include "attention_sm90.cuh"
 
 namespace {
 
@@ -63,18 +82,11 @@ struct Strides {
 };
 
 __device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 
 template <typename T>
 __device__ __forceinline__ T from_float(float x);
 template <>
 __device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);  // round to nearest even, as torch's .to()
-}
 
 template <int D>
 constexpr size_t smem_bytes() {
@@ -275,12 +287,122 @@ cudaError_t dispatch_d(const void* q, const void* k, const void* v,
   }
 }
 
+// The bf16 tensor-core kernel's policy: the additive bias, every key tile,
+// and the partials epilogue.
+struct FlashBlockPartialsPolicy {
+  static constexpr int kN = sm90::kBlockN;
+
+  static __device__ __forceinline__ int q_tile(int y, int) { return y; }
+
+  static __device__ __forceinline__ int kv_tiles(const sm90::Params& p, int,
+                                                 int) {
+    return (p.Lk + kN - 1) / kN;
+  }
+
+  // Scores in natural units, p = 2^((s - m) * log2(e)): s - m is exactly 0
+  // where a fully masked row's s equals its m = -1e30.
+  static constexpr bool kFusedExp = false;
+  static __device__ __forceinline__ float exp_scale(const sm90::Params&) {
+    return sm90::kLog2e;
+  }
+
+  // The K/V ring is 3 deep, to leave room for each warpgroup's bias tile
+  // (64 rows x 64 keys fp32, 16 KB) with two CTAs an SM at D = 64.
+  static constexpr int kStages = 3;
+  static constexpr int kExtraBytes = 64 * kN * 4;
+
+  static int make_extra_map(CUtensorMap* map, const sm90::Params& p) {
+    if (p.bias == nullptr) return 0;
+    return sm90::make_map_f32(map, p.bias, p.Lq, p.Lk, p.bias_pitch, 64);
+  }
+
+  // The leader of a warpgroup loads its rows' bias for key tile t: two
+  // boxes of 32 keys, each 64 rows of 128 bytes with the 128-byte swizzle.
+  static __device__ __forceinline__ void load(const sm90::Params& p,
+                                              const sm90::Slot& x, int t) {
+    if (p.bias == nullptr || !x.leader || t >= x.n_tiles) return;
+    sm90::mbar_expect_tx(x.full, kExtraBytes);
+#pragma unroll
+    for (int box = 0; box < 2; ++box)
+      sm90::tma_load_2d(x.smem + box * (kExtraBytes / 2), x.map, x.full,
+                        t * kN + 32 * box, x.row0);
+  }
+
+  static __device__ __forceinline__ void scores(const sm90::Params& p,
+                                                const sm90::Slot& x,
+                                                float (&s)[kN / 2], int row0,
+                                                int t, int c0) {
+    const int k0 = t * kN;
+    const bool biased = p.bias != nullptr;
+    // this thread's float2 of a bias row: row r (local, r % 8 = lane / 4 =
+    // (row0 - x.row0) % 8) holds the 16-byte chunk c of a box at c ^ (r % 8)
+    const int r0 = row0 - x.row0;
+    const int lane_row = r0 % 8;
+    if (biased) sm90::mbar_wait(x.full, t & 1);
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < kN / 8; ++j) {
+        const int key = k0 + 8 * j + c0;  // even; the pair is key, key + 1
+        float2 b = make_float2(0.f, 0.f);
+        if (biased) {
+          const int chunk = 2 * (j % 4) + c0 / 4;
+          b = sm90::ld_shared_f2(x.smem + (j / 4) * (kExtraBytes / 2) +
+                                 (r0 + 8 * i) * 128 +
+                                 ((chunk ^ lane_row) * 16) + (c0 % 4) * 4);
+        }
+        // scaled, then biased, each rounded once, as the reference does; a
+        // key past Lk takes no part: -inf leaves the max alone and gives p 0
+        float& s0 = s[4 * j + 2 * i];
+        float& s1 = s[4 * j + 2 * i + 1];
+        s0 = key < p.Lk ? __fadd_rn(__fmul_rn(s0, p.scale), b.x)
+                        : -CUDART_INF_F;
+        s1 = key + 1 < p.Lk ? __fadd_rn(__fmul_rn(s1, p.scale), b.y)
+                            : -CUDART_INF_F;
+      }
+    if (biased) {
+      // the warpgroup is done with this tile's bias: its leader refills the
+      // buffer with the next tile's, which lands during the softmax and the
+      // next products
+      sm90::mbar_arrive(x.empty);
+      if (x.leader && t + 1 < x.n_tiles) {
+        sm90::mbar_wait(x.empty, t & 1);
+        load(p, x, t + 1);
+      }
+    }
+  }
+
+  template <int D>
+  static __device__ __forceinline__ void epilogue(
+      const sm90::Params& p, const float (&o)[D / 2], const float (&m)[2],
+      const float (&l)[2], int b, int h, int row0, int c0, bool leader) {
+    const long long stat0 = (long long)(b * p.H + h) * p.Lq;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = row0 + 8 * i;
+      if (row >= p.Lq) continue;
+      __nv_bfloat16* dst = p.o + b * p.so_b + row * p.so_l + h * p.so_h + c0;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j) =
+            __floats2bfloat162_rn(o[4 * j + 2 * i], o[4 * j + 2 * i + 1]);
+      if (leader) {
+        p.m[stat0 + row] = m[i];
+        p.l[stat0 + row] = l[i];
+      }
+    }
+  }
+};
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. bias: a row-major (Lq, Lk) fp32 array or
-// null. m, l: [B, H, Lq] fp32, contiguous. strides: 12 element strides, the
-// (B, L, H) strides of q, k, v and o in that order. Returns the CUDA error of
-// the launch (0 when it was accepted); the wrapper raises on any other.
+// dtype: 0 = float32 (the FMA kernel), 1 = bfloat16 (the tensor-core
+// kernel). bias: a row-major (Lq, Lk) fp32 array or null, its rows
+// strides[12] elements apart (Lk for the FMA kernel; a multiple of 4, its
+// base 16-byte aligned, for the tensor-core kernel's TMA). m, l: [B, H, Lq]
+// fp32, contiguous. strides: 13 element strides, the (B, L, H) strides of
+// q, k, v and o in that order, then the bias's row pitch. Returns 0 when the launch was accepted, else a
+// CUDA error or a tensor-map error; `mxtt_cuda_error_string` names either.
 extern "C" int mxtt_flash_block_partials(const void* q, const void* k,
                                          const void* v, const void* bias,
                                          void* o, void* m, void* l, int dtype,
@@ -293,11 +415,25 @@ extern "C" int mxtt_flash_block_partials(const void* q, const void* k,
   float* lf = static_cast<float*>(l);
   if (dtype == 0)
     return dispatch_d<float>(q, k, v, bf, o, mf, lf, B, H, Lq, Lk, D, strides, scale, s);
-  if (dtype == 1)
-    return dispatch_d<__nv_bfloat16>(q, k, v, bf, o, mf, lf, B, H, Lq, Lk, D, strides, scale, s);
+  if (dtype == 1) {
+    sm90::Params p{};
+    p.H = H;
+    p.Lq = Lq;
+    p.Lk = Lk;
+    p.scale = scale;
+    p.o = static_cast<__nv_bfloat16*>(o);
+    p.so_b = strides[9];
+    p.so_l = strides[10];
+    p.so_h = strides[11];
+    p.bias = bf;
+    p.bias_pitch = strides[12];
+    p.m = mf;
+    p.l = lf;
+    return sm90::dispatch<FlashBlockPartialsPolicy>(q, k, v, B, Lq, Lk, D, strides, p, s);
+  }
   return cudaErrorInvalidValue;
 }
 
 extern "C" const char* mxtt_cuda_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
+  return sm90::error_string(err);
 }

@@ -14,6 +14,13 @@ projection go to it without a copy. Unlike the Pallas kernel it masks the
 ragged edge of L itself, so it takes any length; like it, it refuses causal
 attention between sequences of different lengths.
 
+Each kernel has two variants, chosen by dtype in `launch_plan`: bf16 runs
+on the tensor cores (wgmma products on tiles that TMA loads, from
+`csrc/attention_sm90.cuh`), fp32 on the FMA pipes. TMA reads the [B, L, H, D]
+views through tensor maps, which need 16-byte aligned base addresses and B,
+L and H strides (`check_tma_operand`); the wrappers raise ValueError on other
+bf16 inputs rather than copy them.
+
 `flash_block_partials` is one hop of ring attention (`_partial_kernel`,
 `flash_block_partials`, `_make_partials_vjp` and `block_partials_pallas` of
 the JAX module): the unnormalized partials `(o, m, l)` of one query block
@@ -32,8 +39,10 @@ import torch
 
 from . import _build
 
-__all__ = ["block_partials", "flash_attention", "flash_attention_fwd_kernel",
+__all__ = ["bias_pitch", "block_partials", "check_tma_operand",
+           "flash_attention", "flash_attention_fwd_kernel",
            "flash_block_partials", "flash_block_partials_kernel",
+           "kernel_variant", "launch_plan", "launch_strides",
            "reference_attention"]
 
 _NEG_INF = -1e30
@@ -41,6 +50,8 @@ _KERNEL = "flash_attention_fwd"
 _PARTIALS_KERNEL = "flash_block_partials"
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 64, 128)
+_VARIANTS = {torch.bfloat16: "wgmma", torch.float32: "fma"}
+_TMA_ALIGN = 16  # bytes: TMA's granule for base addresses and strides
 
 
 def reference_attention(q, k, v, causal=False, scale=None):
@@ -81,6 +92,77 @@ def _check_kernel_args(q, k, v, what="flash_attention kernel"):
         raise ValueError(f"{what}: the head-dim axis must be contiguous")
 
 
+def kernel_variant(dtype):
+    """The variant a kernel wrapper launches for inputs of `dtype`: "wgmma",
+    the tensor-core kernel, for bfloat16; "fma", the fp32 FMA kernel, for
+    float32. Raises ValueError for any other dtype."""
+    try:
+        return _VARIANTS[dtype]
+    except KeyError:
+        raise ValueError(f"no attention kernel for {dtype}: float32 or "
+                         "bfloat16 only") from None
+
+
+def launch_strides(shape, strides):
+    """The (B, L, H) element strides a kernel is given for a [B, L, H, D]
+    tensor: its own, except that an axis of size 1 (whose stride is never
+    multiplied by a nonzero index) takes the stride a nested layout would
+    give it, so that a tensor map accepts it."""
+    _, _, _, d = shape
+    out, inner = [], d  # the extent of the axes inside, in elements
+    for size, stride in zip(reversed(shape[:3]), reversed(strides[:3])):
+        stride = inner if size == 1 else stride
+        out.append(stride)
+        inner = size * stride
+    h, l, b = out
+    return b, l, h
+
+
+def check_tma_operand(name, shape, strides, address, itemsize=2,
+                      what="attention kernel"):
+    """Raise ValueError unless the tensor-core kernel's TMA can read the
+    [B, L, H, D] operand `name` in place: its D axis contiguous, its base
+    `address` (bytes) and the byte strides of its B, L and H axes (after
+    `launch_strides`) multiples of 16."""
+    if strides[3] != 1:
+        raise ValueError(f"{what}: {name}'s head-dim axis must be contiguous")
+    if address % _TMA_ALIGN:
+        raise ValueError(f"{what}: {name}'s base address {address:#x} is not "
+                         f"a multiple of {_TMA_ALIGN} bytes")
+    for axis, stride in zip("BLH", launch_strides(shape, strides)):
+        if (stride * itemsize) % _TMA_ALIGN:
+            raise ValueError(
+                f"{what}: {name}'s {axis} stride of {stride * itemsize} bytes "
+                f"is not a multiple of {_TMA_ALIGN}")
+
+
+def launch_plan(dtype, operands, what="attention kernel"):
+    """A kernel wrapper's launch, from numbers alone: the variant for
+    `dtype` (`kernel_variant`) and the launch strides (`launch_strides`) of
+    each of `operands`, a sequence of (name, shape, strides, byte address)
+    of the [B, L, H, D] inputs q, k and v. Raises ValueError where the
+    variant cannot read an operand in place: for "wgmma", where
+    `check_tma_operand` refuses it."""
+    variant = kernel_variant(dtype)
+    if variant == "wgmma":
+        for name, shape, strides, address in operands:
+            check_tma_operand(name, shape, strides, address, dtype.itemsize,
+                              what)
+    return variant, [launch_strides(shape, strides)
+                     for _, shape, strides, _ in operands]
+
+
+def _launch_strides(q, k, v, out, what, extra=()):
+    """The 12 (B, L, H) element strides of q, k, v and out for a launch,
+    after `launch_plan`'s checks, followed by `extra`."""
+    _, strides = launch_plan(q.dtype, [
+        (name, tuple(t.shape), t.stride(), t.data_ptr())
+        for name, t in (("q", q), ("k", k), ("v", v))], what)
+    strides.append(launch_strides(out.shape, out.stride()))
+    flat = [x for st in strides for x in st] + list(extra)
+    return (ctypes.c_longlong * len(flat))(*flat)
+
+
 def _kernel_lib():
     lib = _build.library(_KERNEL)
     fn = lib.mxtt_flash_attention_fwd
@@ -98,13 +180,14 @@ def _kernel_lib():
 
 def flash_attention_fwd_kernel(q, k, v, causal, scale):
     """Launch the CUDA kernel on q, k, v [B, L, H, D] (fp32 or bf16, on one
-    card) and return the attention output [B, Lq, H, D] in q's dtype. Counts
-    each launch in `flash_attention_fwd_kernel.launches`."""
-    _check_kernel_args(q, k, v)
+    card; the variant of `kernel_variant`) and return the attention output
+    [B, Lq, H, D] in q's dtype. Counts each launch, of either variant, in
+    `flash_attention_fwd_kernel.launches`."""
+    what = "flash_attention kernel"
+    _check_kernel_args(q, k, v, what)
     b, lq, h, d = q.shape
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    strides = (ctypes.c_longlong * 12)(*(
-        s for t in (q, k, v, out) for s in t.stride()[:3]))
+    strides = _launch_strides(q, k, v, out, what)
     lib = _kernel_lib()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -184,27 +267,51 @@ def _partials_lib():
     return lib
 
 
+def bias_pitch(lk, variant):
+    """The row pitch, in elements, with which a kernel variant reads an
+    (Lq, Lk) fp32 bias: Lk for "fma"; for "wgmma", whose TMA needs 16-byte
+    row strides, Lk rounded up to a multiple of 4."""
+    return lk if variant == "fma" else -(-lk // 4) * 4
+
+
+def _check_bias(bias, q, lk, what):
+    """Raise ValueError unless `bias` (or None) is an (Lq, Lk) fp32 tensor
+    on q's device in the layout q's variant reads: rows `bias_pitch`
+    elements apart and, for TMA, a 16-byte aligned base. Returns the
+    pitch."""
+    lq = q.shape[1]
+    variant = kernel_variant(q.dtype)
+    pitch = bias_pitch(lk, variant)
+    if bias is not None and not (
+            bias.device == q.device and bias.dtype == torch.float32
+            and tuple(bias.shape) == (lq, lk)
+            and bias.stride() == (pitch, 1)
+            and (variant == "fma" or bias.data_ptr() % _TMA_ALIGN == 0)):
+        raise ValueError(f"{what}: bias must be a ({lq}, {lk}) float32 "
+                         f"tensor on {q.device} with rows {pitch} elements "
+                         f"apart (16-byte aligned for {variant}), got "
+                         f"{tuple(bias.shape)} {bias.dtype} on {bias.device} "
+                         f"with strides {bias.stride()}")
+    return pitch
+
+
 def flash_block_partials_kernel(q, k, v, bias, scale):
     """Launch the CUDA kernel on q [B, Lq, H, D], k, v [B, Lk, H, D] (fp32 or
-    bf16, on one card) and `bias`, a contiguous (Lq, Lk) fp32 tensor on the
-    same card or None. Returns `(o, m, l)`: o [B, Lq, H, D] in q's dtype,
-    unnormalized; m and l [B, H, Lq, 1] fp32. Counts each launch in
+    bf16, on one card; the variant of `kernel_variant`) and `bias`, an
+    (Lq, Lk) fp32 tensor on the same card whose rows lie `bias_pitch`
+    elements apart (16-byte aligned for bf16), or None. Returns `(o, m, l)`:
+    o [B, Lq, H, D] in q's dtype, unnormalized; m and l [B, H, Lq, 1] fp32.
+    Counts each launch, of either variant, in
     `flash_block_partials_kernel.launches`."""
     what = "flash_block_partials kernel"
     _check_kernel_args(q, k, v, what)
     b, lq, h, d = q.shape
     lk = k.shape[1]
-    if bias is not None and not (
-            bias.device == q.device and bias.dtype == torch.float32
-            and tuple(bias.shape) == (lq, lk) and bias.is_contiguous()):
-        raise ValueError(f"{what}: bias must be a contiguous ({lq}, {lk}) "
-                         f"float32 tensor on {q.device}, got "
-                         f"{tuple(bias.shape)} {bias.dtype} on {bias.device}")
+    pitch = _check_bias(bias, q, lk, what)
     o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     m = torch.empty((b, h, lq, 1), dtype=torch.float32, device=q.device)
     l = torch.empty((b, h, lq, 1), dtype=torch.float32, device=q.device)
-    strides = (ctypes.c_longlong * 12)(*(
-        s for t in (q, k, v, o) for s in t.stride()[:3]))
+    strides = _launch_strides(q, k, v, o, what, extra=(pitch,))
     lib = _partials_lib()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -230,7 +337,9 @@ def flash_block_partials(q, k, v, bias=None, scale=None):
     additive (Lq, Lk) mask shared by every batch row and head (any shape of
     Lq * Lk elements, such as the ring's [1, 1, Lq, Lk]); another size raises
     ValueError. The kernel on a CUDA tensor, the plain version on a CPU
-    tensor."""
+    tensor. The bias is handed on as a contiguous fp32 (Lq, Lk) array, with
+    its rows padded to `bias_pitch` for the bf16 kernel when Lk is not a
+    multiple of 4 (the padding is never read)."""
     lq, lk = q.shape[1], k.shape[1]
     scale = float(scale if scale is not None else 1.0 / math.sqrt(q.shape[-1]))
     if bias is not None:
@@ -240,8 +349,15 @@ def flash_block_partials(q, k, v, bias=None, scale=None):
             raise ValueError(
                 f"flash_block_partials: bias shape {tuple(bias.shape)} is "
                 f"not a broadcastable ({lq}, {lk}) mask")
-        bias = bias.to(device=q.device, dtype=torch.float32).reshape(
-            lq, lk).contiguous()
+        bias = bias.to(device=q.device, dtype=torch.float32).reshape(lq, lk)
+        pitch = (bias_pitch(lk, kernel_variant(q.dtype))
+                 if q.device.type == "cuda" else lk)
+        if pitch != lk:
+            padded = torch.zeros((lq, pitch), dtype=torch.float32,
+                                 device=q.device)
+            bias = padded[:, :lk].copy_(bias)
+        else:
+            bias = bias.contiguous()
     if q.device.type == "cuda":
         return flash_block_partials_kernel(q, k, v, bias, scale)
     if q.device.type == "cpu":
