@@ -2,7 +2,7 @@
 """Build the port's CUDA kernels, drive its main path on one card, and check
 both.
 
-    python3 chip_smoke.py [--profile OUT.json]
+    python3 chip_smoke.py [--profile OUT.json] [--deadline SECONDS]
 
 Phases, each printed as one JSON line:
   card     the card's name and power limit (nvidia-smi), torch and CUDA
@@ -25,6 +25,24 @@ Phases, each printed as one JSON line:
            process group opened on a free localhost port: per parameter a
            K3 quantize, an all-gather of the packed words, a dequantize and
            a pull; the group is destroyed at the end of the phase;
+  generate slice 5's path, run before the trainer: `GenerationEngine` over
+           the default model (weights from seed 0) with a 32 x 2048 KV slab
+           (512 MiB) and the prefill ladder 8, 16, ..., 2048, served by its
+           worker thread. Warm-up captures 10 CUDA graphs (9 prefill, 1
+           decode), a second warm-up none; a burst of 64 sessions (prompts
+           of 16-1024 tokens, 128 new tokens each), half of them queued;
+           one 512-token stream for flatness (the median gap of its last
+           third over its first third). Checks, each raising: (a) steady
+           state builds and captures nothing; (b) 8 burst sessions rerun
+           alone give the same tokens; (c) one replayed decode tick against
+           an eager `decode_step` on a copy of the slab (equal greedy
+           tokens, logits within 2e-2); (d) the small fp32 model served on
+           the card and on the CPU (equal streams over 8 sessions, prefill
+           and decode logits within 1e-4); (e) no kernel launched. Prints
+           tokens/s, TTFT p50 and p99, the median tick, the decode graph's
+           time against its bound (the slab and the weights read once a
+           tick), each prefill bucket's graph time, peak memory, and the
+           card's name and power limit;
   kernels  each kernel against its plain PyTorch version on the card, at the
            shapes the main path gives it and at extra cases (every head dim
            and dtype variant of K1 and K2), with times (`cuda_ms`: many calls
@@ -39,13 +57,16 @@ to 0 just before each path and read just after; each path must launch its
 own kernels and no other. Any failed check raises, so the script exits
 non-zero and prints no last line; so does a machine without a CUDA card.
 `--profile` also writes a torch.profiler breakdown of one more step of each
-path, by kernel, to OUT.json; each profile must hold every launch of the
-port's kernels that its step made.
+training path and of 20 decode ticks over a full slab, by kernel, to
+OUT.json; each profile must hold every launch of the port's kernels that
+its step made. A run not over after `--deadline` seconds (default 1100)
+dumps every thread's stack and exits 1.
 """
 from __future__ import annotations
 
 import argparse
 import contextlib
+import faulthandler
 import json
 import math
 import os
@@ -72,6 +93,11 @@ RING_FIRST_LOSS_TOL = 2e-2
 
 def emit(**obj):
     print(json.dumps(obj), flush=True)
+
+
+def progress(phase):
+    """A phase's end on stderr: where a run that is cut stopped."""
+    print(f"chip_smoke: {phase} done", file=sys.stderr, flush=True)
 
 
 def check(cond, msg):
@@ -443,6 +469,285 @@ def trainer_phase(torch, profile=False):
         "peak_mem_gb": peak, "held_before_gb": held,
         "kernel_launches": launches,
     }, profiled
+
+
+GEN_SLOTS, GEN_MAX_LEN = 32, 2048          # docs/faq/perf.md:495
+GEN_BURST, GEN_NEW = 64, 128
+GEN_PROMPT_LENS = (16, 1024)               # uniform, RandomState(0)
+GEN_RERUN = 8
+FLAT_PROMPT, FLAT_NEW = 4, 512
+GEN_LOGIT_TOL = 2e-2  # bf16 logits of a graph replay vs an eager call
+GEN_PROFILE_TICKS = 20
+
+
+def percentile_ms(values, q):
+    import numpy as np
+
+    return float(np.percentile(values, q)) * 1e3
+
+
+def decode_bound(lm, eng):
+    """(ms, "bytes" | "operations", bytes): the least time of one decode
+    tick, reading the slab and every weight once (of `pos_embed` only the
+    slots' rows), and doing 2 FLOP a weight and slot plus QK^T and PV over
+    every slab row, at the bf16 tensor-core rate."""
+    cfg = lm.cfg
+    weights = sum(p.nbytes for p in lm.parameters())
+    weights -= lm.pos_embed.nbytes - GEN_SLOTS * lm.pos_embed[0].nbytes
+    nbytes = eng.kv_slab_bytes() + weights
+    params = sum(p.numel() for p in lm.parameters()) - lm.pos_embed.numel()
+    flop = 2 * params * GEN_SLOTS + \
+        4 * GEN_SLOTS * cfg.n_layers * cfg.d_model * GEN_MAX_LEN
+    t_bytes = nbytes / PEAK_BYTES_PER_S
+    t_ops = flop / PEAK_FLOPS[cfg.dtype]
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes > t_ops else "operations", nbytes)
+
+
+def graph_vs_eager(torch, lm, eng, rng):
+    """Check (c): one graph-replayed decode tick against an eager
+    `decode_step` on a copy of the same slab and inputs. The engine must be
+    idle; every slot is written at a random row, as garbage a later
+    session's prefill and decode overwrite before reading."""
+    prog = eng._decode_fn()
+    tokens = rng.randint(0, lm.cfg.vocab_size, GEN_SLOTS)
+    positions = rng.randint(0, GEN_MAX_LEN, GEN_SLOTS)
+    ck, cv = eng._ck.clone(), eng._cv.clone()
+    got = prog(tokens, positions)
+    graph_logits = prog.outputs[1].clone()
+    eager, _, _ = lm.decode_step(ck, cv, torch.from_numpy(tokens).cuda(),
+                                 torch.from_numpy(positions).cuda())
+    del ck, cv
+    diff = float((eager - graph_logits).abs().max())
+    same = bool((eager.argmax(-1).cpu().numpy() == got).all())
+    check(same, "graph-replayed decode's greedy tokens differ from eager "
+          "decode_step's")
+    check(diff <= GEN_LOGIT_TOL, f"graph-replayed decode logits differ from "
+          f"eager decode_step's by {diff} > {GEN_LOGIT_TOL}")
+    return {"tokens_equal": same, "max_abs_logit_diff": diff,
+            "tol": GEN_LOGIT_TOL}
+
+
+def profile_ticks(torch, eng, prompts):
+    """A profile of GEN_PROFILE_TICKS ticks over a full slab, all run by
+    this thread with the tick lock held from before the sessions are
+    admitted until after the profiler stops: on an H100 with torch 2.11,
+    stopping the profiler while the worker thread replayed a graph
+    deadlocked, and the worker, which retakes the lock at once after each
+    tick, kept this thread from taking it for a whole session."""
+    with eng._tick_lock:
+        streams = [eng.submit(p[:16], max_new_tokens=4 * GEN_PROFILE_TICKS)
+                   for p in prompts[:GEN_SLOTS]]
+        while eng.live_slots < GEN_SLOTS:   # each tick admits >= 1
+            eng._tick()
+
+        def window():
+            for _ in range(GEN_PROFILE_TICKS):
+                eng._tick()
+            check(eng.live_slots == GEN_SLOTS,
+                  "a profiled session ended inside the window")
+
+        prof = profile_step(torch, window, must_run=("matmul",))
+    for s in streams:
+        s.result(timeout=300)
+    return prof
+
+
+def generate_phase(torch, card, profile=False):
+    """Slice 5's path: `GenerationEngine` over the default model with a
+    32 x 2048 slab, served by its worker thread. Returns the result and,
+    when `profile`, a profile of 20 decode ticks (else None)."""
+    import numpy as np
+
+    from mxnet_tpu_torch.models import TransformerLM, TransformerLMConfig
+    from mxnet_tpu_torch.serving import warmup
+    from mxnet_tpu_torch.serving.generation import GenerationEngine
+
+    held = torch.cuda.memory_allocated() / 1e9  # by earlier phases
+    cfg = TransformerLMConfig()
+    lm = TransformerLM(cfg, device="cuda",
+                       generator=torch.Generator(device="cuda").manual_seed(0))
+    rng = np.random.RandomState(0)
+    lens = rng.randint(GEN_PROMPT_LENS[0], GEN_PROMPT_LENS[1] + 1, GEN_BURST)
+    prompts = [rng.randint(0, cfg.vocab_size, n) for n in lens]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    reset_launches()
+    eng = GenerationEngine(lm, max_slots=GEN_SLOTS, max_len=GEN_MAX_LEN)
+    try:
+        ticks = []  # wall seconds of every tick the engine runs
+        real_tick = eng._tick
+
+        def timed_tick():
+            t0 = time.perf_counter()
+            real_tick()
+            ticks.append(time.perf_counter() - t0)
+
+        eng._tick = timed_tick
+        n_programs = len(eng.prefill_buckets) + 1
+        warm = [warmup(eng), warmup(eng)]
+        check(len(eng.prefill_buckets) == 9, f"prefill ladder "
+              f"{eng.prefill_buckets}, want 8, 16, ..., 2048")
+        check(warm[0]["compiles"] == warm[0]["captures"] == n_programs,
+              f"first warm-up {warm[0]}: want {n_programs} captures")
+        check(warm[1]["compiles"] == warm[1]["captures"] == 0,
+              f"second warm-up {warm[1]}: want no capture")
+        misses0, captures0 = eng.cache.misses, eng.captures
+
+        ticks.clear()
+        t0 = time.perf_counter()
+        streams = [eng.submit(p, max_new_tokens=GEN_NEW) for p in prompts]
+        outs = [s.result(timeout=600) for s in streams]
+        wall = time.perf_counter() - t0
+        burst_ticks = list(ticks)
+        check(all(len(o) == GEN_NEW for o in outs),
+              "a burst session ended early")
+        ttft = [s.first_token_at - s.submitted_at for s in streams]
+
+        # O(1) flatness: one long stream alone, inter-token gap late / early
+        gaps, t_prev = [], time.perf_counter()
+        for _ in eng.submit(prompts[0][:FLAT_PROMPT],
+                            max_new_tokens=FLAT_NEW):
+            now = time.perf_counter()
+            gaps.append(now - t_prev)
+            t_prev = now
+        check(len(gaps) == FLAT_NEW, f"flatness stream gave {len(gaps)}")
+        third = len(gaps) // 3
+        flatness = (statistics.median(gaps[-third:])
+                    / statistics.median(gaps[1:1 + third]))
+
+        # (b) sessions of both admission waves rerun alone, bit for bit
+        rerun = list(range(0, GEN_BURST, GEN_BURST // GEN_RERUN))
+        for i in rerun:
+            alone = eng.generate(prompts[i], max_new_tokens=GEN_NEW)
+            check(alone == outs[i], f"burst session {i} rerun alone gave "
+                  f"other tokens")
+        # (a) steady state captured and built nothing
+        steady = {"misses": eng.cache.misses - misses0,
+                  "captures": eng.captures - captures0}
+        check(steady == {"misses": 0, "captures": 0},
+              f"steady-state traffic built programs: {steady}")
+
+        with eng._tick_lock:
+            check(eng.live_slots == 0 and eng.queue_depth == 0,
+                  "engine not idle before the graph checks")
+            exact = graph_vs_eager(torch, lm, eng, rng)  # (c)
+            decode = eng._decode_fn()
+            decode_ms = cuda_ms(decode.graph.replay)
+            prefill_ms = {b: cuda_ms(eng._prefill_fn(b).graph.replay)
+                          for b in eng.prefill_buckets}
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        profiled = profile_ticks(torch, eng, prompts) if profile else None
+        launches = read_launches()
+        # (e) no TPU kernel lies on this path
+        check(not any(launches.values()),
+              f"generate path launched {launches}, want none")
+        kv_bytes = eng.kv_slab_bytes()
+    finally:
+        eng.close(timeout=60)
+    bound_ms, bound_by, nbytes = decode_bound(lm, eng)
+    n_tokens = sum(len(o) for o in outs)
+    return {
+        "config": "TransformerLMConfig() defaults",
+        "params": sum(p.numel() for p in lm.parameters()),
+        "slots": GEN_SLOTS, "max_len": GEN_MAX_LEN,
+        "buckets": list(eng.prefill_buckets), "kv_slab_bytes": kv_bytes,
+        "card": card, "warm": warm,
+        "burst": {"sessions": GEN_BURST, "prompt_lens": "uniform "
+                  f"{GEN_PROMPT_LENS[0]}-{GEN_PROMPT_LENS[1]}, "
+                  "RandomState(0)", "max_new_tokens": GEN_NEW,
+                  "tokens": n_tokens, "wall_s": wall,
+                  "tokens_per_s": n_tokens / wall,
+                  "ttft_ms_p50": percentile_ms(ttft, 50),
+                  "ttft_ms_p99": percentile_ms(ttft, 99),
+                  "ticks": len(burst_ticks),
+                  "tick_ms_median": statistics.median(burst_ticks) * 1e3},
+        "steady_state_builds": steady, "rerun_bit_equal": rerun,
+        "graph_vs_eager": exact,
+        "decode_graph_ms": decode_ms, "decode_bound_ms": bound_ms,
+        "decode_bound_by": bound_by, "decode_bytes": nbytes,
+        "decode_bound_share": bound_ms / decode_ms,
+        "scores": "bmm with out_dtype=float32 on bf16 operands",
+        "prefill_graph_ms": prefill_ms,
+        "flatness": flatness, "flatness_stream": f"{FLAT_PROMPT}-token "
+        f"prompt, {FLAT_NEW} tokens, median gap of the last third / the "
+        "first third",
+        "peak_mem_gb": peak, "held_before_gb": held,
+        "kernel_launches": launches,
+    }, profiled
+
+
+def small_generate_phase(torch):
+    """Check (d): the small fp32 model of `small_reference_phase` with the
+    same weights served on the card (through captured graphs) and on the
+    CPU (eager): equal greedy streams over 8 ragged sessions, and prefill
+    and decode logits within 1e-4."""
+    import numpy as np
+
+    from mxnet_tpu_torch.models import TransformerLM, TransformerLMConfig
+    from mxnet_tpu_torch.serving.generation import GenerationEngine
+
+    cfg = TransformerLMConfig(vocab_size=512, d_model=128, n_heads=2,
+                              d_ff=256, n_layers=2, max_len=256,
+                              dtype="float32")
+    cpu = TransformerLM(cfg, device="cpu",
+                        generator=torch.Generator().manual_seed(1))
+    gpu = TransformerLM(cfg, device="cuda")
+    gpu.load_state_dict(cpu.state_dict())
+    rng = np.random.RandomState(1)
+    prompts = [rng.randint(0, cfg.vocab_size, n)
+               for n in rng.randint(2, 60, 8)]
+    news = [16 + 8 * (i % 3) for i in range(len(prompts))]
+    kw = dict(max_slots=4, max_len=cfg.max_len, buckets=(8, 16, 32, 64))
+    streams = {}
+    for name, model in (("card", gpu), ("cpu", cpu)):
+        with GenerationEngine(model, **kw) as eng:
+            streams[name] = [s.result(timeout=300) for s in
+                             [eng.submit(p, max_new_tokens=n)
+                              for p, n in zip(prompts, news)]]
+            if name == "card":
+                captures = eng.captures
+    for i, (a, b) in enumerate(zip(streams["card"], streams["cpu"])):
+        if a != b:
+            k = next(j for j, (x, y) in enumerate(zip(a, b)) if x != y)
+            seq = torch.tensor([list(prompts[i]) + b[:k]])
+            with torch.no_grad():
+                top = cpu(seq)[0, -1].float().topk(2).values
+            check(False, f"session {i}: card and CPU streams differ at "
+                  f"token {k} ({a[k]} vs {b[k]}); CPU top-2 logit gap "
+                  f"{float(top[0] - top[1])}")
+
+    tol = 1e-4  # fp32 on both, sums in another order: a few ulp per layer
+    toks = np.zeros(64, np.int64)
+    toks[:len(prompts[0])] = prompts[0]
+    positions = np.full(4, cfg.max_len - 1)
+    logits = {}
+    for name, model in (("card", gpu), ("cpu", cpu)):
+        dev = model.device
+        ck, cv = model.init_cache(4, cfg.max_len)
+        pre, _, _ = model.prefill(ck, cv, torch.from_numpy(toks).to(dev),
+                                  len(prompts[0]), 2)
+        steps = [pre.cpu()]
+        tokens = np.zeros(4, np.int64)
+        tok, pos = int(pre.argmax()), len(prompts[0])
+        for _ in range(3):
+            tokens[2], positions[2] = tok, pos
+            out, _, _ = model.decode_step(
+                ck, cv, torch.from_numpy(tokens).to(dev),
+                torch.from_numpy(positions).to(dev))
+            steps.append(out.cpu())
+            tok, pos = int(out[2].argmax()), pos + 1
+        logits[name] = steps
+    errs = [float((a - b).abs().max())
+            for a, b in zip(logits["card"], logits["cpu"])]
+    check(max(errs) <= tol, f"small fp32 prefill/decode logits card vs CPU: "
+          f"max err {errs} > {tol}")
+    return {"config": "vocab 512, d_model 128, 2 heads, 2 layers, fp32",
+            "sessions": len(prompts), "streams_equal": True,
+            "tokens": sum(len(s) for s in streams["card"]),
+            "card_captures": captures,
+            "prefill_decode_logits_max_abs_err": errs, "tol": tol}
 
 
 def attention_case(torch, fa, F, *, b, l, h, d, dtype, causal, tol, timed):
@@ -845,7 +1150,11 @@ def main(argv=None):
     parser.add_argument("--profile", metavar="OUT.json",
                         help="also profile one step of each path into "
                         "OUT.json")
+    parser.add_argument("--deadline", type=float, default=1100,
+                        metavar="SECONDS", help="dump every thread's stack "
+                        "and exit 1 if the run is not over by then")
     args = parser.parse_args(argv)
+    faulthandler.dump_traceback_later(args.deadline, exit=True)
 
     import torch
 
@@ -878,17 +1187,27 @@ def main(argv=None):
 
     train, lm_state = train_phase(torch)
     small = small_reference_phase(torch)
+    progress("train")
     ring, ring_state = ring_phase(torch, train)
     small_ring = small_reference_phase(torch, sp=RING_SP)
+    progress("ring")
+    # before any profiler: the engines' worker threads replay graphs
+    small_generate = small_generate_phase(torch)
+    generate, generate_profile = generate_phase(torch, smi,
+                                                profile=bool(args.profile))
+    progress("generate")
     trainer, trainer_profile = trainer_phase(torch, profile=bool(args.profile))
+    progress("trainer")
     kernels = kernels_phase(torch, fa, gcm, {
         "train": train["kernel_launches"],
         "ring": ring["kernel_launches"],
-        "trainer": trainer["kernel_launches"]})
+        "trainer": trainer["kernel_launches"],
+        "generate": generate["kernel_launches"]})
     emit(kernels=kernels)
     emit(train=train, small_reference=small)
     emit(ring=ring, small_reference=small_ring)
     emit(trainer=trainer)
+    emit(generate=generate, small_reference=small_generate)
     if args.profile:
         def one_more_step(state_of_path):
             _, step, state, tokens, targets = state_of_path
@@ -899,7 +1218,7 @@ def main(argv=None):
                                   must_run=("K1 flash_attention_fwd",)),
             "ring": profile_step(torch, one_more_step(ring_state),
                                  must_run=("K2 flash_block_partials",)),
-            "trainer": trainer_profile}
+            "trainer": trainer_profile, "generate": generate_profile}
         with open(args.profile, "w") as f:
             json.dump(profiles, f, indent=1)
         emit(profile={"path": args.profile, **{

@@ -14,7 +14,11 @@ the Adam train step) with the flash-attention forward kernel
 (`gradient_compression`); sequence parallelism by ring attention over the
 `sp` axis of a mesh that one process holds (`parallel.mesh`,
 `parallel.ring_attention`, `TransformerLM(..., mesh=...)`), whose hop is a
-kernel (`ops.flash_attention.flash_block_partials`).
+kernel (`ops.flash_attention.flash_block_partials`); generation serving
+(`serving.generation.GenerationEngine` over the KV-cache methods of
+`TransformerLM`, `serving.admission`, `serving.warmup`), whose prefill and
+decode programs are CUDA graphs captured once (`compile_cache`); its path
+runs no TPU kernel's port, as the JAX engine's runs no Pallas kernel.
 """
 from .context import resolve_device
 

@@ -9,9 +9,17 @@ attention goes through `ops.flash_attention`: the hand-written kernel on a
 CUDA tensor, the plain version on a CPU tensor. With a mesh whose `sp`
 axis is above 1, attention is ring attention over the mesh's positions
 (`parallel.ring_attention`, whose hops are the ring-hop kernel on a CUDA
-tensor), as the JAX model's `_attention` takes it. Not ported: the other
-mesh axes and the sharding constraints, the MoE FFN, and the
-incremental-decoding methods.
+tensor), as the JAX model's `_attention` takes it.
+
+The incremental-decoding methods serve the generation engine
+(`serving.generation`): `init_cache` allocates the KV slot slab,
+`prefill` fills one slot from a prompt and `decode_step` extends every
+slot by one token. Their attention is plain products over the slab, as in
+the JAX package (no Pallas kernel there, so no kernel here). They write the
+slab in place, since a captured CUDA graph keeps its pointers, and take
+their slot, length, token and position operands as device tensors, so one
+graph serves every slot and position. Not ported: the other mesh axes and
+the sharding constraints, the MoE FFN, `prefill_at` and `verify_step`.
 """
 from __future__ import annotations
 
@@ -28,6 +36,10 @@ from ..parallel.mesh import AXIS_SP, axis_size
 from ..parallel.ring_attention import ring_self_attention
 
 __all__ = ["TransformerLMConfig", "TransformerLM"]
+
+# the additive mask of the slab attention: large and finite, never -inf, so
+# a row that masks every key gives finite garbage, not NaN
+_MASKED = -1e9
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,6 +59,27 @@ class TransformerLMConfig:
     moe_every: int = 2
     moe_capacity_factor: float = 1.5
     moe_aux_loss: float = 0.01
+
+
+def _scores(a, b):
+    """``a @ b`` over a batch, in fp32: the JAX package's score products
+    take ``preferred_element_type=float32``. A bf16 product on the card
+    keeps its operands and writes fp32 (`bmm`'s ``out_dtype``); the CPU
+    has no kernel for that, so there the operands are upcast, which gives
+    the same exact products summed in fp32."""
+    if a.dtype == torch.float32:
+        return torch.bmm(a, b)
+    if a.is_cuda:
+        return torch.bmm(a, b, out_dtype=torch.float32)
+    return torch.bmm(a.float(), b.float())
+
+
+def _index(x, device):
+    """A slot, length or position operand as a 1-D int64 tensor on
+    `device`; a tensor is used as it is (the engine's static buffers)."""
+    if isinstance(x, torch.Tensor):
+        return x.reshape(-1)
+    return torch.tensor([int(x)], dtype=torch.int64, device=device)
 
 
 def _empty(device, dtype):
@@ -137,6 +170,12 @@ class TransformerLM(nn.Module):
         out = (x32 - mu) * torch.rsqrt(var + 1e-5)
         return (out * scale.float() + bias.float()).to(x.dtype)
 
+    def _ffn(self, h, layer):
+        """The block's second half: h + FFN(LayerNorm(h)), tanh GELU."""
+        ln2 = self._ln(h, layer.ln2_scale, layer.ln2_bias)
+        ff = F.gelu(ln2 @ layer.w1 + layer.b1, approximate="tanh")
+        return h + ff @ layer.w2 + layer.b2
+
     def _attention(self, q, k, v):
         """Ring attention when the mesh's `sp` axis is above 1 (q, k and v
         split along L over its positions, the output joined on the model's
@@ -159,13 +198,118 @@ class TransformerLM(nn.Module):
             # strided views of the projection: the kernel reads them in place
             q, k, v = (t.view(b, seq, c.n_heads, hd) for t in (q, k, v))
             attn = self._attention(q, k, v).reshape(b, seq, c.d_model)
-            h = h + attn @ layer.wo
-            ln2 = self._ln(h, layer.ln2_scale, layer.ln2_bias)
-            ff = F.gelu(ln2 @ layer.w1 + layer.b1, approximate="tanh")
-            h = h + ff @ layer.w2 + layer.b2
+            h = self._ffn(h + attn @ layer.wo, layer)
         h = self._ln(h, self.ln_f_scale, self.ln_f_bias)
         head = self.embed.t() if c.tie_embeddings else self.lm_head
         return h @ head
+
+    # -- incremental decoding (serving/generation) ---------------------------
+
+    def init_cache(self, max_slots, max_len=None):
+        """The KV slot slab: two zeroed tensors (keys, values) of shape
+        ``[max_slots, n_layers, n_heads, max_len, head_dim]`` in the compute
+        dtype on the model's device, the JAX package's layout. In memory
+        the layer is the outermost axis, so one layer's page
+        ``cache[:, i]`` is contiguous and its slots and heads form one
+        batch of the score products. Slot contents are garbage until a
+        `prefill` claims the slot; reads are masked by the slot's length.
+        Raises ValueError past ``cfg.max_len``."""
+        c = self.cfg
+        max_len = c.max_len if max_len is None else int(max_len)
+        if max_len > c.max_len:
+            raise ValueError(f"cache max_len {max_len} exceeds the model's "
+                             f"positional range {c.max_len}")
+        hd = c.d_model // c.n_heads
+        shape = (c.n_layers, int(max_slots), c.n_heads, max_len, hd)
+        return tuple(torch.zeros(shape, dtype=self.embed.dtype,
+                                 device=self.device).transpose(0, 1)
+                     for _ in range(2))
+
+    def _head_logits(self, h):
+        """Final LayerNorm and head, logits in fp32."""
+        c = self.cfg
+        h = self._ln(h, self.ln_f_scale, self.ln_f_bias)
+        head = self.embed.t() if c.tie_embeddings else self.lm_head
+        return (h @ head).float()
+
+    @torch.inference_mode()
+    def prefill(self, cache_k, cache_v, tokens, length, slot):
+        """Full-prompt forward for ONE session: writes its K/V into rows
+        ``[0, Lb)`` of slot `slot` of the slab, in place, and returns the
+        logits at the last real token (position ``length - 1``).
+
+        tokens : int [Lb]  the prompt padded (with anything) to its bucket;
+                           the padded rows' K/V stay masked forever
+        length : the real prompt length, 1 <= length <= Lb
+        slot   : the slab slot to fill
+
+        `length` and `slot` may be ints or one-element int64 tensors on the
+        model's device; a captured graph needs the tensors. Returns
+        ``(logits [V] fp32, cache_k, cache_v)``, the JAX method's shape."""
+        c = self.cfg
+        lb = tokens.shape[0]
+        hd = c.d_model // c.n_heads
+        scale = 1.0 / math.sqrt(hd)
+        slot = _index(slot, self.device)
+        length = _index(length, self.device)
+        h = F.embedding(tokens, self.embed) + self.pos_embed[:lb]
+        ar = torch.arange(lb, device=self.device)
+        causal = torch.where(ar[:, None] >= ar[None, :], 0.0, _MASKED)
+        for i, layer in enumerate(self.layers):
+            ln1 = self._ln(h, layer.ln1_scale, layer.ln1_bias)
+            # [H, Lb, hd] each
+            q, k, v = ((ln1 @ layer.wqkv).view(lb, 3, c.n_heads, hd)
+                       .permute(1, 2, 0, 3).unbind(0))
+            cache_k[:, i, :, :lb].index_copy_(0, slot, k[None])
+            cache_v[:, i, :, :lb].index_copy_(0, slot, v[None])
+            s = _scores(q, k.transpose(1, 2)) * scale           # [H,Lb,Lb]
+            p = torch.softmax(s + causal, dim=-1).to(h.dtype)
+            attn = torch.bmm(p, v).transpose(0, 1).reshape(lb, c.d_model)
+            h = self._ffn(h + attn @ layer.wo, layer)
+        last = h.index_select(0, length - 1)                      # [1, D]
+        return self._head_logits(last)[0], cache_k, cache_v
+
+    @torch.inference_mode()
+    def decode_step(self, cache_k, cache_v, tokens, positions):
+        """One step over the WHOLE slab: slot s consumes ``tokens[s]``,
+        writes its K/V at row ``positions[s]``, in place, and attends over
+        rows ``[0, positions[s]]``.
+
+        tokens    : int [S] the token extending each slot (dead slots:
+                    anything; the engine discards their output)
+        positions : int [S] the row each token occupies, the slot's current
+                    length (dead slots: a row no session owns)
+
+        Every position must be below the slab's length: unlike JAX's
+        clamping updates, an index out of range is a device fault here.
+        Returns ``(logits [S, V] fp32, cache_k, cache_v)``."""
+        c = self.cfg
+        n_slots, n_rows = cache_k.shape[0], cache_k.shape[3]
+        hd = c.d_model // c.n_heads
+        scale = 1.0 / math.sqrt(hd)
+        h = F.embedding(tokens, self.embed) + self.pos_embed[positions]
+        slots = torch.arange(n_slots, device=self.device)
+        # attend j <= positions[s]: the token just written attends to itself
+        mask = torch.where(
+            torch.arange(n_rows, device=self.device)[None, :]
+            <= positions[:, None], 0.0, _MASKED)[:, None, None, :]
+        for i, layer in enumerate(self.layers):
+            ln1 = self._ln(h, layer.ln1_scale, layer.ln1_bias)
+            # [S, H, 1, hd] each
+            q, k, v = ((ln1 @ layer.wqkv).view(n_slots, 3, c.n_heads, 1, hd)
+                       .unbind(1))
+            ck, cv = cache_k[:, i], cache_v[:, i]                # [S,H,L,hd]
+            ck[slots, :, positions] = k[:, :, 0]
+            cv[slots, :, positions] = v[:, :, 0]
+            batch = n_slots * c.n_heads
+            s = _scores(q.reshape(batch, 1, hd),
+                        ck.reshape(batch, n_rows, hd).transpose(1, 2))
+            s = s.view(n_slots, c.n_heads, 1, n_rows) * scale + mask
+            p = torch.softmax(s, dim=-1).to(h.dtype).view(batch, 1, n_rows)
+            attn = torch.bmm(p, cv.reshape(batch, n_rows, hd))
+            h = self._ffn(h + attn.view(n_slots, c.d_model) @ layer.wo,
+                          layer)
+        return self._head_logits(h), cache_k, cache_v
 
     # -- training -----------------------------------------------------------
 

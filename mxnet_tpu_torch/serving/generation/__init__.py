@@ -1,0 +1,24 @@
+"""mxnet_tpu_torch.serving.generation: continuous-batching autoregressive
+serving, the port of `mxnet_tpu.serving.generation` (plain lane).
+
+* `GenerationEngine`: a slot-based KV-cache session store (one
+  preallocated slab, fixed shapes, admission and eviction a slot-index
+  write) driven by a token-level scheduler: each tick runs ONE decode step
+  over every live session, evicts finished, EOS and expired sequences and
+  admits queued prefills into the freed slots mid-stream. On the card every
+  program is a CUDA graph captured once and replayed;
+* `GenerationStream`: ``submit() -> iterator of tokens`` with caller-runs
+  assist, plus ``result()`` for collectors; failures raise in band.
+
+Quick start::
+
+    lm = TransformerLM(cfg)                  # on cuda
+    eng = generation.GenerationEngine(lm, max_slots=16)
+    serving.warmup(eng)                      # capture prefill + decode
+    for tok in eng.submit(prompt_ids, max_new_tokens=64, timeout=2.0):
+        ...
+"""
+from .engine import GenerationEngine, prefill_ladder
+from .session import GenerationStream
+
+__all__ = ["GenerationEngine", "GenerationStream", "prefill_ladder"]
