@@ -43,6 +43,22 @@ Phases, each printed as one JSON line:
            time against its bound (the slab and the weights read once a
            tick), each prefill bucket's graph time, peak memory, and the
            card's name and power limit;
+  nd       slice 6's path, after the trainer: `resnet50_v1_nd`, a ResNet-50
+           v1 train step written only with `mx.nd` ops and `mx.autograd`
+           (the same function the CPU test runs on the JAX package), at full
+           width (batch 32 at 224 x 224, 1000 classes, weights Xavier from
+           seed 0) in fp32 with TF32 off and in bf16: 2 warm-up steps and 5
+           timed, SGD with momentum through `nd.sgd_mom_update`. Prints the
+           median step, img/s, the host's enqueue time, the step's FLOP
+           bound (its convolutions and FullyConnected, forward x 3) and its
+           share, peak memory and the card line. Checks, each raising: (a)
+           finite loss and gradients, every BatchNorm moving stat moved;
+           (b) a small fp32 version (`ND_SMALL`) stepped twice on the card
+           and on the CPU agrees (losses, gradients, weights, momenta and
+           moving stats); (c) every case of the op table (`op_cases`, one or
+           more for each name the port registers) forward and backward on
+           the card against the CPU, and Dropout's training statistics;
+           (d) no kernel launched;
   kernels  each kernel against its plain PyTorch version on the card, at the
            shapes the main path gives it and at extra cases (every head dim
            and dtype variant of K1 and K2), with times (`cuda_ms`: many calls
@@ -57,7 +73,8 @@ to 0 just before each path and read just after; each path must launch its
 own kernels and no other. Any failed check raises, so the script exits
 non-zero and prints no last line; so does a machine without a CUDA card.
 `--profile` also writes a torch.profiler breakdown of one more step of each
-training path and of 20 decode ticks over a full slab, by kernel, to
+training path (the nd path at both dtypes too) and of 20 decode ticks over
+a full slab, by kernel, to
 OUT.json; each profile must hold every launch of the port's kernels that
 its step made. A run not over after `--deadline` seconds (default 1100)
 dumps every thread's stack and exits 1.
@@ -750,6 +767,752 @@ def small_generate_phase(torch):
             "prefill_decode_logits_max_abs_err": errs, "tol": tol}
 
 
+# --- the nd phase (slice 6): mx.nd, autograd and the op registry ----------
+
+# ResNet-50 v1 (`mxnet_tpu/gluon/model_zoo/vision/resnet.py`): bottleneck
+# units per stage, and the stem's then each stage's output channels
+RESNET50_UNITS = (3, 4, 6, 3)
+RESNET50_WIDTHS = (64, 256, 512, 1024, 2048)
+ND_BATCH, ND_SIZE, ND_CLASSES = 32, 224, 1000  # bench.py raw_shapes(on_tpu)
+ND_WARMUP, ND_STEPS = 2, 5
+ND_LR, ND_MOMENTUM, ND_WD = 0.1, 0.9, 1e-4  # bench.py build_raw_step
+# the small fp32 version of checks (b) and of the CPU test: two stages of
+# one unit each, batch 4 at 32 x 32, 10 classes
+ND_SMALL = {"units": (1, 1), "widths": (8, 16, 32), "classes": 10,
+            "batch": 4, "size": 32}
+# fp32 on the card (TF32 off) against the CPU: the same function, sums in
+# another order, two SGD steps through 13 BatchNorms
+ND_SMALL_TOL = {"rtol": 1e-4, "atol": 1e-5}
+# check (c): one op on the card against the CPU, fp32 (and 1e-3 for fp16
+# results, whose ulp is 2^-10)
+OP_TOL = {"float32": (1e-4, 1e-5), "float16": (1e-3, 1e-3)}
+
+
+def resnet50_v1_units(units, widths):
+    """(name prefix, input channels, output channels, stride, downsample)
+    of each bottleneck unit, in order: stride 2 on the first unit of every
+    stage but the first, and a downsampling shortcut where the channels
+    change."""
+    out = []
+    for i, n in enumerate(units):
+        for j in range(n):
+            cin = widths[i] if j == 0 else widths[i + 1]
+            stride = 2 if i > 0 and j == 0 else 1
+            out.append((f"stage{i + 1}_unit{j + 1}_", cin, widths[i + 1],
+                        stride, cin != widths[i + 1]))
+    return out
+
+
+def resnet50_v1_shapes(units=RESNET50_UNITS, widths=RESNET50_WIDTHS,
+                       classes=ND_CLASSES, in_channels=3):
+    """{name: shape} of the parameters, and of the BatchNorm moving stats,
+    of `resnet50_v1_nd`."""
+    params, aux = {}, {}
+
+    def conv(name, cout, cin, k, bias=False):
+        params[name + "_weight"] = (cout, cin, k, k)
+        if bias:
+            params[name + "_bias"] = (cout,)
+
+    def bn(name, c):
+        params[name + "_gamma"] = params[name + "_beta"] = (c,)
+        aux[name + "_running_mean"] = aux[name + "_running_var"] = (c,)
+
+    conv("conv0", widths[0], in_channels, 7)
+    bn("bn0", widths[0])
+    for prefix, cin, cout, _, down in resnet50_v1_units(units, widths):
+        mid = cout // 4
+        conv(prefix + "conv1", mid, cin, 1, bias=True)
+        bn(prefix + "bn1", mid)
+        conv(prefix + "conv2", mid, mid, 3)
+        bn(prefix + "bn2", mid)
+        conv(prefix + "conv3", cout, mid, 1, bias=True)
+        bn(prefix + "bn3", cout)
+        if down:
+            conv(prefix + "down", cout, cin, 1)
+            bn(prefix + "downbn", cout)
+    params["fc_weight"] = (classes, widths[-1])
+    params["fc_bias"] = (classes,)
+    return params, aux
+
+
+def resnet50_v1_init(seed, **arch):
+    """numpy parameters and moving stats: weights Xavier uniform at
+    magnitude 3 over the average of fan-in and fan-out (`mx.init.Xavier`'s
+    defaults), biases and betas 0, gammas 1, moving means 0 and moving
+    variances 1."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    shapes, aux_shapes = resnet50_v1_shapes(**arch)
+    params = {}
+    for name, shape in shapes.items():
+        if name.endswith("_weight"):
+            hw = int(np.prod(shape[2:]))
+            scale = math.sqrt(3.0 / ((shape[0] + shape[1]) * hw / 2.0))
+            params[name] = rng.uniform(-scale, scale, shape).astype(
+                np.float32)
+        else:
+            fill = 1.0 if name.endswith("_gamma") else 0.0
+            params[name] = np.full(shape, fill, np.float32)
+    aux = {name: np.full(shape, 1.0 if name.endswith("_var") else 0.0,
+                         np.float32) for name, shape in aux_shapes.items()}
+    return params, aux
+
+
+def resnet50_v1_nd(mx, params, aux, x, label, units=RESNET50_UNITS,
+                   widths=RESNET50_WIDTHS, flop=None):
+    """The loss of ResNet-50 v1 on (x, label), written only against the
+    package `mx` it is given (`mxnet_tpu` or `mxnet_tpu_torch`): `mx.nd`
+    ops on NDArrays. The stem is a 7x7/2 convolution, BatchNorm, ReLU and
+    a 3x3/2 max pool; each bottleneck unit (`BottleneckV1`) is 1x1 (with
+    the stride) → 3x3 → 1x1, each followed by BatchNorm, with a 1x1
+    convolution and BatchNorm as the downsampling shortcut and ReLU after
+    the sum; the head is a global average pool and a FullyConnected. The
+    loss is -mean(pick(log_softmax(out), label)) (`bench.py:510-513`).
+    BatchNorms are gluon's (eps 1e-5, momentum 0.9, gamma trained); in
+    training they move the stats in ``aux``. `flop`, a list, receives the
+    multiply-adds x 2 of every convolution and of the FullyConnected."""
+    nd = mx.nd
+
+    def conv(y, name, stride=1, pad=0):
+        w = params[name + "_weight"]
+        k = w.shape[2]
+        bias = params.get(name + "_bias")
+        args = (y, w) if bias is None else (y, w, bias)
+        out = nd.Convolution(*args, kernel=(k, k), stride=(stride, stride),
+                             pad=(pad, pad), num_filter=w.shape[0],
+                             no_bias=bias is None)
+        if flop is not None:
+            flop.append(2 * out.size * w.shape[1] * k * k)
+        return out
+
+    def bn(y, name):
+        return nd.BatchNorm(y, params[name + "_gamma"],
+                            params[name + "_beta"],
+                            aux[name + "_running_mean"],
+                            aux[name + "_running_var"], eps=1e-5,
+                            momentum=0.9, fix_gamma=False)
+
+    def relu(y):
+        return nd.Activation(y, act_type="relu")
+
+    y = relu(bn(conv(x, "conv0", 2, 3), "bn0"))
+    y = nd.Pooling(y, kernel=(3, 3), stride=(2, 2), pad=(1, 1),
+                   pool_type="max")
+    for prefix, _, _, stride, down in resnet50_v1_units(units, widths):
+        h = relu(bn(conv(y, prefix + "conv1", stride), prefix + "bn1"))
+        h = relu(bn(conv(h, prefix + "conv2", 1, 1), prefix + "bn2"))
+        h = bn(conv(h, prefix + "conv3"), prefix + "bn3")
+        if down:
+            y = bn(conv(y, prefix + "down", stride), prefix + "downbn")
+        y = relu(h + y)
+    y = nd.Pooling(y, kernel=(1, 1), global_pool=True, pool_type="avg")
+    w = params["fc_weight"]
+    out = nd.FullyConnected(y, w, params["fc_bias"], num_hidden=w.shape[0])
+    if flop is not None:
+        flop.append(2 * out.size * w.shape[1])
+    return -nd.mean(nd.pick(nd.log_softmax(out), label))
+
+
+def resnet50_v1_nd_step(mx, params, moms, aux, x, label, **arch):
+    """One training step: the loss recorded, its backward, and
+    `nd.sgd_mom_update` (lr 0.1, momentum 0.9, wd 1e-4) written over every
+    parameter. Returns the loss."""
+    with mx.autograd.record():
+        loss = resnet50_v1_nd(mx, params, aux, x, label, **arch)
+    loss.backward()
+    for name, w in params.items():
+        mx.nd.sgd_mom_update(w, w.grad, moms[name], lr=ND_LR,
+                             momentum=ND_MOMENTUM, wd=ND_WD, out=w)
+    return loss
+
+
+def resnet50_v1_batch(seed, batch, size, classes):
+    """numpy images uniform in [-1, 1) and labels (as float32 indices)."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    x = rng.uniform(-1, 1, (batch, 3, size, size)).astype(np.float32)
+    label = rng.randint(0, classes, (batch,)).astype(np.float32)
+    return x, label
+
+
+def resnet50_v1_arrays(mx, ctx, params, aux, x, label, dtype="float32"):
+    """NDArrays on ctx: parameters (marked for backward) and momenta in
+    `dtype`, moving stats in fp32, the images in `dtype`."""
+    ps = {k: mx.nd.array(v, ctx=ctx).astype(dtype) for k, v in params.items()}
+    for p in ps.values():
+        p.attach_grad()
+    moms = {k: mx.nd.zeros(v.shape, ctx=ctx, dtype=dtype)
+            for k, v in params.items()}
+    auxs = {k: mx.nd.array(v, ctx=ctx) for k, v in aux.items()}
+    return (ps, moms, auxs, mx.nd.array(x, ctx=ctx).astype(dtype),
+            mx.nd.array(label, ctx=ctx))
+
+
+# -- check (c)'s case table: every op of the port's registry ---------------
+# An input is ("u", shape, lo, hi, dtype): uniform; ("i", shape, lo, hi,
+# dtype): integers, as MXNet passes indices; or ("c", value, dtype): a
+# constant. `grad` is True (every "u" input), False, or the inputs' indices.
+
+def _u(*shape, lo=-1.0, hi=1.0, dtype="float32"):
+    return ("u", shape, lo, hi, dtype)
+
+
+def _i(*shape, lo=0, hi=3, dtype="float32"):
+    return ("i", shape, lo, hi, dtype)
+
+
+def _c(value, dtype="float32"):
+    return ("c", value, dtype)
+
+
+_POS = {"lo": 0.5, "hi": 2.0}
+_UNIT = {"lo": -0.9, "hi": 0.9}
+_UNARY_CASES = {
+    "abs": {}, "sign": {}, "rint": {}, "ceil": {}, "floor": {}, "trunc": {},
+    "fix": {}, "round": {}, "exp": {}, "expm1": {}, "log": _POS,
+    "log10": _POS, "log2": _POS, "log1p": {"lo": -0.5, "hi": 1.0},
+    "sqrt": _POS, "cbrt": _POS, "square": {}, "reciprocal": _POS,
+    "rsqrt": _POS, "rcbrt": _POS, "sin": {}, "cos": {}, "tan": {},
+    "arcsin": _UNIT, "arccos": _UNIT, "arctan": {}, "sinh": {}, "cosh": {},
+    "tanh": {}, "arcsinh": {}, "arccosh": {"lo": 1.1, "hi": 3.0},
+    "arctanh": _UNIT, "degrees": {}, "radians": {}, "sigmoid": {},
+    "softsign": {}, "relu": {}, "gamma": {"lo": 0.5, "hi": 3.0},
+    "gammaln": {"lo": 0.5, "hi": 3.0}, "erf": {}, "erfinv": _UNIT,
+    "negative _np_negative": {}, "identity _copy stop_gradient_identity": {},
+    "make_loss": {}, "_copyto": {},
+}
+_BINARY_CASES = {
+    "elemwise_add _plus _add _Plus _grad_add": {}, "_maximum": {},
+    "elemwise_sub _sub _minus": {}, "elemwise_mul _mul": {},
+    "_minimum": {}, "_hypot": {},
+}
+_SCALAR_CASES = {
+    "_plus_scalar": 0.7, "_minus_scalar": 0.7, "_rminus_scalar": 0.7,
+    "_mul_scalar": -1.3, "_div_scalar": 1.7, "_maximum_scalar": 0.1,
+    "_minimum_scalar": 0.1, "_hypot_scalar": 0.6,
+    "_scatter_plus_scalar": 0.4, "_scatter_minus_scalar": 0.4,
+}
+_CMP = ("_equal _not_equal _greater _greater_equal _lesser _lesser_equal "
+        "_logical_and _logical_or _logical_xor").split()
+_BCAST = ("add sub mul maximum minimum hypot plus minus").split()
+_BCMP = ("equal not_equal greater greater_equal lesser lesser_equal "
+         "logical_and logical_or logical_xor").split()
+_SEQ = [_u(4, 2, 3), _c([2.0, 4.0])]
+_BN_INPUTS = [_u(2, 3, 4, 4), _u(3, lo=0.5, hi=1.5), _u(3), _u(3),
+            _u(3, lo=0.5, hi=1.5)]
+
+
+def _op_case_groups():
+    """[(names, inputs, attrs, grad)]: names is one op's names separated by
+    spaces (aliases share the case), with ":variant" for a second case."""
+    cases = [(n, [_u(3, 4, **r)], {}, True) for n, r in _UNARY_CASES.items()]
+    cases += [(n, [_u(3, 4), _u(3, 4)], {}, True)
+              for n in _BINARY_CASES]
+    cases += [(n, [_u(3, 4)], {"scalar": s}, True)
+              for n, s in _SCALAR_CASES.items()]
+    cases += [(n, [_i(3, 4), _i(3, 4)], {}, False) for n in _CMP]
+    cases += [(n + "_scalar", [_i(3, 4)], {"scalar": 1.0}, False)
+              for n in _CMP]
+    cases += [("broadcast_" + n, [_u(3, 4), _u(1, 4)], {}, True)
+              for n in _BCAST]
+    cases += [("broadcast_" + n, [_i(3, 4), _i(3, 1)], {}, False)
+              for n in _BCMP]
+    cases += [
+        # elementwise
+        ("elemwise_div _div _scatter_elemwise_div",
+         [_u(3, 4), _u(3, 4, **_POS)], {}, True),
+        ("_power", [_u(3, 4, **_POS), _u(3, 4)], {}, True),
+        ("_mod", [_u(3, 4, lo=-3, hi=3), _u(3, 4, **_POS)], {}, True),
+        ("_rdiv_scalar", [_u(3, 4, **_POS)], {"scalar": 1.7}, True),
+        ("_mod_scalar", [_u(3, 4, lo=-3, hi=3)], {"scalar": 0.7}, True),
+        ("_rmod_scalar", [_u(3, 4, **_POS)], {"scalar": 3.3}, True),
+        ("_power_scalar", [_u(3, 4, **_POS)], {"scalar": 1.7}, True),
+        ("_rpower_scalar", [_u(3, 4)], {"scalar": 1.7}, True),
+        ("logical_not", [_i(3, 4, hi=2)], {}, False),
+        ("BlockGrad stop_gradient", [_u(3, 4)], {}, False),
+        ("zeros_like", [_u(3, 4)], {}, False),
+        ("ones_like", [_u(3, 4)], {}, False),
+        ("shape_array", [_u(3, 4)], {}, False),
+        ("size_array", [_u(3, 4)], {}, False),
+        ("Cast cast", [_u(3, 4)], {"dtype": "float16"}, True),
+        ("amp_cast", [_u(3, 4)], {"dtype": "float16"}, True),
+        ("amp_multicast", [_u(3, 4), _i(3, 4, dtype="int32")],
+         {"num_outputs": 2}, False),
+        ("clip", [_u(3, 4)], {"a_min": -0.5, "a_max": 0.5}, True),
+        ("hard_sigmoid", [_u(3, 4, lo=-4, hi=4)], {}, True),
+        ("add_n ElementWiseSum _sum", [_u(3, 4)] * 3, {}, True),
+        ("smooth_l1", [_u(3, 4, lo=-2, hi=2)], {"scalar": 1.0}, True),
+        ("_identity_with_attr_like_rhs", [_u(3, 4), _u(3, 4)], {}, True),
+        ("_zeros_without_dtype", [], {"shape": (2, 3)}, False),
+        ("_contrib_quadratic contrib_quadratic", [_u(3, 4)],
+         {"a": 0.5, "b": -1.0, "c": 2.0}, True),
+        ("_contrib_gradientmultiplier contrib_gradientmultiplier",
+         [_u(3, 4)], {"scalar": -0.5}, True),
+        # broadcast
+        ("broadcast_div", [_u(3, 4), _u(1, 4, **_POS)], {}, True),
+        ("broadcast_mod", [_u(3, 4, lo=-3, hi=3), _u(3, 1, **_POS)], {},
+         True),
+        ("broadcast_power", [_u(3, 4, **_POS), _u(1, 4)], {}, True),
+        ("broadcast_to", [_u(1, 4)], {"shape": (3, 4)}, True),
+        ("broadcast_axis broadcast_axes", [_u(3, 1)],
+         {"axis": 1, "size": 4}, True),
+        ("broadcast_like", [_u(1, 4), _u(3, 4)], {}, True),
+        # reductions and ordering
+        ("sum sum_axis", [_u(2, 3, 4)], {"axis": 1}, True),
+        ("sum:exclude", [_u(2, 3, 4)], {"axis": 1, "exclude": True}, True),
+        ("sum:int", [_i(2, 3, 4, hi=9, dtype="int32")], {"axis": 1}, False),
+        ("mean", [_u(2, 3, 4)], {"axis": (0, 2), "keepdims": True}, True),
+        ("mean:int", [_i(2, 3, 4, hi=9, dtype="int32")], {}, False),
+        ("prod", [_u(2, 3, 4, lo=0.5, hi=1.5)], {"axis": 2}, True),
+        ("nansum", [_u(2, 3, 4)], {"axis": 0}, True),
+        ("nanprod", [_u(2, 3, 4, lo=0.5, hi=1.5)], {}, True),
+        ("max max_axis", [_u(2, 3, 4)], {"axis": 1}, True),
+        ("min min_axis", [_u(2, 3, 4)], {"axis": (0, 1)}, True),
+        ("max:bool", [_i(2, 3, hi=2, dtype="bool")], {"axis": 1}, False),
+        ("norm", [_u(2, 3, 4)], {"ord": 2, "axis": 1}, True),
+        ("norm:l1", [_u(2, 3, 4)], {"ord": 1}, True),
+        ("argmax", [_u(2, 3, 4)], {"axis": 1}, False),
+        ("argmin", [_u(2, 3, 4)], {"axis": 2, "keepdims": True}, False),
+        ("argmax_channel", [_u(3, 4)], {}, False),
+        ("topk", [_u(3, 5)], {"k": 2, "ret_typ": "both"}, True),
+        ("topk:mask", [_u(3, 5)], {"k": 2, "ret_typ": "mask",
+                                    "is_ascend": True}, False),
+        ("sort", [_u(3, 5)], {"axis": 1, "is_ascend": False}, True),
+        ("argsort", [_u(3, 5)], {"axis": 0}, False),
+        ("cumsum", [_u(3, 5)], {"axis": 1}, True),
+        ("_histogram", [_u(20)], {"bins": 5}, False),
+        ("L2Normalization", [_u(2, 3, 4)], {"mode": "channel"}, True),
+        # shapes
+        ("Reshape reshape", [_u(2, 3, 4)], {"shape": (-4, 1, 2, -2)}, True),
+        ("Reshape:reverse", [_u(2, 3, 4)],
+         {"shape": (-1, 0), "reverse": True}, True),
+        ("Flatten flatten", [_u(2, 3, 4)], {}, True),
+        ("transpose", [_u(2, 3, 4)], {"axes": (2, 0, 1)}, True),
+        ("expand_dims", [_u(2, 3)], {"axis": -1}, True),
+        ("squeeze", [_u(2, 1, 4)], {"axis": 1}, True),
+        ("Concat concat", [_u(2, 3), _u(2, 2)],
+         {"dim": 1, "num_args": 2}, True),
+        ("stack", [_u(2, 3), _u(2, 3)], {"axis": 1, "num_args": 2}, True),
+        ("SliceChannel split", [_u(2, 3, 4)],
+         {"num_outputs": 2, "axis": 2}, True),
+        ("split_v2", [_u(2, 3, 4)], {"indices": (1,), "axis": 1}, True),
+        ("_split_v2", [_u(2, 3, 4)],
+         {"sections": 2, "axis": 2, "squeeze_axis": False}, True),
+        ("slice crop", [_u(3, 4)], {"begin": (0, 1), "end": (2, 4)}, True),
+        ("slice:step", [_u(4, 5)],
+         {"begin": (3, 0), "end": (0, 5), "step": (-1, 2)}, True),
+        ("slice_axis", [_u(2, 5)], {"axis": 1, "begin": 1, "end": 3}, True),
+        ("slice_like", [_u(3, 4), _u(2, 3)], {}, True),
+        ("reverse flip", [_u(3, 4)], {"axis": 1}, True),
+        ("tile", [_u(2, 3)], {"reps": (2, 1)}, True),
+        ("repeat", [_u(2, 3)], {"repeats": 2, "axis": 1}, True),
+        ("Pad pad", [_u(1, 2, 3, 3)],
+         {"mode": "constant", "pad_width": (0, 0, 0, 0, 1, 2, 2, 1),
+          "constant_value": 0.5}, True),
+        ("Pad:edge", [_u(1, 2, 3, 3)],
+         {"mode": "edge", "pad_width": (0, 0, 0, 0, 1, 1, 2, 2)}, True),
+        ("depth_to_space", [_u(1, 4, 2, 3)], {"block_size": 2}, True),
+        ("space_to_depth", [_u(1, 1, 4, 6)], {"block_size": 2}, True),
+        ("SwapAxis swapaxes", [_u(2, 3, 4)], {"dim1": 0, "dim2": 2}, True),
+        ("diag", [_u(3, 4)], {"k": 1}, True),
+        ("_arange_like contrib_arange_like", [_u(2, 3)],
+         {"start": 1.0, "step": 0.5}, False),
+        ("_slice_assign _crop_assign", [_u(3, 4), _u(2, 2)],
+         {"begin": (0, 1), "end": (2, 3)}, True),
+        ("_slice_assign_scalar _crop_assign_scalar", [_u(3, 4)],
+         {"begin": (1,), "end": (3,), "scalar": 2.5}, True),
+        ("reshape_like", [_u(2, 6), _u(3, 4)], {}, True),
+        # indexing
+        ("take", [_u(5, 3), _i(2, 2, lo=-2, hi=7)], {"mode": "wrap"}, (0,)),
+        ("take:clip", [_u(5, 3), _i(4, lo=-2, hi=7)],
+         {"axis": 0, "mode": "clip"}, (0,)),
+        ("Embedding", [_i(2, 3, hi=5), _u(5, 4)],
+         {"input_dim": 5, "output_dim": 4}, (1,)),
+        ("_contrib_SparseEmbedding contrib_SparseEmbedding",
+         [_i(2, 3, hi=5), _u(5, 4)], {"input_dim": 5, "output_dim": 4},
+         (1,)),
+        ("one_hot", [_i(2, 3, hi=4)], {"depth": 4}, False),
+        ("pick choose_element_0index", [_u(3, 4), _i(3, hi=4)], {}, (0,)),
+        ("pick:keepdims", [_u(3, 4), _i(4, hi=3)],
+         {"axis": 0, "keepdims": True}, (0,)),
+        ("batch_take", [_u(3, 4), _i(3, hi=4)], {}, (0,)),
+        ("gather_nd", [_u(3, 4), _c([[0, 2, 1], [1, 3, 0]])], {}, (0,)),
+        ("scatter_nd", [_u(3), _c([[0, 2, 1], [1, 3, 0]])],
+         {"shape": (3, 4)}, (0,)),
+        ("_scatter_set_nd", [_u(3), _c([[0, 2, 1], [1, 3, 0]])],
+         {"shape": (3, 4)}, (0,)),
+        ("where", [_i(3, 4, hi=2), _u(3, 4), _u(3, 4)], {}, (1, 2)),
+        ("_contrib_boolean_mask contrib_boolean_mask",
+         [_u(4, 3), _c([1.0, 0.0, 1.0, 1.0])], {}, (0,)),
+        ("ravel_multi_index _ravel_multi_index",
+         [_c([[0, 1, 2], [1, 3, 0]])], {"shape": (3, 4)}, False),
+        ("unravel_index _unravel_index", [_c([0.0, 5.0, 11.0])],
+         {"shape": (3, 4)}, False),
+        ("_contrib_index_copy", [_u(5, 3), _c([0.0, 3.0]), _u(2, 3)], {},
+         (0, 2)),
+        ("_contrib_index_array", [_u(2, 3)], {}, False),
+        ("SequenceMask", _SEQ, {"use_sequence_length": True, "value": -1.0},
+         (0,)),
+        ("SequenceLast", _SEQ, {"use_sequence_length": True}, (0,)),
+        ("SequenceReverse", _SEQ, {"use_sequence_length": True}, (0,)),
+        ("cast_storage", [_u(3, 4)], {"stype": "default"}, True),
+        ("_sparse_retain sparse_retain", [_u(4, 3), _c([0.0, 2.0])], {},
+         (0,)),
+        ("_square_sum square_sum", [_u(3, 4)], {"axis": 1}, True),
+        ("_ag_getitem", [_u(3, 4)], {"key": ((slice(None), 1),)}, True),
+        # creation
+        ("_zeros zeros", [], {"shape": (2, 3)}, False),
+        ("_ones ones", [], {"shape": (2, 3), "dtype": "int32"}, False),
+        ("_full full", [], {"shape": (2, 3), "value": 1.5}, False),
+        ("_eye eye", [], {"N": 3, "M": 4, "k": 1}, False),
+        ("_arange arange", [], {"start": 1.0, "stop": 4.0, "step": 0.5,
+                                "repeat": 2}, False),
+        ("_linspace linspace", [], {"start": 0.0, "stop": 1.0, "num": 5},
+         False),
+        ("full_like", [_u(2, 3)], {"fill_value": 2.0}, False),
+        # products
+        ("dot", [_u(3, 4), _u(4, 2)], {}, True),
+        ("dot:transpose", [_u(4, 3), _u(2, 4)],
+         {"transpose_a": True, "transpose_b": True}, True),
+        ("batch_dot", [_u(2, 3, 4), _u(2, 4, 5)], {}, True),
+        # nn
+        ("FullyConnected", [_u(2, 3, 2), _u(5, 6), _u(5)],
+         {"num_hidden": 5}, True),
+        ("FullyConnected:no_flatten", [_u(2, 3, 6), _u(5, 6)],
+         {"num_hidden": 5, "no_bias": True, "flatten": False}, True),
+        ("Convolution Convolution_v1", [_u(2, 3, 6, 6), _u(4, 3, 3, 3), _u(4)],
+         {"kernel": (3, 3), "stride": (2, 1), "pad": (1, 1),
+          "num_filter": 4}, True),
+        ("Convolution:group", [_u(2, 4, 5, 5), _u(4, 2, 3, 3)],
+         {"kernel": (3, 3), "dilate": (2, 2), "num_filter": 4,
+          "num_group": 2, "no_bias": True}, True),
+        ("Pooling Pooling_v1", [_u(2, 3, 7, 7)],
+         {"kernel": (3, 3), "stride": (2, 2), "pad": (1, 1),
+          "pool_type": "max"}, True),
+        ("Pooling:avg_full", [_u(2, 3, 6, 6)],
+         {"kernel": (3, 3), "stride": (2, 2), "pad": (1, 1),
+          "pool_type": "avg", "pooling_convention": "full",
+          "count_include_pad": False}, True),
+        ("Pooling:avg_full_include", [_u(2, 3, 6, 6)],
+         {"kernel": (3, 3), "stride": (2, 2), "pool_type": "avg",
+          "pooling_convention": "full"}, True),
+        ("Pooling:sum", [_u(2, 3, 6, 6)],
+         {"kernel": (2, 2), "stride": (2, 2), "pool_type": "sum"}, True),
+        ("Pooling:lp", [_u(2, 3, 6, 6)],
+         {"kernel": (2, 2), "stride": (1, 1), "pool_type": "lp",
+          "p_value": 2}, True),
+        ("Pooling:global", [_u(2, 3, 5, 5)],
+         {"kernel": (1, 1), "global_pool": True, "pool_type": "avg"}, True),
+        ("Activation", [_u(3, 4)], {"act_type": "softrelu"}, True),
+        ("Activation:tanh", [_u(3, 4)], {"act_type": "tanh"}, True),
+        ("softmax", [_u(3, 4)], {"axis": 0, "temperature": 2.0}, True),
+        ("log_softmax", [_u(3, 4)], {}, True),
+        ("softmin", [_u(3, 4)], {"axis": 1}, True),
+        ("softmax_cross_entropy", [_u(3, 5), _i(3, hi=5)], {}, (0,)),
+        ("SoftmaxOutput Softmax", [_u(3, 5), _i(3, hi=5)],
+         {"grad_scale": 0.5, "normalization": "batch"}, (0,)),
+        ("SoftmaxOutput:ignore", [_u(4, 5), _c([1.0, -1.0, 3.0, 0.0])],
+         {"use_ignore": True, "normalization": "valid"}, (0,)),
+        ("BatchNorm BatchNorm_v1", _BN_INPUTS,
+         {"eps": 1e-5, "fix_gamma": False, "_train": True}, (0, 1, 2)),
+        ("BatchNorm:fix_gamma", _BN_INPUTS, {"_train": True}, (0, 1, 2)),
+        ("BatchNorm:predict", _BN_INPUTS,
+         {"fix_gamma": False, "_train": False}, (0, 1, 2)),
+        ("LayerNorm", [_u(2, 3, 4), _u(4), _u(4)], {}, True),
+        ("LayerNorm:axis", [_u(2, 3, 4), _u(3), _u(3)], {"axis": 1}, True),
+        ("Dropout", [_u(3, 4)], {"p": 0.3, "_train": False}, True),
+        # SGD
+        ("sgd_update", [_u(3, 4), _u(3, 4)],
+         {"lr": 0.1, "wd": 0.01, "rescale_grad": 0.5,
+          "clip_gradient": 0.2}, False),
+        ("sgd_mom_update", [_u(3, 4), _u(3, 4), _u(3, 4)],
+         {"lr": 0.1, "momentum": 0.9, "wd": 1e-4}, False),
+        ("mp_sgd_update", [_u(3, 4, dtype="float16"),
+                           _u(3, 4, dtype="float16"), _u(3, 4)],
+         {"lr": 0.1, "wd": 0.01}, False),
+        ("mp_sgd_mom_update", [_u(3, 4, dtype="float16"),
+                               _u(3, 4, dtype="float16"), _u(3, 4),
+                               _u(3, 4)],
+         {"lr": 0.1, "momentum": 0.9, "clip_gradient": 0.3}, False),
+    ]
+    return cases
+
+
+def op_cases():
+    """[(case id, op name, inputs, attrs, grad)]: one case for every name
+    the port registers."""
+    out = []
+    for names, inputs, attrs, grad in _op_case_groups():
+        names, _, variant = names.partition(":")
+        for name in names.split():
+            out.append((name + (":" + variant if variant else ""), name,
+                        inputs, attrs, grad))
+    return out
+
+
+def op_case_arrays(case, seed=0):
+    """The case's inputs as numpy arrays, from `seed`."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    out = []
+    for spec in case[2]:
+        if spec[0] == "c":
+            out.append(np.asarray(spec[1], spec[2]))
+        elif spec[0] == "u":
+            _, shape, lo, hi, dt = spec
+            out.append(rng.uniform(lo, hi, shape).astype(dt))
+        else:
+            _, shape, lo, hi, dt = spec
+            out.append(rng.randint(lo, hi, shape).astype(dt))
+    return out
+
+
+def op_case_grad_inputs(case):
+    """Indices of the inputs whose gradients the case checks."""
+    grad = case[4]
+    if grad is True:
+        return tuple(i for i, s in enumerate(case[2]) if s[0] == "u")
+    return tuple(grad) if grad else ()
+
+
+def op_case_cotangent(shape, dtype, seed=1):
+    import numpy as np
+
+    return np.random.RandomState(seed).standard_normal(shape).astype(dtype)
+
+
+def port_op_case(mx, case, arrays, ctx):
+    """Run one case on `mx` (the port) on ctx: (outputs, input gradients
+    by index, every input after the call, cotangents), all numpy. The
+    gradients are those of sum(output * cotangent) over the float
+    outputs."""
+    import numpy as np
+
+    _, name, _, attrs, _ = case
+    diff = op_case_grad_inputs(case)
+    fn = getattr(mx.nd.op, name)
+    nds = [mx.nd.array(a, ctx=ctx, dtype=a.dtype) for a in arrays]
+    for i in diff:
+        nds[i].attach_grad()
+    extra = {} if arrays else {"ctx": ctx}
+    if diff:
+        with mx.autograd.record():
+            outs = fn(*nds, **attrs, **extra)
+    else:
+        outs = fn(*nds, **attrs, **extra)
+    outs = outs if isinstance(outs, list) else [outs]
+    cts = []
+    if diff:
+        heads = [o for o in outs if np.issubdtype(o.asnumpy().dtype,
+                                                  np.floating)]
+        cts = [op_case_cotangent(h.shape, h.asnumpy().dtype, seed=1 + k)
+               for k, h in enumerate(heads)]
+        mx.autograd.backward(heads, [mx.nd.array(c, ctx=ctx, dtype=c.dtype)
+                                     for c in cts])
+    grads = {i: nds[i].grad.asnumpy() for i in diff}
+    return ([o.asnumpy() for o in outs], grads,
+            [n.asnumpy() for n in nds], cts)
+
+
+def assert_op_case_close(case, got, want, tols=OP_TOL):
+    """Raise unless two runs of a case (outputs, gradients, inputs after)
+    agree: dtypes equal, values within the dtype's (rtol, atol) in
+    `tols`, other dtypes exactly."""
+    import numpy as np
+
+    for what, g, w in (("output", got[0], want[0]),
+                       ("grad", [got[1][i] for i in sorted(got[1])],
+                        [want[1][i] for i in sorted(want[1])]),
+                       ("input after", got[2], want[2])):
+        check(len(g) == len(w), f"{case[0]}: {len(g)} {what}s vs {len(w)}")
+        for k, (a, b) in enumerate(zip(g, w)):
+            a, b = np.asarray(a), np.asarray(b)
+            check(a.dtype == b.dtype and a.shape == b.shape,
+                  f"{case[0]} {what} {k}: {a.dtype}{a.shape} vs "
+                  f"{b.dtype}{b.shape}")
+            rtol, atol = tols.get(str(a.dtype), (0, 0))
+            ok = np.allclose(a.astype(np.float64), b.astype(np.float64),
+                             rtol=rtol, atol=atol, equal_nan=True)
+            check(ok, f"{case[0]} {what} {k}: max err "
+                  f"{np.abs(a.astype(np.float64) - b).max()} over rtol "
+                  f"{rtol} atol {atol}")
+
+
+def dropout_keep_rate(mx, ctx, n=200, p=0.5):
+    """Check a training-mode Dropout on ctx: its kept share within five
+    standard deviations of 1 - p, kept values scaled by 1 / (1 - p), the
+    gradient the same mask, and a mask shared along ``axes``. Returns the
+    kept share."""
+    import numpy as np
+
+    x = mx.nd.ones((n, n), ctx=ctx)
+    x.attach_grad()
+    with mx.autograd.record():
+        y = mx.nd.Dropout(x, p=p)
+    y.backward()
+    out, grad = y.asnumpy(), x.grad.asnumpy()
+    keep = 1.0 - p
+    kept = float((out != 0).mean())
+    sigma = math.sqrt(keep * p / out.size)
+    check(abs(kept - keep) <= 5 * sigma,
+          f"Dropout on {ctx} kept {kept}, want {keep} +- {5 * sigma}")
+    check(np.all((out == 0) | (out == 1 / keep)), "Dropout scale")
+    check(np.array_equal(grad, out), "Dropout gradient is not its mask")
+    with mx.autograd.train_mode():
+        z = mx.nd.Dropout(mx.nd.ones((4, n), ctx=ctx), p=p,
+                          axes=(0,)).asnumpy()
+    check(np.all(z == z[:1]), "Dropout axes: mask not shared along axis 0")
+    return kept
+
+
+def nd_train(torch, mx, ctx, dtype, units, widths, classes, batch, size,
+             steps, warmup=0, seed=0):
+    """`steps` + `warmup` SGD steps of `resnet50_v1_nd` on ctx from the
+    weights and batch of `seed`; returns the arrays, losses, step seconds
+    and host seconds (the time to enqueue a step) of the steps after the
+    warm-up, and the FLOP of one step's convolutions and FullyConnected,
+    forward and backward (3 x the forward's)."""
+    import numpy as np
+
+    params, aux = resnet50_v1_init(seed, units=units, widths=widths,
+                                   classes=classes)
+    x, label = resnet50_v1_batch(seed + 1, batch, size, classes)
+    ps, moms, auxs, xs, labels = resnet50_v1_arrays(mx, ctx, params, aux, x,
+                                                    label, dtype)
+    arch = {"units": units, "widths": widths}
+    flop = []
+    resnet50_v1_nd(mx, ps, auxs, xs, labels, flop=flop, **arch)  # counts
+    for k, v in aux.items():  # that forward moved no stat: predict mode
+        check(np.array_equal(auxs[k].asnumpy(), v), f"{k} moved")
+    on_card = ctx.device_type == "gpu"
+    losses, seconds, host = [], [], []
+    first_grads = None
+    for i in range(warmup + steps):
+        t0 = time.perf_counter()
+        loss = resnet50_v1_nd_step(mx, ps, moms, auxs, xs, labels, **arch)
+        t1 = time.perf_counter()
+        if on_card:
+            torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        if i == 0:
+            first_grads = {k: p.grad.copy() for k, p in ps.items()}
+        if i >= warmup:
+            seconds.append(t2 - t0)
+            host.append(t1 - t0)
+        losses.append(float(loss.asscalar()))
+    return {"params": ps, "aux": auxs, "aux_init": aux, "moms": moms,
+            "losses": losses, "step_s": seconds, "host_s": host,
+            "first_grads": first_grads, "flop": 3 * sum(flop),
+            "one_more_step": lambda: resnet50_v1_nd_step(
+                mx, ps, moms, auxs, xs, labels, **arch)}
+
+
+def nd_full_width(torch, mx, dtype, smi):
+    """Check (a) and the measurement at one dtype: batch 32 at 224 x 224,
+    1000 classes, 2 warm-up steps and 5 timed. Returns the line and a
+    function that takes one more step."""
+    import numpy as np
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    run = nd_train(torch, mx, mx.gpu(0), dtype, RESNET50_UNITS,
+                   RESNET50_WIDTHS, ND_CLASSES, ND_BATCH, ND_SIZE, ND_STEPS,
+                   warmup=ND_WARMUP)
+    peak = torch.cuda.max_memory_allocated()
+    # (a): finite loss and gradients, every moving stat moved
+    check(all(math.isfinite(v) for v in run["losses"]),
+          f"nd {dtype}: non-finite loss {run['losses']}")
+    finite = torch.stack([torch.isfinite(g._data).all()
+                          for g in run["first_grads"].values()])
+    check(bool(finite.all()), f"nd {dtype}: a non-finite gradient")
+    unmoved = [k for k, v in run["aux"].items()
+               if np.array_equal(v.asnumpy(), run["aux_init"][k])]
+    check(not unmoved, f"nd {dtype}: moving stats unchanged: {unmoved}")
+    step_ms = statistics.median(run["step_s"]) * 1e3
+    host_ms = statistics.median(run["host_s"]) * 1e3
+    bound_ms = run["flop"] / PEAK_FLOPS[dtype] * 1e3
+    return {"dtype": dtype, "batch": ND_BATCH, "image": ND_SIZE,
+            "classes": ND_CLASSES, "params": sum(
+                p.size for p in run["params"].values()),
+            "losses": run["losses"], "step_ms": [s * 1e3 for s in
+                                                 run["step_s"]],
+            "median_step_ms": step_ms, "img_per_s": ND_BATCH / step_ms * 1e3,
+            "median_host_ms": host_ms,
+            "step_flop": run["flop"], "bound_ms": bound_ms,
+            "bound_by": "operations", "bound_share": bound_ms / step_ms,
+            "peak_mem_gb": peak / 1e9, "card": smi}, run["one_more_step"]
+
+
+def nd_small_card_vs_cpu(torch, mx):
+    """Check (b): the small fp32 version stepped twice on the card and on
+    the CPU from the same weights and batch."""
+    import numpy as np
+
+    arch = {k: ND_SMALL[k] for k in ("units", "widths", "classes", "batch",
+                                     "size")}
+    runs = [nd_train(torch, mx, ctx, "float32", steps=2, **arch)
+            for ctx in (mx.gpu(0), mx.cpu())]
+    card, cpu = runs
+    worst = 0.0
+    pairs = [("loss", np.asarray(card["losses"]), np.asarray(cpu["losses"]))]
+    for group in ("params", "aux", "moms"):
+        pairs += [(f"{group} {k}", v.asnumpy(), cpu[group][k].asnumpy())
+                  for k, v in card[group].items()]
+    pairs += [(f"grad {k}", v.grad.asnumpy(),
+               cpu["params"][k].grad.asnumpy())
+              for k, v in card["params"].items()]
+    for what, a, b in pairs:
+        err = float(np.abs(a - b).max())
+        worst = max(worst, err)
+        check(np.allclose(a, b, **ND_SMALL_TOL),
+              f"nd small card vs CPU: {what} max err {err} over "
+              f"{ND_SMALL_TOL}")
+    return {"arch": ND_SMALL, "losses_card": card["losses"],
+            "losses_cpu": cpu["losses"], "compared": len(pairs),
+            "max_abs_err": worst, "tol": ND_SMALL_TOL}
+
+
+def nd_ops_card_vs_cpu(mx):
+    """Check (c): every case of the op table, forward and backward, on the
+    card against the CPU; and Dropout's training mode by its statistics on
+    both."""
+    cases = op_cases()
+    for case in cases:
+        arrays = op_case_arrays(case)
+        assert_op_case_close(case, port_op_case(mx, case, arrays, mx.gpu(0)),
+                             port_op_case(mx, case, arrays, mx.cpu()))
+    kept = {str(ctx): dropout_keep_rate(mx, ctx)
+            for ctx in (mx.gpu(0), mx.cpu())}
+    names = {case[1] for case in cases}
+    return {"cases": len(cases), "ops": len(names),
+            "with_grad": sum(1 for c in cases if op_case_grad_inputs(c)),
+            "dropout_kept": kept, "tol": OP_TOL}
+
+
+def nd_phase(torch, smi):
+    """Slice 6's path: a ResNet-50 v1 train step written with `mx.nd` and
+    `mx.autograd` (`resnet50_v1_nd`), at full width in fp32 (TF32 off) and
+    in bf16; then checks (b) and (c). (d): no kernel launches. Returns the
+    line and {dtype: a function that takes one more step}."""
+    import mxnet_tpu_torch as mx
+
+    reset_launches()
+    full, more = [], {}
+    for dtype in ("float32", "bfloat16"):
+        line, more[dtype] = nd_full_width(torch, mx, dtype, smi)
+        full.append(line)
+    launches = read_launches()
+    check(not any(launches.values()),
+          f"the nd path launched kernels: {launches}")
+    return {"full_width": full, "kernel_launches": launches,
+            "small_card_vs_cpu": nd_small_card_vs_cpu(torch, mx),
+            "ops_card_vs_cpu": nd_ops_card_vs_cpu(mx)}, more
+
+
 def attention_case(torch, fa, F, *, b, l, h, d, dtype, causal, tol, timed):
     """Kernel vs plain version on inputs shaped as the transformer makes
     them: q, k, v strided views of one [B, L, 3*H*D] projection."""
@@ -1046,6 +1809,12 @@ KERNEL_GROUPS = (  # substring of a device kernel's name -> its group
     ("FlashBlockPartialsPolicy", PORT_GROUPS["flash_block_partials"]),
     ("quantize_2bit_kernel", PORT_GROUPS["quantize_2bit"]),
     ("nccl", "NCCL collectives"),
+    # cuDNN's convolutions (fprop / dgrad / wgrad engines) and torch's
+    # BatchNorm and pooling kernels: the nd path's
+    ("fprop", "convolution"), ("dgrad", "convolution"),
+    ("wgrad", "convolution"), ("convolve", "convolution"),
+    ("conv2d", "convolution"), ("batch_norm", "batchnorm"),
+    ("pool", "pooling"),
     ("gemm", "matmul"), ("nvjet", "matmul"), ("xmma", "matmul"),
     ("softmax", "softmax"), ("SoftMax", "softmax"),
     ("reduce", "reductions"), ("Reduce", "reductions"),
@@ -1198,16 +1967,20 @@ def main(argv=None):
     progress("generate")
     trainer, trainer_profile = trainer_phase(torch, profile=bool(args.profile))
     progress("trainer")
+    nd, nd_steps = nd_phase(torch, smi)
+    progress("nd")
     kernels = kernels_phase(torch, fa, gcm, {
         "train": train["kernel_launches"],
         "ring": ring["kernel_launches"],
         "trainer": trainer["kernel_launches"],
-        "generate": generate["kernel_launches"]})
+        "generate": generate["kernel_launches"],
+        "nd": nd["kernel_launches"]})
     emit(kernels=kernels)
     emit(train=train, small_reference=small)
     emit(ring=ring, small_reference=small_ring)
     emit(trainer=trainer)
     emit(generate=generate, small_reference=small_generate)
+    emit(nd=nd)
     if args.profile:
         def one_more_step(state_of_path):
             _, step, state, tokens, targets = state_of_path
@@ -1218,7 +1991,10 @@ def main(argv=None):
                                   must_run=("K1 flash_attention_fwd",)),
             "ring": profile_step(torch, one_more_step(ring_state),
                                  must_run=("K2 flash_block_partials",)),
-            "trainer": trainer_profile, "generate": generate_profile}
+            "trainer": trainer_profile, "generate": generate_profile,
+            **{f"nd_{dtype}": profile_step(torch, step, must_run=(
+                "convolution", "batchnorm"))
+               for dtype, step in nd_steps.items()}}
         with open(args.profile, "w") as f:
             json.dump(profiles, f, indent=1)
         emit(profile={"path": args.profile, **{

@@ -1,12 +1,21 @@
 """mxnet_tpu_torch: the PyTorch and CUDA port of `mxnet_tpu`.
 
+``import mxnet_tpu_torch as mx`` gives the core of the JAX package's public
+surface: `mx.nd` (NDArray, its op namespace and `save`/`load`),
+`mx.autograd`, `mx.random`, and the contexts `mx.cpu()` / `mx.gpu(i)`.
+The default context is ``gpu(0)``: without a card, an array asked for with
+no explicit ``ctx=mx.cpu()`` raises.
+
 The port runs on one NVIDIA Hopper card. Plain tensor code is PyTorch; each
 kernel the JAX package wrote in Pallas for the TPU is a kernel written by
 hand for Hopper, under `ops/csrc/`, built with nvcc at first use. Entry
 points run on ``cuda`` unless the caller passes ``device="cpu"``, and raise
 when no card is present.
 
-Ported so far: `models.transformer.TransformerLM` (dense forward, loss and
+Ported so far: the NDArray runtime, the op registry with the elementwise,
+broadcast, reduction, shape, indexing, creation, ResNet and SGD op families,
+and autograd on torch's engine (`ndarray`, `ops`, `autograd`, `random`,
+`context`); `models.transformer.TransformerLM` (dense forward, loss and
 the Adam train step) with the flash-attention forward kernel
 (`ops.flash_attention`); data-parallel training through the kvstore
 (`gluon.Trainer`, `kvstore`, `parallel.dist`, `optimizer`, `model`) with
@@ -20,6 +29,12 @@ kernel (`ops.flash_attention.flash_block_partials`); generation serving
 decode programs are CUDA graphs captured once (`compile_cache`); its path
 runs no TPU kernel's port, as the JAX engine's runs no Pallas kernel.
 """
-from .context import resolve_device
+from . import autograd, ndarray, random
+from . import ndarray as nd
+from .base import MXNetError
+from .context import Context, cpu, current_context, gpu, num_gpus, \
+    resolve_device, tpu
 
-__all__ = ["resolve_device"]
+__all__ = ["nd", "ndarray", "autograd", "random", "cpu", "gpu", "tpu",
+           "num_gpus", "Context", "current_context", "MXNetError",
+           "resolve_device"]

@@ -167,15 +167,24 @@ class Trainer:
 
     def _allreduce_grads(self):
         """Per key: push the gradient, then pull the sum back into it (or,
-        with the optimizer on the store, push only)."""
+        with the optimizer on the store, push only). On a dist store every
+        parameter that requires grad takes part, as in the reference, so
+        every worker issues the same collectives in the same order: one with
+        no gradient (unused by this worker's backward) pushes and pulls
+        zeros, and `_update` still finds it stale."""
         if not self._kvstore:
             return
         for i, param in enumerate(self._params):
-            if not param.requires_grad or param.grad is None:
+            if not param.requires_grad:
                 continue
-            self._kvstore.push(i, param.grad, priority=-i)
+            grad = param.grad
+            if grad is None:
+                if not self._distributed:
+                    continue
+                grad = torch.zeros_like(param)
+            self._kvstore.push(i, grad, priority=-i)
             if not self._update_on_kvstore:
-                self._kvstore.pull(i, param.grad, priority=-i)
+                self._kvstore.pull(i, grad, priority=-i)
 
     def update(self, batch_size, ignore_stale_grad=False):
         """Update the parameters without syncing: the second half of a step

@@ -1,0 +1,13 @@
+"""mx.nd: the NDArray package with its generated op namespace (parity
+`mxnet_tpu/ndarray/__init__.py`)."""
+from .. import ops as _ops  # noqa: F401  (registers every op)
+from .ndarray import (
+    NDArray, array, zeros, ones, full, empty, arange, concatenate, waitall,
+    moveaxis, onehot_encode, maximum, minimum, power, hypot, add, subtract,
+    multiply, divide, modulo, equal, not_equal, greater, greater_equal,
+    lesser, lesser_equal, true_divide,
+)
+from .register import invoke_nd, populate_op_namespaces
+from .utils import save, load  # noqa: F401
+
+populate_op_namespaces(__name__)

@@ -1,0 +1,169 @@
+"""NDArray-level op dispatch and the generated op namespaces: the port of
+`mxnet_tpu/ndarray/register.py`.
+
+``mx.nd.<op>(...)`` → `invoke_nd` → the registered torch fn on the inputs'
+tensors, with grad enabled only under `autograd.record()`.
+"""
+from __future__ import annotations
+
+import inspect
+import sys
+import types
+
+import numpy as _np
+import torch
+
+from .. import autograd
+from .. import random as _random
+from ..context import Context
+from ..ops import registry as _reg
+from .ndarray import NDArray, _device
+
+__all__ = ["invoke_nd", "populate_op_namespaces"]
+
+_sig_cache = {}
+
+
+def _op_attr_params(op):
+    """Names of the op fn's keyword (defaulted) params in declaration order,
+    whether it takes ``*args`` tensors, and whether it takes ``device`` (a
+    creation op, placed on the context it is asked for). Used to bind
+    positional scalars the MXNet way (``nd.clip(x, 0, 1)``)."""
+    cached = _sig_cache.get(id(op))
+    if cached is None:
+        params = inspect.signature(op.fn).parameters.values()
+        attr_params = [p.name for p in params
+                       if p.default is not inspect.Parameter.empty
+                       and p.kind in (inspect.Parameter.POSITIONAL_OR_KEYWORD,
+                                      inspect.Parameter.KEYWORD_ONLY)
+                       and p.name != "device"]
+        varargs = any(p.kind == inspect.Parameter.VAR_POSITIONAL
+                      for p in params)
+        takes_device = any(p.name == "device" for p in params)
+        cached = _sig_cache[id(op)] = (attr_params, varargs, takes_device)
+    return cached
+
+
+def _is_arr(a):
+    return isinstance(a, (NDArray, _np.ndarray, torch.Tensor))
+
+
+def invoke_nd(op_name, *args, out=None, name=None, **kwargs):
+    """Run registered op ``op_name`` on NDArrays (parity
+    `register.py:86-275`). ``out=`` rebinds the given array(s) to the
+    result; ``mutate_aux`` outputs are copied in place into their input
+    arrays, outside any graph."""
+    op = _reg.get_op(op_name)
+    ctx = kwargs.pop("ctx", None)
+    if isinstance(ctx, str):
+        devt, _, devid = ctx.replace(")", "").partition("(")
+        ctx = Context(devt, int(devid or 0))
+    kwargs = {k: v for k, v in kwargs.items() if v is not None or k == "axis"}
+    recording = autograd.is_recording()
+
+    attr_params, has_varargs, takes_device = _op_attr_params(op)
+    device = next((a._data.device for a in args if isinstance(a, NDArray)),
+                  None)
+    if device is None:
+        device = _device(ctx)
+    nd_inputs = []  # aligned with `tensors`; None for non-NDArray slots
+    tensors = []
+    scalar_cursor = 0
+    # a positional None keeps its slot when a LATER positional arg is an
+    # array, so an absent optional input cannot shift the next one into its
+    # place; trailing Nones are dropped
+    last_arr = max((i for i, a in enumerate(args) if _is_arr(a)), default=-1)
+    for i, a in enumerate(args):
+        if isinstance(a, NDArray):
+            if recording:
+                autograd._note_input(a)
+            tensors.append(a._data)
+            nd_inputs.append(a)
+        elif a is None:
+            if i < last_arr:
+                tensors.append(None)
+                nd_inputs.append(None)
+        elif isinstance(a, (int, float, bool, str, tuple, list)) \
+                and not has_varargs:
+            # positional scalar/shape → the next free keyword attr
+            while scalar_cursor < len(attr_params) \
+                    and attr_params[scalar_cursor] in kwargs:
+                scalar_cursor += 1
+            if scalar_cursor < len(attr_params):
+                kwargs[attr_params[scalar_cursor]] = a
+                scalar_cursor += 1
+            else:
+                tensors.append(torch.as_tensor(a, device=device))
+                nd_inputs.append(None)
+        else:
+            tensors.append(torch.as_tensor(a, device=device))
+            nd_inputs.append(None)
+    _reg.validate_attrs(op, kwargs)
+    if op.needs_mode and "_train" not in kwargs:
+        kwargs["_train"] = autograd.is_training()
+    if op.needs_rng:
+        tensors.insert(0, _random.generator(device))
+    if takes_device:
+        kwargs["device"] = device
+    with torch.set_grad_enabled(recording):
+        outs = _reg.invoke(op_name, *tensors, **kwargs)
+    outs = tuple(outs) if isinstance(outs, (tuple, list)) else (outs,)
+
+    n_user = len(outs)
+    if op.mutate_aux:
+        aux_idx = (op.mutate_aux(kwargs) if callable(op.mutate_aux)
+                   else op.mutate_aux)
+        n_user -= len(aux_idx)
+        with torch.no_grad():
+            for j, in_idx in enumerate(aux_idx):
+                target = nd_inputs[in_idx]
+                new = outs[n_user + j]
+                if target is not None and new is not target._data:
+                    target._data.copy_(new)
+    out_nds = [NDArray(t) for t in outs[:n_user]]
+
+    if out is not None:
+        outs_list = out if isinstance(out, (list, tuple)) else [out]
+        for tgt, src in zip(outs_list, out_nds):
+            tgt._rebind(src._data)
+        return out if not isinstance(out, (list, tuple)) else list(outs_list)
+    return out_nds[0] if len(out_nds) == 1 else out_nds
+
+
+def _make_op_func(op_name, func_name):
+    def fn(*args, **kwargs):
+        return invoke_nd(op_name, *args, **kwargs)
+
+    fn.__name__ = func_name
+    op = _reg.get_op(op_name)
+    fn.__doc__ = (op.doc or f"Operator `{op_name}`.") + _reg.param_doc(op)
+    return fn
+
+
+def populate_op_namespaces(root_module_name="mxnet_tpu_torch.ndarray",
+                           make_func=_make_op_func):
+    """Create the nd top level and nd.op / nd._internal / nd.linalg /
+    nd.random / nd.contrib / nd.image from the registry: the analogue of
+    the reference's import-time codegen (`_init_ops`)."""
+    root = sys.modules[root_module_name]
+    sub = {}
+    for ns in ("op", "_internal", "linalg", "random", "contrib", "image"):
+        modname = f"{root_module_name}.{ns}"
+        mod = sys.modules.get(modname)
+        if mod is None:
+            mod = sys.modules[modname] = types.ModuleType(modname)
+        sub[ns] = mod
+        setattr(root, ns, mod)
+
+    prefixes = (("_linalg_", "linalg"), ("_random_", "random"),
+                ("_contrib_", "contrib"), ("_image_", "image"))
+    for name in _reg.list_ops():
+        f = make_func(name, name.lstrip("_"))
+        setattr(sub["op"], name, f)
+        for prefix, ns in prefixes:
+            if name.startswith(prefix):
+                setattr(sub[ns], name[len(prefix):], f)
+        if name.startswith("_"):
+            setattr(sub["_internal"], name, f)
+        elif not hasattr(root, name):
+            setattr(root, name, f)

@@ -1,2 +1,22 @@
-"""The port's operators: each hand-written CUDA kernel beside its plain
-PyTorch version (see `flash_attention`)."""
+"""The port's operators. Importing this package registers every op of the
+NDArray frontend (`registry`): plain torch functions, one module per family
+as in `mxnet_tpu/ops/`. Beside them sit the hand-written CUDA kernels of the
+JAX package's Pallas kernels, each with its plain PyTorch version
+(`flash_attention`; `gradient_compression` at the package root), which no
+registered op reaches."""
+from . import registry
+from .registry import register, get_op, list_ops, invoke
+
+from . import elemwise       # noqa: F401
+from . import broadcast      # noqa: F401
+from . import reduce         # noqa: F401
+from . import shape_ops      # noqa: F401
+from . import indexing       # noqa: F401
+from . import linalg         # noqa: F401
+from . import init_ops       # noqa: F401
+from . import nn             # noqa: F401
+from . import optimizer_ops  # noqa: F401
+
+# legacy v1 op names (reference `convolution_v1.cc` / `pooling_v1.cc`)
+registry.alias("Convolution_v1", "Convolution")
+registry.alias("Pooling_v1", "Pooling")

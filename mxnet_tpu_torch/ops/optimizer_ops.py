@@ -1,0 +1,79 @@
+"""Fused optimizer-update ops, the SGD family: the port of part of
+`mxnet_tpu/ops/optimizer_ops.py` (`optimizer_op.cc` sgd_update,
+sgd_mom_update, mp_sgd_update, mp_sgd_mom_update).
+
+Each op returns ``(new_weight, new_state...)``; callers pass ``out=weight``,
+and the frontend copies the states into their arrays in place
+(``mutate_aux``). The math is fp32 whatever the weight's dtype. Not ported
+yet (ROADMAP.md queue A, item 3): the ``multi_*`` aggregated variants, NAG
+and the other optimizers' ops.
+"""
+from __future__ import annotations
+
+import torch
+
+from ._utils import is_none
+from .registry import register
+
+
+def _f32(t):
+    return t if t.dtype == torch.float32 else t.float()
+
+
+def _as(t, dtype):
+    return t if t.dtype == dtype else t.to(dtype)
+
+
+def _rescale(grad, rescale_grad, clip_gradient, wd=0.0, weight=None):
+    """grad * rescale_grad, clipped to ±clip_gradient when that is
+    positive, then + wd * weight: the reference's order. Each step is one
+    kernel, and none is launched for a factor of 1 (the ops are called once
+    per parameter a step, so their launches are the host's cost)."""
+    g = _f32(grad)
+    if float(rescale_grad) != 1.0:
+        g = g * float(rescale_grad)
+    if not is_none(clip_gradient) and float(clip_gradient) > 0:
+        c = float(clip_gradient)
+        g = torch.clamp(g, -c, c)
+    if wd and weight is not None:
+        g = torch.add(g, _f32(weight), alpha=float(wd))
+    return g
+
+
+def _momentum(mom, g, lr, momentum):
+    """momentum * mom - lr * g, in fp32."""
+    return torch.add(_f32(mom) * float(momentum), g, alpha=-float(lr))
+
+
+@register("sgd_update", num_outputs=1)
+def _sgd_update(weight, grad, lr=0.01, wd=0.0, rescale_grad=1.0,
+                clip_gradient=-1.0, lazy_update=True, **kw):
+    g = _rescale(grad, rescale_grad, clip_gradient, wd, weight)
+    return _as(torch.add(_f32(weight), g, alpha=-float(lr)), weight.dtype)
+
+
+@register("sgd_mom_update", num_outputs=2, mutate_aux=(2,))
+def _sgd_mom_update(weight, grad, mom, lr=0.01, momentum=0.0, wd=0.0,
+                    rescale_grad=1.0, clip_gradient=-1.0, lazy_update=True,
+                    **kw):
+    g = _rescale(grad, rescale_grad, clip_gradient, wd, weight)
+    new_mom = _momentum(mom, g, lr, momentum)
+    return _as(_f32(weight) + new_mom, weight.dtype), _as(new_mom, mom.dtype)
+
+
+@register("mp_sgd_update", num_outputs=2, mutate_aux=(2,))
+def _mp_sgd_update(weight, grad, weight32, lr=0.01, wd=0.0, rescale_grad=1.0,
+                   clip_gradient=-1.0, lazy_update=True, **kw):
+    g = _rescale(grad, rescale_grad, clip_gradient, wd, weight32)
+    new_w32 = torch.add(weight32, g, alpha=-float(lr))
+    return _as(new_w32, weight.dtype), new_w32
+
+
+@register("mp_sgd_mom_update", num_outputs=3, mutate_aux=(2, 3))
+def _mp_sgd_mom_update(weight, grad, mom, weight32, lr=0.01, momentum=0.0,
+                       wd=0.0, rescale_grad=1.0, clip_gradient=-1.0,
+                       lazy_update=True, **kw):
+    g = _rescale(grad, rescale_grad, clip_gradient, wd, weight32)
+    new_mom = _momentum(mom, g, lr, momentum)
+    new_w32 = weight32 + new_mom
+    return _as(new_w32, weight.dtype), new_mom, new_w32

@@ -9,6 +9,9 @@ the JAX package's on the CPU, with 2-bit gradient compression.
 - Two worker processes over gloo: each pushes its own gradients, and every
   worker pulls the sum over workers of the reference's expected-value
   simulation (`expected_2bit`, as in `test_gradient_compression.py`).
+- Two `gluon.Trainer` workers over gloo where one worker's backward leaves a
+  parameter without a gradient: it still pushes (zeros), so both workers
+  issue the same all-reduces in the same order and pull the same sums.
 
 Pulled values are compared exactly: every step of the path is exact fp32
 (codes times the threshold, summed over at most two workers).
@@ -159,11 +162,14 @@ def _dist_worker(rank, port, results):
             torch.distributed.destroy_process_group()
 
 
-def test_two_workers_gloo_compressed_sum():
+def _run_workers(target):
+    """Start WORKERS spawned processes of target(rank, port, results) and
+    collect each one's (rank, result, extra) within DEADLINE_S; a worker
+    that failed sends its error as the result, a string."""
     ctx = tmp.get_context("spawn")
     results = ctx.Queue()
     port = _free_port()
-    procs = [ctx.Process(target=_dist_worker, args=(r, port, results))
+    procs = [ctx.Process(target=target, args=(r, port, results))
              for r in range(WORKERS)]
     for p in procs:
         p.start()
@@ -171,9 +177,9 @@ def test_two_workers_gloo_compressed_sum():
     deadline = time.monotonic() + DEADLINE_S  # a hang fails, within 60 s
     try:
         for _ in range(WORKERS):
-            rank, pulled, dense = results.get(
+            rank, result, extra = results.get(
                 timeout=max(0.0, deadline - time.monotonic()))
-            got[rank] = (pulled, dense)
+            got[rank] = (result, extra)
     except queue.Empty:
         pass
     finally:
@@ -183,10 +189,16 @@ def test_two_workers_gloo_compressed_sum():
                 p.kill()
                 p.join()
     assert sorted(got) == list(range(WORKERS)), f"workers answered: {got}"
-    for rank, (pulled, dense) in got.items():
-        assert not isinstance(pulled, str), f"worker {rank}: {pulled}"
-        np.testing.assert_array_equal(dense, np.arange(4.0) * 3)
+    for rank, (result, _) in got.items():
+        assert not isinstance(result, str), f"worker {rank}: {result}"
     assert all(p.exitcode == 0 for p in procs)
+    return got
+
+
+def test_two_workers_gloo_compressed_sum():
+    got = _run_workers(_dist_worker)
+    for rank, (pulled, dense) in got.items():
+        np.testing.assert_array_equal(dense, np.arange(4.0) * 3)
     # every worker's residuals, simulated; the pull is the sum over workers
     keys = sorted(DIST_SHAPES)
     rngs = [np.random.RandomState(100 + r) for r in range(WORKERS)]
@@ -205,3 +217,51 @@ def test_two_workers_gloo_compressed_sum():
                 np.testing.assert_array_equal(
                     got[rank][0][step][i], want[i],
                     err_msg=f"rank {rank} step {step} key {k}")
+
+
+def _trainer_worker(rank, port, results):
+    """One worker of the unused-parameter test: SGD at lr 0.1 over `a` and
+    `b` (3 x 4, ones) through a dense ``dist_sync`` store. Worker 0's loss
+    is a.sum() + 10 b.sum() in both steps; worker 1's is 2 a.sum() in step
+    0, so its backward gives `b` no gradient, and adds 10 b.sum() in step
+    1."""
+    from mxnet_tpu_torch.gluon import Trainer
+
+    os.environ.update(MXNET_COORDINATOR=f"127.0.0.1:{port}",
+                      MXNET_NUM_PROCESSES=str(WORKERS),
+                      MXNET_PROCESS_ID=str(rank), MXNET_INIT_TIMEOUT_S="30")
+    try:
+        a = torch.nn.Parameter(torch.ones(3, 4))
+        b = torch.nn.Parameter(torch.ones(3, 4))
+        trainer = Trainer({"a": a, "b": b}, "sgd", {"learning_rate": 0.1},
+                          kvstore="dist_sync")
+        seen = []
+        for step in range(2):
+            loss = (1 + rank) * a.sum()
+            if rank == 0 or step == 1:
+                loss = loss + 10 * b.sum()
+            loss.backward()
+            trainer.step(1, ignore_stale_grad=True)
+            seen.append((a.detach().numpy().copy(),
+                         b.detach().numpy().copy()))
+        trainer._kvstore.barrier()
+        results.put((rank, seen, None))
+    except BaseException as e:  # report to the parent, which fails the test
+        results.put((rank, repr(e), None))
+        raise
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+
+
+def test_two_workers_gloo_trainer_pushes_unused_parameters():
+    """Every worker pushes every parameter that requires grad: the sums are
+    a = 1 - 0.1 * (1 + 2) = 0.7, then 0.4, on both workers. `b` moves on
+    worker 0 alone in step 0, where worker 1's is stale: 1 - 0.1 * 10."""
+    got = _run_workers(_trainer_worker)
+    for rank, (seen, _) in got.items():
+        (a0, b0), (a1, b1) = seen
+        np.testing.assert_allclose(a0, 0.7, rtol=1e-6, err_msg=str(rank))
+        np.testing.assert_allclose(a1, 0.4, rtol=1e-6, err_msg=str(rank))
+        np.testing.assert_allclose(b0, 0.0 if rank == 0 else 1.0, atol=1e-6)
+        np.testing.assert_allclose(b1, b0 - 0.1 * 20, atol=1e-6)
