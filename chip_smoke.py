@@ -59,6 +59,28 @@ Phases, each printed as one JSON line:
            more for each name the port registers) forward and backward on
            the card against the CPU, and Dropout's training statistics;
            (d) no kernel launched;
+  gluon    slice 7's path, after nd: `gluon_train` (`bench.py:584-652`'s
+           `_measure_framework` loop, the same function the CPU test runs
+           on the JAX package) on the model zoo's `resnet50_v1(classes=1000)`
+           at batch 32 x 224², fp32 (TF32 off) and bf16: Xavier weights,
+           hybridized (forward and backward captured as CUDA graphs), a
+           hybridized `SoftmaxCrossEntropyLoss`, `NDArrayIter` over 4
+           batches, the SGD `Trainer` (multi-precision in bf16, the fused
+           multi-tensor update); one warm-up epoch (the captures), then two
+           timed, each step paced by reading an updated weight. Prints
+           img/s, the median step, the host's enqueue time, the capture
+           seconds, programs and graphs captured, the FLOP bound and its
+           share, peak memory and the card line. Checks, each raising: (a)
+           finite losses and gradients, every BatchNorm moving stat moved;
+           (b) a small ResNet v1 (`GLUON_SMALL`) stepped twice on the card
+           and on the CPU, and hybridized and eager on the card, agrees
+           (losses, weights, momenta, moving stats); (c) one epoch of it
+           with `MXNET_FUSED_STEP=0` (the aggregated `multi_sgd_mom_update`
+           ops) gives the fused update's weights and momenta within rtol
+           1e-6 / atol 1e-6; (d) no capture after the warm-up epoch; (e)
+           `mx.metric.Accuracy` of the small model's predictions equal on
+           the card and on the CPU; (f) no kernel launched; and a
+           hybridized Dropout's replays draw new masks at the right rate;
   kernels  each kernel against its plain PyTorch version on the card, at the
            shapes the main path gives it and at extra cases (every head dim
            and dtype variant of K1 and K2), with times (`cuda_ms`: many calls
@@ -73,7 +95,8 @@ to 0 just before each path and read just after; each path must launch its
 own kernels and no other. Any failed check raises, so the script exits
 non-zero and prints no last line; so does a machine without a CUDA card.
 `--profile` also writes a torch.profiler breakdown of one more step of each
-training path (the nd path at both dtypes too) and of 20 decode ticks over
+training path (the nd and gluon paths at both dtypes too), with the host's
+launch calls, and of 20 decode ticks over
 a full slab, by kernel, to
 OUT.json; each profile must hold every launch of the port's kernels that
 its step made. A run not over after `--deadline` seconds (default 1100)
@@ -91,6 +114,7 @@ import socket
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 # H100 SXM peaks (NVIDIA data sheet, dense): bytes/s of HBM3 and FLOP/s by
@@ -1005,6 +1029,9 @@ _BN_INPUTS = [_u(2, 3, 4, 4), _u(3, lo=0.5, hi=1.5), _u(3), _u(3),
             _u(3, lo=0.5, hi=1.5)]
 
 
+_MULTI = {"lrs": (0.1, 0.05), "wds": (0.01, 0.0), "num_weights": 2}
+
+
 def _op_case_groups():
     """[(names, inputs, attrs, grad)]: names is one op's names separated by
     spaces (aliases share the case), with ":variant" for a second case."""
@@ -1237,6 +1264,17 @@ def _op_case_groups():
                                _u(3, 4, dtype="float16"), _u(3, 4),
                                _u(3, 4)],
          {"lr": 0.1, "momentum": 0.9, "clip_gradient": 0.3}, False),
+        # aggregated SGD: two weights each, their own lr and wd
+        ("multi_sgd_update", [_u(3, 4), _u(3, 4), _u(5), _u(5)],
+         dict(_MULTI, rescale_grad=0.5, clip_gradient=0.2), False),
+        ("multi_sgd_mom_update", [_u(3, 4)] * 3 + [_u(5)] * 3,
+         dict(_MULTI, momentum=0.9), False),
+        ("multi_mp_sgd_update", [_u(3, 4, dtype="float16")] * 2 + [_u(3, 4)]
+         + [_u(5, dtype="float16")] * 2 + [_u(5)], _MULTI, False),
+        ("multi_mp_sgd_mom_update",
+         [_u(3, 4, dtype="float16")] * 2 + [_u(3, 4)] * 2
+         + [_u(5, dtype="float16")] * 2 + [_u(5)] * 2,
+         dict(_MULTI, momentum=0.9, clip_gradient=0.3), False),
     ]
     return cases
 
@@ -1511,6 +1549,370 @@ def nd_phase(torch, smi):
     return {"full_width": full, "kernel_launches": launches,
             "small_card_vs_cpu": nd_small_card_vs_cpu(torch, mx),
             "ops_card_vs_cpu": nd_ops_card_vs_cpu(mx)}, more
+
+
+# --- the gluon phase (slice 7): model zoo, hybridize, NDArrayIter, Trainer -
+
+GLUON_BATCHES = 4  # batches an epoch, bench.py:597
+GLUON_EPOCHS = 1 + 2  # one warm-up epoch (the captures), two timed
+GLUON_OPT = {"learning_rate": 0.1, "momentum": 0.9, "wd": 1e-4}  # :614-616
+# the small fp32 model of checks (b) and (c) and of the CPU test: ResNet v1
+# with one bottleneck unit in each of two stages, batch 4 at 32 x 32
+GLUON_SMALL = {"layers": [1, 1], "channels": [8, 16, 32], "classes": 10,
+               "batch": 4, "size": 32, "batches": 2}
+# fused against aggregated updates: the bounds of the JAX package's
+# `test_aggregated_sgd_matches_sequential` (test_optimizer.py:149)
+GLUON_UPDATE_TOL = {"rtol": 1e-6, "atol": 1e-6}
+
+
+def gluon_train(mx, net_fn, data, label, *, dtype, batch, epochs,
+                fused=True, ctx=None, params_file=None, hybridize=True,
+                hook=None):
+    """`bench.py:584-652`'s `_measure_framework` loop, written only against
+    the package `mx` it is given (`mxnet_tpu` or `mxnet_tpu_torch`): the
+    net from ``net_fn()``, initialized with `mx.init.Xavier()` (then loaded
+    from ``params_file`` if given), hybridized with ``static_alloc`` and
+    cast to ``dtype``; an `NDArrayIter` over ``data`` and ``label``
+    (unshuffled); a hybridized `SoftmaxCrossEntropyLoss`; the SGD `Trainer`
+    (lr 0.1, momentum 0.9, wd 1e-4, multi-precision unless fp32); then
+    ``epochs`` epochs of `record()` / `backward()` / `trainer.step(batch)`.
+    ``fused`` sets `MXNET_FUSED_STEP` for the run; everything is made on
+    ``ctx`` (default: the current context). ``hook(what, epoch, net)``, if
+    given, is called with ``"begin"`` before each step and ``"end"`` after
+    its `trainer.step`. Returns the net, the trainer, the loss block, the
+    iterator and each step's loss array."""
+    prev_fused = os.environ.get("MXNET_FUSED_STEP")
+    os.environ["MXNET_FUSED_STEP"] = "1" if fused else "0"
+    try:
+        with ctx or mx.current_context():
+            net = net_fn()
+            net.initialize(mx.init.Xavier(), ctx=ctx)
+            if params_file is not None:
+                net.load_parameters(params_file, ctx=mx.current_context())
+            if hybridize:
+                net.hybridize(static_alloc=True)
+            if dtype != "float32":
+                net.cast(dtype)
+            train_iter = mx.io.NDArrayIter(data, label, batch_size=batch,
+                                           shuffle=False)
+            sce = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+            if hybridize:
+                sce.hybridize()
+            trainer = mx.gluon.Trainer(
+                net.collect_params(), "sgd",
+                dict(GLUON_OPT, multi_precision=dtype != "float32"))
+            losses = []
+            for epoch in range(epochs):
+                train_iter.reset()
+                for b in train_iter:
+                    if hook is not None:
+                        hook("begin", epoch, net)
+                    x = b.data[0]
+                    y = b.label[0]
+                    if dtype != "float32":
+                        x = x.astype(dtype)
+                    with mx.autograd.record():
+                        out = net(x)
+                        loss = sce(out, y)
+                    loss.backward()
+                    trainer.step(batch)
+                    losses.append(loss)
+                    if hook is not None:
+                        hook("end", epoch, net)
+    finally:
+        if prev_fused is None:
+            os.environ.pop("MXNET_FUSED_STEP", None)
+        else:
+            os.environ["MXNET_FUSED_STEP"] = prev_fused
+    return {"net": net, "trainer": trainer, "loss_fn": sce,
+            "iter": train_iter, "losses": losses}
+
+
+def gluon_small_net(mx):
+    """``net_fn`` of the small model: ResNet v1 with `BottleneckV1`."""
+    vision = mx.gluon.model_zoo.vision
+    return lambda: vision.ResNetV1(
+        vision.BottleneckV1, GLUON_SMALL["layers"], GLUON_SMALL["channels"],
+        classes=GLUON_SMALL["classes"])
+
+
+def gluon_batches(seed, n, size, classes):
+    """``n`` images uniform in [-1, 1) and labels as float32 indices, from
+    `numpy.random.RandomState(seed)`, drawn as `bench.py:601-604` draws
+    them."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    data = rng.uniform(-1, 1, (n, 3, size, size)).astype(np.float32)
+    label = rng.randint(0, classes, (n,)).astype(np.float32)
+    return data, label
+
+
+def gluon_state(run):
+    """numpy copies of a `gluon_train` run: each step's loss (per sample),
+    each parameter by structural name (moving stats included), and each
+    momentum by the same name."""
+    net, trainer = run["net"], run["trainer"]
+    params = net._collect_params_with_prefix()
+    order = sorted(net.collect_params().keys())
+    full = net.collect_params()
+    structural = {id(p): k for k, p in params.items()}
+    updater = getattr(trainer, "_updater", None) or trainer._updaters[0]
+    moms = {}
+    for i, name in enumerate(order):
+        state = updater.states.get(i)
+        if state is not None:
+            state = state[0] if isinstance(state, tuple) else state
+            moms[structural[id(full[name])]] = _to_numpy(state)
+    return {"losses": [loss.asnumpy() for loss in run["losses"]],
+            "params": {k: p.data().asnumpy() for k, p in params.items()},
+            "moms": moms}
+
+
+def _to_numpy(x):
+    import numpy as np
+
+    if hasattr(x, "asnumpy"):
+        return x.asnumpy()
+    return np.asarray(x.detach().float().cpu().numpy())
+
+
+def resnet50_v1_step_flop():
+    """The FLOP of one ResNet-50 v1 train step at batch 32 x 224²: 3 x the
+    forward's convolutions and FullyConnected, counted by `resnet50_v1_nd`
+    from the shapes on meta tensors (740.7 GFLOP)."""
+    import mxnet_tpu_torch as mx
+    import torch
+
+    params, aux = resnet50_v1_shapes()
+    meta = {k: mx.nd.NDArray(torch.empty(v, device="meta"))
+            for k, v in {**params, **aux}.items()}
+    flop = []
+    x = mx.nd.NDArray(torch.empty((ND_BATCH, 3, ND_SIZE, ND_SIZE),
+                                  device="meta"))
+    label = mx.nd.NDArray(torch.empty((ND_BATCH,), device="meta"))
+    resnet50_v1_nd(mx, {k: meta[k] for k in params},
+                   {k: meta[k] for k in aux}, x, label, flop=flop)
+    return 3 * sum(flop)
+
+
+def gluon_full_width(torch, mx, dtype, smi, flop):
+    """Checks (a) and (d) and the measurement at one dtype: the model
+    zoo's `resnet50_v1(classes=1000)` through `gluon_train`, batch 32 at
+    224², 4 batches an epoch, one warm-up epoch (the captures) and two
+    timed, each step paced by reading an updated weight
+    (`bench.py:626-650`). Returns the line and a function that takes one
+    more step."""
+    import numpy as np
+    from mxnet_tpu_torch.compile_cache import named_stats
+
+    data, label = gluon_batches(0, ND_BATCH * GLUON_BATCHES, ND_SIZE,
+                                ND_CLASSES)
+    times = {"begin": [], "end": [], "read": [], "epoch": [],
+             "programs": []}
+
+    def hook(what, epoch, net):
+        if what == "begin":
+            if len(times["epoch"]) == epoch:
+                times["epoch"].append(epoch)
+                times["programs"].append(named_stats("cached_op")["misses"])
+            times["begin"].append((epoch, time.perf_counter()))
+            return
+        times["end"].append(time.perf_counter())
+        # reading a weight the step's update wrote waits for the whole step
+        next(iter(net.collect_params().values())).data()._data \
+            .reshape(-1)[0].item()
+        times["read"].append(time.perf_counter())
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    run = gluon_train(mx, lambda: mx.gluon.model_zoo.vision.resnet50_v1(
+        classes=ND_CLASSES), data, label, dtype=dtype, batch=ND_BATCH,
+        epochs=GLUON_EPOCHS, ctx=mx.gpu(0), hook=hook)
+    wall_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    programs = times["programs"] + [named_stats("cached_op")["misses"]]
+    captured = [b - a for a, b in zip(programs, programs[1:])]
+    warm = [i for i, (e, _) in enumerate(times["begin"]) if e == 0]
+    timed = [i for i, (e, _) in enumerate(times["begin"]) if e > 0]
+    capture_s = times["read"][warm[-1]] - t0
+    step_s = [times["read"][i] - times["begin"][i][1] for i in timed]
+    host_s = [times["end"][i] - times["begin"][i][1] for i in timed]
+    net = run["net"]
+    params = net.collect_params()
+    # (a): finite losses and gradients, every moving stat moved
+    losses = [float(np.mean(loss.asnumpy())) for loss in run["losses"]]
+    check(all(math.isfinite(v) for v in losses),
+          f"gluon {dtype}: non-finite loss {losses}")
+    finite = torch.stack([torch.isfinite(p.grad()._data).all()
+                          for p in params.values() if p.grad_req != "null"])
+    check(bool(finite.all()), f"gluon {dtype}: a non-finite gradient")
+    unmoved = [k for k, p in params.items()
+               if k.endswith(("running_mean", "running_var"))
+               and np.array_equal(p.data().asnumpy(), np.full(
+                   p.shape, 1.0 if k.endswith("var") else 0.0))]
+    check(not unmoved, f"gluon {dtype}: moving stats unchanged: {unmoved}")
+    # (d): the warm-up epoch captures, the later epochs capture nothing
+    check(captured[0] > 0 and not any(captured[1:]),
+          f"gluon {dtype}: programs captured by epoch {captured}")
+    step_ms = statistics.median(step_s) * 1e3
+    bound_ms = flop / PEAK_FLOPS[dtype] * 1e3
+    graphs = net._cached_op.graphs + run["loss_fn"]._cached_op.graphs
+    run["iter"].reset()
+    first = run["iter"].next()
+    return {"dtype": dtype, "batch": ND_BATCH, "image": ND_SIZE,
+            "classes": ND_CLASSES,
+            "params": sum(p.data().size for p in params.values()
+                          if p.grad_req != "null"),
+            "losses": losses, "step_ms": [s * 1e3 for s in step_s],
+            "median_step_ms": step_ms, "img_per_s": ND_BATCH / step_ms * 1e3,
+            "median_host_ms": statistics.median(host_s) * 1e3,
+            "capture_s": capture_s, "programs_by_epoch": captured,
+            "graphs": graphs, "wall_s": wall_s,
+            "step_flop": flop, "bound_ms": bound_ms,
+            "bound_by": "operations", "bound_share": bound_ms / step_ms,
+            "peak_mem_gb": peak / 1e9, "held_before_gb": held / 1e9,
+            "card": smi}, lambda: gluon_one_step(mx, run, first, dtype)
+
+
+def gluon_one_step(mx, run, batch, dtype):
+    """One more training step of a `gluon_train` run on ``batch``."""
+    x, y = batch.data[0], batch.label[0]
+    if dtype != "float32":
+        x = x.astype(dtype)
+    with mx.autograd.record():
+        loss = run["loss_fn"](run["net"](x), y)
+    loss.backward()
+    run["trainer"].step(x.shape[0])
+    return loss
+
+
+def gluon_small_runs(mx, params_file, **kw):
+    """`gluon_state` of the small model trained one epoch (two steps) from
+    ``params_file``, fp32, for each ``name: (ctx, options)`` in ``kw``."""
+    small = GLUON_SMALL
+    data, label = gluon_batches(0, small["batch"] * small["batches"],
+                                small["size"], small["classes"])
+    return {name: gluon_state(gluon_train(
+        mx, gluon_small_net(mx), data, label, dtype="float32",
+        batch=small["batch"], epochs=1, ctx=ctx, params_file=params_file,
+        **opts)) for name, (ctx, opts) in kw.items()}
+
+
+def gluon_compare(what, got, want, tol):
+    """Raise unless two `gluon_state`s agree within ``tol``; returns the
+    count of arrays compared and the largest error."""
+    import numpy as np
+
+    pairs = [(f"loss {i}", a, b) for i, (a, b) in
+             enumerate(zip(got["losses"], want["losses"]))]
+    for group in ("params", "moms"):
+        check(sorted(got[group]) == sorted(want[group]),
+              f"{what}: {group} names differ")
+        pairs += [(f"{group} {k}", v, want[group][k])
+                  for k, v in got[group].items()]
+    worst = 0.0
+    for name, a, b in pairs:
+        err = float(np.abs(a - b).max())
+        worst = max(worst, err)
+        check(np.allclose(a, b, **tol),
+              f"{what}: {name} max err {err} over {tol}")
+    return {"compared": len(pairs), "max_abs_err": worst}
+
+
+def gluon_dropout(mx, ctx, calls=3, p=0.5):
+    """A hybridized Dense + Dropout called under `record()` ``calls`` times
+    on ctx (on a card: replays of one captured graph). Raises unless each
+    call keeps its share within five standard deviations of 1 - p and no
+    two calls draw the same mask; returns the shares."""
+    import numpy as np
+
+    with ctx:
+        net = mx.gluon.nn.HybridSequential()
+        net.add(mx.gluon.nn.Dense(64, in_units=64), mx.gluon.nn.Dropout(p))
+        net.initialize(mx.init.One(), ctx=ctx)
+        net.hybridize()
+        x = mx.nd.ones((32, 64))
+        masks = []
+        for _ in range(calls):
+            with mx.autograd.record():
+                y = net(x)
+            y.backward()
+            masks.append(y.asnumpy() != 0)
+    kept = [float(m.mean()) for m in masks]
+    sigma = math.sqrt(p * (1 - p) / masks[0].size)
+    check(all(abs(k - (1 - p)) <= 5 * sigma for k in kept),
+          f"Dropout on {ctx} kept {kept}")
+    check(all(not np.array_equal(a, b) for i, a in enumerate(masks)
+              for b in masks[i + 1:]), f"Dropout on {ctx} repeated a mask")
+    return kept
+
+
+def gluon_checks(mx, workdir):
+    """Checks (b), (c) and (e) on the small model: its weights from one
+    Xavier initialization on the CPU, saved with `save_parameters` and
+    loaded by every run; and Dropout's masks in a replayed graph."""
+    small = GLUON_SMALL
+    params_file = os.path.join(workdir, "gluon_small.params")
+    with mx.cpu():
+        net = gluon_small_net(mx)()
+        net.initialize(mx.init.Xavier(), ctx=mx.cpu())
+        net(mx.nd.zeros((1, 3, small["size"], small["size"])))
+        net.save_parameters(params_file)
+    card = mx.gpu(0)
+    # (b): hybridized on the card, eager on the card, on the CPU
+    runs = gluon_small_runs(mx, params_file, card=(card, {}),
+                            card_eager=(card, {"hybridize": False}),
+                            cpu=(mx.cpu(), {}))
+    b = {"card_vs_cpu": gluon_compare("gluon small card vs CPU",
+                                      runs["card"], runs["cpu"],
+                                      ND_SMALL_TOL),
+         "hybrid_vs_eager": gluon_compare(
+             "gluon small hybridized vs eager on the card", runs["card"],
+             runs["card_eager"], ND_SMALL_TOL)}
+    # (c): the aggregated multi_sgd_mom_update path (which rebinds the
+    # weights, so the graphs copy them in) against the fused update
+    upd = gluon_small_runs(mx, params_file, fused=(card, {}),
+                           aggregated=(card, {"fused": False}))
+    c = gluon_compare("gluon fused vs aggregated update", upd["aggregated"],
+                      upd["fused"], GLUON_UPDATE_TOL)
+    # (e): Accuracy of the same predictions on the card and on the CPU
+    data, label = gluon_batches(1, 64, small["size"], small["classes"])
+    acc = {}
+    for ctx in (card, mx.cpu()):
+        with ctx:
+            net = gluon_small_net(mx)()
+            net.load_parameters(params_file, ctx=ctx)
+            net.hybridize()
+            metric = mx.metric.Accuracy()
+            metric.update([mx.nd.array(label)], [net(mx.nd.array(data))])
+            acc[str(ctx)] = metric.get()[1]
+    check(len(set(acc.values())) == 1, f"Accuracy card vs CPU: {acc}")
+    return {"small": small, "b": b, "c": dict(c, tol=GLUON_UPDATE_TOL),
+            "accuracy": acc, "tol": ND_SMALL_TOL,
+            "dropout_kept": gluon_dropout(mx, card)}
+
+
+def gluon_phase(torch, smi, workdir):
+    """Slice 7's path: `gluon_train` on the model zoo's ResNet-50 v1 at full
+    width in fp32 (TF32 off) and bf16, then checks (b), (c) and (e) on the
+    small model. (f): no kernel launches. Returns the line and {dtype: a
+    function that takes one more step}."""
+    import mxnet_tpu_torch as mx
+
+    flop = resnet50_v1_step_flop()
+    reset_launches()
+    full, more = [], {}
+    for dtype in ("float32", "bfloat16"):
+        line, more[dtype] = gluon_full_width(torch, mx, dtype, smi, flop)
+        full.append(line)
+    launches = read_launches()
+    check(not any(launches.values()),
+          f"the gluon path launched kernels: {launches}")
+    return {"full_width": full, "kernel_launches": launches,
+            **gluon_checks(mx, workdir)}, more
 
 
 def attention_case(torch, fa, F, *, b, l, h, d, dtype, causal, tol, timed):
@@ -1820,6 +2222,10 @@ KERNEL_GROUPS = (  # substring of a device kernel's name -> its group
     ("reduce", "reductions"), ("Reduce", "reductions"),
     ("Memcpy", "copies"), ("copy", "copies"),
 )
+# the host's calls that put work on the card: a graph replay is one
+HOST_LAUNCHES = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                 "cuLaunchKernelEx", "cudaGraphLaunch", "cudaMemcpyAsync",
+                 "cudaMemsetAsync")
 RANGES = ("_FlashAttentionBackward", "_FlashAttention",
           "_BlockPartialsBackward", "_BlockPartials", "forward_backward",
           "trainer.step")
@@ -1849,8 +2255,10 @@ def profile_step(torch, step_fn, must_run):
         wall_ms = (time.perf_counter() - t0) * 1e3
     launched = {name: count - before[name]
                 for name, count in read_launches().items()}
-    kernels = {}
+    kernels, host_calls = {}, {}
     for ev in prof.events():
+        if ev.device_type == DeviceType.CPU and ev.name in HOST_LAUNCHES:
+            host_calls[ev.name] = host_calls.get(ev.name, 0) + 1
         # device work only: skip user ranges on the device track
         if (ev.device_type == DeviceType.CUDA
                 and not getattr(ev, "is_user_annotation", False)):
@@ -1886,6 +2294,8 @@ def profile_step(torch, step_fn, must_run):
               f"{launched[name]} launches of {name}")
     return {"step_wall_ms": wall_ms, "device_busy_ms": busy,
             "idle_share": max(0.0, 1 - busy / wall_ms),
+            "device_kernels": sum(counts.values()),
+            "host_launch_calls": host_calls,
             "kernel_launches": launched,
             "groups_ms": groups, "groups_launches": counts,
             "ranges": ranges, "kernels": rows}
@@ -1969,18 +2379,23 @@ def main(argv=None):
     progress("trainer")
     nd, nd_steps = nd_phase(torch, smi)
     progress("nd")
+    with tempfile.TemporaryDirectory() as workdir:
+        gluon, gluon_steps = gluon_phase(torch, smi, workdir)
+    progress("gluon")
     kernels = kernels_phase(torch, fa, gcm, {
         "train": train["kernel_launches"],
         "ring": ring["kernel_launches"],
         "trainer": trainer["kernel_launches"],
         "generate": generate["kernel_launches"],
-        "nd": nd["kernel_launches"]})
+        "nd": nd["kernel_launches"],
+        "gluon": gluon["kernel_launches"]})
     emit(kernels=kernels)
     emit(train=train, small_reference=small)
     emit(ring=ring, small_reference=small_ring)
     emit(trainer=trainer)
     emit(generate=generate, small_reference=small_generate)
     emit(nd=nd)
+    emit(gluon=gluon)
     if args.profile:
         def one_more_step(state_of_path):
             _, step, state, tokens, targets = state_of_path
@@ -1994,7 +2409,10 @@ def main(argv=None):
             "trainer": trainer_profile, "generate": generate_profile,
             **{f"nd_{dtype}": profile_step(torch, step, must_run=(
                 "convolution", "batchnorm"))
-               for dtype, step in nd_steps.items()}}
+               for dtype, step in nd_steps.items()},
+            **{f"gluon_{dtype}": profile_step(torch, step, must_run=(
+                "convolution", "batchnorm"))
+               for dtype, step in gluon_steps.items()}}
         with open(args.profile, "w") as f:
             json.dump(profiles, f, indent=1)
         emit(profile={"path": args.profile, **{

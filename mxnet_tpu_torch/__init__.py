@@ -27,14 +27,23 @@ kernel (`ops.flash_attention.flash_block_partials`); generation serving
 (`serving.generation.GenerationEngine` over the KV-cache methods of
 `TransformerLM`, `serving.admission`, `serving.warmup`), whose prefill and
 decode programs are CUDA graphs captured once (`compile_cache`); its path
-runs no TPU kernel's port, as the JAX engine's runs no Pallas kernel.
+runs no TPU kernel's port, as the JAX engine's runs no Pallas kernel; and
+the gluon training path (`gluon`: Parameter, Block and HybridBlock, whose
+`hybridize` captures the forward and backward as CUDA graphs (`_cached_op`),
+the layers, losses and ResNet model zoo; `initializer`, `io.NDArrayIter`,
+`metric`, `lr_scheduler`, and the fused multi-tensor SGD update of
+`optimizer`), which runs no TPU kernel's port either.
 """
 from . import autograd, ndarray, random
 from . import ndarray as nd
+from . import initializer
+from . import initializer as init
+from . import name, lr_scheduler, optimizer, metric, io, gluon
 from .base import MXNetError
 from .context import Context, cpu, current_context, gpu, num_gpus, \
     resolve_device, tpu
 
-__all__ = ["nd", "ndarray", "autograd", "random", "cpu", "gpu", "tpu",
-           "num_gpus", "Context", "current_context", "MXNetError",
-           "resolve_device"]
+__all__ = ["nd", "ndarray", "autograd", "random", "initializer", "init",
+           "name", "lr_scheduler", "optimizer", "metric", "io", "gluon",
+           "cpu", "gpu", "tpu", "num_gpus", "Context", "current_context",
+           "MXNetError", "resolve_device"]

@@ -1,0 +1,267 @@
+"""CachedOp: a function of NDArrays run as captured CUDA graphs. The port
+of `mxnet_tpu/_cached_op.py` (parity `src/imperative/cached_op.cc`).
+
+The JAX package traces the function into one XLA program, and under
+`record()` records one tape node whose pullback is the whole-graph
+backward. Here, on a CUDA card, the first call with a new signature (the
+inputs' shapes, dtypes and ``requires_grad``, the train flag and whether
+autograd records) runs the function twice eagerly on a side stream (the
+set-up that a capture must not see: cuDNN's algorithm choice, workspace),
+then captures it once as a `torch.cuda.CUDAGraph`, and under recording
+captures its backward too: `torch.autograd.grad` of the outputs that need
+a gradient against static cotangent buffers. Each signature's graphs have
+their own memory pool. Every later call copies its inputs into the graph's
+static input buffers, replays the forward graph and returns copies of its
+outputs; under recording it is one node of torch's autograd graph (one
+`torch.autograd.Function`), whose backward copies the cotangents in and
+replays the backward graph. This is the pattern of
+`torch.cuda.make_graphed_callables`. A capture that fails raises; nothing
+falls back to eager calls. On the CPU a call runs the function eagerly,
+op by op, as the JAX package's eager path does.
+
+The leading ``n_state`` inputs are state (a block's parameters): the graphs
+read them in the tensors where they lie, so an update written in place
+(the fused optimizer step) reaches the next replay with no copy. A state
+input whose array was rebound to another tensor since the capture (the
+per-op optimizer path, which rebinds) is copied into the captured tensor
+before each replay. The function's in-place writes into a state input
+(BatchNorm's moving stats, ``mutate_aux``) land in the parameter at each
+replay, and are copied back where the array was rebound. The warm-up
+calls move those stats too, so they are put back before the capture: the
+first call moves them once.
+
+A generator of the port's (`mxnet_tpu_torch.random`) is registered with
+each graph, so a replay draws new random numbers (Dropout).
+
+A replay overwrites the activations that the previous call's backward
+needs, so calling the op again under `record()` before that backward raises
+when the backward runs, as the reference's static_alloc CachedOp reuses
+its buffers.
+"""
+from __future__ import annotations
+
+import contextlib
+import gc
+
+import torch
+
+from . import autograd
+from . import random as _random
+from .base import MXNetError
+from .compile_cache import CompileCache
+
+__all__ = ["CachedOp"]
+
+# eager calls on a side stream before a capture (as GraphProgram makes)
+_WARMUP_CALLS = 2
+
+
+class CachedOp:
+    """Wrap ``fn(*ndarrays) -> NDArray | list[NDArray]`` as one op."""
+
+    def __init__(self, fn, static_alloc=False, static_shape=False,
+                 inline_limit=2, n_state=0):
+        # static_alloc, static_shape, inline_limit: the reference's options,
+        # taken for its callers; every graph here is static already
+        self._fn = fn
+        self._n_state = n_state
+        self._cache = CompileCache("cached_op")
+
+    @property
+    def graphs(self):
+        """The CUDA graphs captured: a forward, and under recording a
+        backward, for each signature."""
+        return sum(1 + (p.bwd_graph is not None)
+                   for p in self._cache.values())
+
+    def __call__(self, *inputs):
+        from .ndarray.ndarray import NDArray
+
+        tensors = [a._data for a in inputs if isinstance(a, NDArray)]
+        if len(tensors) != len(inputs):
+            raise TypeError("CachedOp inputs must be NDArrays")
+        if not tensors or not tensors[0].is_cuda:
+            return self._fn(*inputs)
+        train = bool(autograd.is_training())
+        recording = autograd.is_recording()
+        key = (train, recording, tuple(
+            (tuple(t.shape), t.dtype, t.device, t.requires_grad)
+            for t in tensors))
+        prog = self._cache.get_or_build(key, lambda: _GraphProgram(
+            self._fn, inputs, self._n_state, train, recording))
+        if recording:
+            for a in inputs:
+                autograd._note_input(a)
+            outs = _Replay.apply(prog, *tensors)
+        else:
+            outs = prog.forward(tensors)
+        out_nds = [NDArray(o) for o in outs]
+        return out_nds[0] if len(out_nds) == 1 else out_nds
+
+
+class _Replay(torch.autograd.Function):
+    """One node of the autograd graph for one replay of a program."""
+
+    @staticmethod
+    def forward(ctx, prog, *tensors):
+        outs = prog.forward(tensors)
+        ctx.prog, ctx.generation = prog, prog.generation
+        ctx.mark_non_differentiable(*[
+            o for i, o in enumerate(outs) if i not in prog.diff_outs])
+        return tuple(outs)
+
+    @staticmethod
+    def backward(ctx, *cts):
+        return (None,) + ctx.prog.backward(ctx.generation, cts)
+
+
+@contextlib.contextmanager
+def _collector_held():
+    """Python's cyclic garbage collector run now and held off until the
+    block ends. A dead block's programs die in reference cycles; destroying
+    their graphs during a capture makes CUDA calls that a capture forbids,
+    which invalidates it (seen as cuDNN's CUDNN_STATUS_INTERNAL_ERROR)."""
+    gc.collect()
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if enabled:
+            gc.enable()
+
+
+class _GraphProgram:
+    """The forward (and under recording the backward) of ``fn`` at one
+    signature, captured as CUDA graphs from ``inputs``."""
+
+    def __init__(self, fn, inputs, n_state, train, recording):
+        self.fn, self.train, self.recording = fn, train, recording
+        self.generation = 0
+        tensors = [a._data for a in inputs]
+        self.device = tensors[0].device
+        self.n_state = n_state
+        # state inputs are read where they lie (through aliases, so the
+        # capture's autograd nodes are not the parameters'); other inputs
+        # get buffers
+        self.static_ins = [
+            (t.detach() if i < n_state else t.detach().clone())
+            .requires_grad_(t.requires_grad) for i, t in enumerate(tensors)]
+        self.pool = torch.cuda.graph_pool_handle()
+        self.gen = _random.generator(self.device)
+        stream = torch.cuda.Stream(self.device)
+        stream.wait_stream(torch.cuda.current_stream(self.device))
+        with _collector_held(), torch.cuda.stream(stream):
+            self.mutated = self._warm_up()
+            self.fwd_graph = self._graph()
+            with torch.cuda.graph(self.fwd_graph, pool=self.pool,
+                                  stream=stream,
+                                  capture_error_mode="thread_local"):
+                self.static_outs = self._run()
+            self.diff_outs = [i for i, o in enumerate(self.static_outs)
+                              if o.requires_grad]
+            self.diff_ins = [i for i, t in enumerate(self.static_ins)
+                             if t.requires_grad]
+            self.bwd_graph = None
+            if recording and self.diff_outs and self.diff_ins:
+                self.static_cts = [torch.empty_like(self.static_outs[i])
+                                   for i in self.diff_outs]
+                self.bwd_graph = self._graph()
+                with torch.cuda.graph(self.bwd_graph, pool=self.pool,
+                                      stream=stream,
+                                      capture_error_mode="thread_local"):
+                    grads = torch.autograd.grad(
+                        [self.static_outs[i] for i in self.diff_outs],
+                        [self.static_ins[i] for i in self.diff_ins],
+                        self.static_cts, allow_unused=True)
+                self.static_grads = dict(zip(self.diff_ins, grads))
+        # the capture's autograd graph has served: keep the buffers only
+        self.static_outs = tuple(o.detach() for o in self.static_outs)
+        torch.cuda.current_stream(self.device).wait_stream(stream)
+
+    def _graph(self):
+        graph = torch.cuda.CUDAGraph()
+        graph.register_generator_state(self.gen)
+        return graph
+
+    def _run(self):
+        """``fn`` on the static inputs, with autograd in the caller's state;
+        the outputs as a tuple of tensors."""
+        from .ndarray.ndarray import NDArray
+
+        with autograd._RecordingStateScope(self.recording, self.train):
+            with torch.set_grad_enabled(self.recording):
+                outs = self.fn(*[NDArray(t) for t in self.static_ins])
+        outs = [outs] if isinstance(outs, NDArray) else list(outs)
+        return tuple(o._data for o in outs)
+
+    def _warm_up(self):
+        """The eager calls before the capture. Returns the indices of the
+        inputs the function writes in place; the state inputs among them
+        get their values from before the calls back."""
+        saved = {i: t.detach().clone()
+                 for i, t in enumerate(self.static_ins[:self.n_state])
+                 if not t.requires_grad}
+        versions = [t._version for t in self.static_ins]
+        for _ in range(_WARMUP_CALLS):
+            outs = self._run()
+            if self.recording:
+                diff = [o for o in outs if o.requires_grad]
+                ins = [t for t in self.static_ins if t.requires_grad]
+                if diff and ins:
+                    torch.autograd.grad(diff, ins,
+                                        [torch.ones_like(o) for o in diff],
+                                        allow_unused=True)
+        mutated = {i for i, t in enumerate(self.static_ins)
+                   if t._version != versions[i]}
+        with torch.no_grad():
+            for i in mutated:
+                if i >= self.n_state:
+                    continue  # a buffer of ours: each call copies it in
+                if i not in saved:
+                    raise MXNetError(
+                        f"CachedOp: input {i} requires grad and is written "
+                        "in place by the function; it cannot be captured")
+                self.static_ins[i].copy_(saved[i])
+        return mutated
+
+    def forward(self, tensors):
+        """Copy the inputs in, replay, return copies of the outputs."""
+        moved = []
+        with torch.no_grad():
+            for i, (t, s) in enumerate(zip(tensors, self.static_ins)):
+                if i < self.n_state and t.data_ptr() == s.data_ptr() \
+                        and t.stride() == s.stride():
+                    continue
+                s.copy_(t)
+                if i in self.mutated:
+                    moved.append((t, s))
+            self.fwd_graph.replay()
+            for t, s in moved:
+                t.copy_(s)
+            outs = [o.detach().clone() for o in self.static_outs]
+        self.generation += 1
+        return outs
+
+    def backward(self, generation, cts):
+        """Replay the backward graph with the cotangents ``cts`` (one per
+        output); the gradients of the inputs, aliases of the graph's
+        buffers, which the next replay overwrites."""
+        if generation != self.generation:
+            raise MXNetError(
+                "a hybridized block was called again under record() before "
+                "the backward of an earlier call; its captured graph keeps "
+                "the activations of the latest call only")
+        if self.bwd_graph is None:
+            return (None,) * len(self.static_ins)
+        with torch.no_grad():
+            for buf, i in zip(self.static_cts, self.diff_outs):
+                if cts[i] is None:
+                    buf.zero_()
+                else:
+                    buf.copy_(cts[i])
+            self.bwd_graph.replay()
+        return tuple(
+            None if self.static_grads.get(i) is None
+            else self.static_grads[i].detach()
+            for i in range(len(self.static_ins)))

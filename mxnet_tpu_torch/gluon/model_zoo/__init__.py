@@ -1,0 +1,5 @@
+"""gluon.model_zoo (parity `mxnet_tpu/gluon/model_zoo/__init__.py`)."""
+from . import vision
+from .vision import get_model
+
+__all__ = ["vision", "get_model"]

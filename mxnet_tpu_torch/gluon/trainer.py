@@ -1,20 +1,27 @@
 """gluon.Trainer: applies an optimizer to a set of parameters, through a
 kvstore when one is asked for. The port of `mxnet_tpu/gluon/trainer.py`.
 
-Parameters are `torch.nn.Parameter`s on one device, given as a dict (taken
-in sorted key order, e.g. ``dict(model.named_parameters())``) or a list; a
-parameter given twice is registered once. A parameter's gradient is
-``p.grad``. After each update the trainer sets ``p.grad`` to None: the next
-backward writes a fresh gradient (MXNet's ``grad_req="write"``), and a
-parameter whose gradient is still None at the next step has a stale
-gradient, which `step` refuses unless ``ignore_stale_grad``.
+Parameters are gluon `Parameter`s (a `ParameterDict`, e.g.
+``net.collect_params()``, or a list) or `torch.nn.Parameter`s (a dict,
+e.g. ``dict(model.named_parameters())``, or a list), on one device. A dict
+is taken in sorted key order, and a parameter given twice is registered
+once.
+
+A gluon Parameter's gradient is its gradient NDArray, which `backward`
+writes and marks fresh; `step` refuses a parameter whose gradient is not
+fresh unless ``ignore_stale_grad``, and takes every update of a step as one
+`Updater` call, so the optimizer can update them as one group (the fused
+multi-tensor update). A `torch.nn.Parameter`'s gradient is ``p.grad``,
+which the trainer sets to None after each update; a gradient still None at
+the next step is stale.
 
 Gradient sync is the per-key push and pull, one key per parameter: the JAX
 package's path for a compressed store, and its bit-exact reference with
-`MXNET_GRAD_BUCKETING=0` for any other store. With a ``dist`` store the
-optimizer runs on every worker after the sync (``update_on_kvstore`` is
-False). Not ported: bucketed gradient sync (`GradSync`), ZeRO-1, row-sparse
-gradients, and `save_states` / `load_states`.
+`MXNET_GRAD_BUCKETING=0` for any other store. One device and no dist
+store means no kvstore (`model._create_kvstore`). With a ``dist`` store
+the optimizer runs on every worker after the sync (``update_on_kvstore`` is
+False). Not ported: bucketed gradient sync (`GradSync`), ZeRO-1 and
+row-sparse gradients.
 """
 from __future__ import annotations
 
@@ -22,6 +29,7 @@ import torch
 
 from .. import optimizer as opt
 from ..model import _create_kvstore
+from .parameter import Parameter, ParameterDict
 
 __all__ = ["Trainer"]
 
@@ -30,8 +38,8 @@ class Trainer:
     def __init__(self, params, optimizer, optimizer_params=None,
                  kvstore="device", compression_params=None,
                  update_on_kvstore=None):
-        if isinstance(params, dict):
-            params = [params[key] for key in sorted(params)]
+        if isinstance(params, (dict, ParameterDict)):
+            params = [params[key] for key in sorted(params.keys())]
         if not isinstance(params, (list, tuple)):
             raise ValueError(
                 "First argument must be a list or dict of Parameters, "
@@ -39,7 +47,7 @@ class Trainer:
         self._params = []
         self._param2idx = {}
         for param in params:
-            if not isinstance(param, torch.nn.Parameter):
+            if not isinstance(param, (Parameter, torch.nn.Parameter)):
                 raise ValueError(
                     "First argument must be a list or dict of Parameters, "
                     f"got list of {type(param)}.")
@@ -47,6 +55,14 @@ class Trainer:
                 continue  # the same Parameter twice (tied weights)
             self._param2idx[id(param)] = len(self._params)
             self._params.append(param)
+        self._gluon = bool(self._params) and isinstance(self._params[0],
+                                                        Parameter)
+        if any(isinstance(p, Parameter) != self._gluon for p in self._params):
+            raise ValueError("Parameters must be all gluon Parameters or all "
+                             "torch.nn.Parameters")
+        for param in self._params:
+            if self._gluon:
+                param._set_trainer(self)
         self._compression_params = compression_params
         optimizer_params = optimizer_params if optimizer_params else {}
         self._scale = float(optimizer_params.get("rescale_grad", 1.0))
@@ -56,8 +72,28 @@ class Trainer:
                                 "update_on_kvstore": update_on_kvstore}
         self._reset_kvstore()
 
+    # -- what a parameter holds, for both kinds ------------------------------
+
+    def _weight(self, param):
+        """The value the optimizer updates: an NDArray or a tensor."""
+        return param.list_data()[0] if self._gluon else param
+
+    def _needs_grad(self, param):
+        return param.grad_req != "null" if self._gluon \
+            else param.requires_grad
+
+    def _grad(self, param):
+        """The gradient to sync and apply, or None when none is fresh."""
+        if self._gluon:
+            data = param.list_data()[0]
+            return param.list_grad()[0] if data._fresh_grad else None
+        return param.grad
+
     def _check_device(self):
-        devices = {p.device for p in self._params}
+        devices = {(p.list_data()[0]._data.device if self._gluon
+                    and p._data is not None else getattr(p, "device", None))
+                   for p in self._params}
+        devices.discard(None)
         if len(devices) > 1:
             raise ValueError("All Parameters must lie on one device, got "
                              f"{sorted(str(d) for d in devices)}")
@@ -88,7 +124,8 @@ class Trainer:
     def _init_kvstore(self):
         """Create the kvstore and decide where the optimizer runs."""
         config = self._kvstore_params
-        arg_arrays = {str(i): p for i, p in enumerate(self._params)}
+        arg_arrays = {str(i): self._tensor(p)
+                      for i, p in enumerate(self._params)}
         kvstore, update_on_kvstore = _create_kvstore(config["kvstore"], 1,
                                                      arg_arrays)
         self._distributed = "dist" in kvstore.type if kvstore else False
@@ -109,6 +146,10 @@ class Trainer:
             self._update_on_kvstore = False
         self._kv_initialized = True
 
+    def _tensor(self, param):
+        w = self._weight(param)
+        return w if isinstance(w, torch.Tensor) else w._data
+
     def _init_params(self):
         """Initialize the parameters not yet in the kvstore with their
         values."""
@@ -118,9 +159,10 @@ class Trainer:
         if self._kvstore:
             for param in self._params_to_init:
                 idx = self._param2idx[id(param)]
-                self._kvstore.init(idx, param)
+                self._kvstore.init(idx, self._tensor(param))
                 if self._update_on_kvstore:
-                    self._kvstore.pull(idx, param, priority=-idx)
+                    self._kvstore.pull(idx, self._tensor(param),
+                                       priority=-idx)
         self._params_to_init = []
 
     @property
@@ -175,13 +217,15 @@ class Trainer:
         if not self._kvstore:
             return
         for i, param in enumerate(self._params):
-            if not param.requires_grad:
+            if not self._needs_grad(param):
                 continue
-            grad = param.grad
+            grad = self._grad(param)
             if grad is None:
                 if not self._distributed:
                     continue
-                grad = torch.zeros_like(param)
+                grad = torch.zeros_like(self._tensor(param))
+            elif not isinstance(grad, torch.Tensor):
+                grad = grad._data
             self._kvstore.push(i, grad, priority=-i)
             if not self._update_on_kvstore:
                 self._kvstore.pull(i, grad, priority=-i)
@@ -204,27 +248,63 @@ class Trainer:
     def _update(self, ignore_stale_grad=False):
         indices, grads, weights = [], [], []
         for i, param in enumerate(self._params):
-            if not param.requires_grad:
+            if not self._needs_grad(param):
                 continue
-            if param.grad is None:
+            grad = self._grad(param)
+            if grad is None:
                 if ignore_stale_grad:
                     continue
+                name = param.name if self._gluon else i
                 raise UserWarning(
-                    f"Gradient of Parameter {i} ({tuple(param.shape)}) on "
-                    f"{param.device} has not been updated by backward since "
-                    "last `step`. This could mean a bug in your model that "
-                    "made it only use a subset of the Parameters for this "
-                    "iteration. If you are intentionally only using a "
-                    "subset, call step with ignore_stale_grad=True to "
-                    "suppress this warning")
+                    f"Gradient of Parameter `{name}` "
+                    f"({tuple(self._tensor(param).shape)}) on "
+                    f"{self._tensor(param).device} has not been updated by "
+                    "backward since last `step`. This could mean a bug in "
+                    "your model that made it only use a subset of the "
+                    "Parameters (Blocks) for this iteration. If you are "
+                    "intentionally only using a subset, call step with "
+                    "ignore_stale_grad=True to suppress this warning")
             if self._kvstore and self._update_on_kvstore:
                 # the optimizer ran on the kvstore: fetch the new weights
-                self._kvstore.pull(i, param, priority=-i)
+                self._kvstore.pull(i, self._tensor(param), priority=-i)
             else:
                 indices.append(i)
-                grads.append(param.grad)
-                weights.append(param)
+                grads.append(grad)
+                weights.append(self._weight(param))
+            if self._gluon:
+                # spent as it is taken, so a refusal further down leaves
+                # it spent, as in the reference
+                param.list_data()[0]._fresh_grad = False
         if indices:
             self._updater(indices, grads, weights)
-        for param in self._params:
-            param.grad = None  # stale until the next backward
+        if not self._gluon:
+            for param in self._params:
+                param.grad = None  # stale until the next backward
+
+    def save_states(self, fname):
+        """Save the optimizer and its states (the updater's pickle)."""
+        if not self._kv_initialized:
+            self._init_kvstore()
+        if self._params_to_init:
+            self._init_params()
+        if self._update_on_kvstore:
+            raise NotImplementedError(
+                "save_states with the optimizer on the kvstore: the port's "
+                "stores keep no savable optimizer states")
+        with open(fname, "wb") as fout:
+            fout.write(self._updater.get_states(dump_optimizer=True))
+
+    def load_states(self, fname):
+        """Load what `save_states` wrote."""
+        if not self._kv_initialized:
+            self._init_kvstore()
+        if self._params_to_init:
+            self._init_params()
+        if self._update_on_kvstore:
+            raise NotImplementedError(
+                "load_states with the optimizer on the kvstore: the port's "
+                "stores keep no savable optimizer states")
+        with open(fname, "rb") as f:
+            self._updater.set_states(f.read())
+        self._optimizer = self._updater.optimizer
+        self._optimizer.param_dict = dict(enumerate(self._params))

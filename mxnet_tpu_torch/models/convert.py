@@ -1,10 +1,15 @@
-"""Carry TransformerLM weights between the JAX package and the port.
+"""Carry weights between the JAX package and the port.
 
-The JAX package keeps a flat dict with names such as ``"embed"``,
-``"l0.wqkv"`` and ``"ln_f_scale"``; the port's `TransformerLM` is an
-`nn.Module`, whose parameter names cannot hold ``l0.wqkv`` as one attribute,
-so layer ``i``'s weights live at ``layers.{i}.*``. Both keep the same
-layouts, so a conversion is a rename and a copy.
+TransformerLM: the JAX package keeps a flat dict with names such as
+``"embed"``, ``"l0.wqkv"`` and ``"ln_f_scale"``; the port's `TransformerLM`
+is an `nn.Module`, whose parameter names cannot hold ``l0.wqkv`` as one
+attribute, so layer ``i``'s weights live at ``layers.{i}.*``. Both keep the
+same layouts, so a conversion is a rename and a copy.
+
+gluon blocks: both packages name a block's parameters by their structural
+names (``features.0.weight``, `Block._collect_params_with_prefix`), so
+`gluon_params_from_numpy` sets them from a dict so keyed; `save_parameters`
+files cross between the packages as they are.
 """
 from __future__ import annotations
 
@@ -15,7 +20,8 @@ import torch
 
 from ..context import resolve_device
 
-__all__ = ["params_from_jax", "params_to_jax", "port_name", "jax_name"]
+__all__ = ["params_from_jax", "params_to_jax", "port_name", "jax_name",
+           "gluon_params_from_numpy"]
 
 _JAX_LAYER = re.compile(r"^l(\d+)\.(\w+)$")
 _PORT_LAYER = re.compile(r"^layers\.(\d+)\.(\w+)$")
@@ -68,3 +74,23 @@ def params_to_jax(state):
             t = t.float()
         out[jax_name(name)] = t.numpy().copy()
     return out
+
+
+def gluon_params_from_numpy(block, arrays, ctx=None):
+    """Set a gluon block's parameters from ``{structural name: array}``
+    (numpy arrays, or anything `np.asarray` takes), each cast to its
+    parameter's dtype; a parameter not yet initialized is initialized from
+    its array on ``ctx`` (its deferred context, else the CPU). Every
+    parameter of the block must be given, and no other name."""
+    from ..context import cpu
+    from ..ndarray import array
+
+    params = block._collect_params_with_prefix()
+    if set(arrays) != set(params):
+        raise ValueError(
+            f"names differ: missing {sorted(set(params) - set(arrays))}, "
+            f"unknown {sorted(set(arrays) - set(params))}")
+    for name, value in arrays.items():
+        value = np.asarray(value)
+        params[name]._load_init(array(value, ctx=cpu(), dtype=value.dtype),
+                                ctx)

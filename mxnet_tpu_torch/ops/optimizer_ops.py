@@ -1,18 +1,22 @@
 """Fused optimizer-update ops, the SGD family: the port of part of
 `mxnet_tpu/ops/optimizer_ops.py` (`optimizer_op.cc` sgd_update,
-sgd_mom_update, mp_sgd_update, mp_sgd_mom_update).
+sgd_mom_update, mp_sgd_update, mp_sgd_mom_update and the aggregated
+multi_sgd_update, multi_sgd_mom_update, multi_mp_sgd_update,
+multi_mp_sgd_mom_update).
 
 Each op returns ``(new_weight, new_state...)``; callers pass ``out=weight``,
 and the frontend copies the states into their arrays in place
-(``mutate_aux``). The math is fp32 whatever the weight's dtype. Not ported
-yet (ROADMAP.md queue A, item 3): the ``multi_*`` aggregated variants, NAG
-and the other optimizers' ops.
+(``mutate_aux``). The math is fp32 whatever the weight's dtype. A
+``multi_*`` op takes its weights' inputs interleaved (weight, grad, state
+... for each) with one learning rate and weight decay each (``lrs``,
+``wds``), and returns the new weights, then the new states. Not ported yet
+(ROADMAP.md queue A, item 3): NAG and the other optimizers' ops.
 """
 from __future__ import annotations
 
 import torch
 
-from ._utils import is_none
+from ._utils import as_float_tuple, is_none
 from .registry import register
 
 
@@ -77,3 +81,70 @@ def _mp_sgd_mom_update(weight, grad, mom, weight32, lr=0.01, momentum=0.0,
     new_mom = _momentum(mom, g, lr, momentum)
     new_w32 = weight32 + new_mom
     return _as(new_w32, weight.dtype), new_mom, new_w32
+
+
+def _per_weight(v, n):
+    """A scalar-or-sequence attr as n floats (a Symbol/JSON path writes a
+    tuple as a string)."""
+    return list(as_float_tuple(v, n))
+
+
+def _n_weights(attrs):
+    return int(attrs.get("num_weights", 1))
+
+
+@register("multi_sgd_update", num_outputs=_n_weights)
+def _multi_sgd_update(*data, lrs=0.01, wds=0.0, rescale_grad=1.0,
+                      clip_gradient=-1.0, num_weights=1, **kw):
+    n = int(num_weights)
+    lrs, wds = _per_weight(lrs, n), _per_weight(wds, n)
+    return tuple(_sgd_update(data[2 * i], data[2 * i + 1], lr=lrs[i],
+                             wd=wds[i], rescale_grad=rescale_grad,
+                             clip_gradient=clip_gradient) for i in range(n))
+
+
+@register("multi_sgd_mom_update",
+          num_outputs=lambda attrs: 2 * _n_weights(attrs),
+          mutate_aux=lambda attrs: tuple(
+              3 * i + 2 for i in range(_n_weights(attrs))))
+def _multi_sgd_mom_update(*data, lrs=0.01, wds=0.0, momentum=0.0,
+                          rescale_grad=1.0, clip_gradient=-1.0,
+                          num_weights=1, **kw):
+    n = int(num_weights)
+    lrs, wds = _per_weight(lrs, n), _per_weight(wds, n)
+    outs = [_sgd_mom_update(*data[3 * i:3 * i + 3], lr=lrs[i],
+                            momentum=momentum, wd=wds[i],
+                            rescale_grad=rescale_grad,
+                            clip_gradient=clip_gradient) for i in range(n)]
+    return tuple(o[0] for o in outs) + tuple(o[1] for o in outs)
+
+
+@register("multi_mp_sgd_update",
+          num_outputs=lambda attrs: 2 * _n_weights(attrs),
+          mutate_aux=lambda attrs: tuple(
+              3 * i + 2 for i in range(_n_weights(attrs))))
+def _multi_mp_sgd_update(*data, lrs=0.01, wds=0.0, rescale_grad=1.0,
+                         clip_gradient=-1.0, num_weights=1, **kw):
+    n = int(num_weights)
+    lrs, wds = _per_weight(lrs, n), _per_weight(wds, n)
+    outs = [_mp_sgd_update(*data[3 * i:3 * i + 3], lr=lrs[i], wd=wds[i],
+                           rescale_grad=rescale_grad,
+                           clip_gradient=clip_gradient) for i in range(n)]
+    return tuple(o[0] for o in outs) + tuple(o[1] for o in outs)
+
+
+@register("multi_mp_sgd_mom_update",
+          num_outputs=lambda attrs: 3 * _n_weights(attrs),
+          mutate_aux=lambda attrs: tuple(
+              4 * i + o for i in range(_n_weights(attrs)) for o in (2, 3)))
+def _multi_mp_sgd_mom_update(*data, lrs=0.01, wds=0.0, momentum=0.0,
+                             rescale_grad=1.0, clip_gradient=-1.0,
+                             num_weights=1, **kw):
+    n = int(num_weights)
+    lrs, wds = _per_weight(lrs, n), _per_weight(wds, n)
+    outs = [_mp_sgd_mom_update(*data[4 * i:4 * i + 4], lr=lrs[i],
+                               momentum=momentum, wd=wds[i],
+                               rescale_grad=rescale_grad,
+                               clip_gradient=clip_gradient)
+            for i in range(n)]
+    return tuple(o[0] for o in outs) + tuple(x for o in outs for x in o[1:])

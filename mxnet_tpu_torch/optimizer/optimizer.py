@@ -6,24 +6,44 @@ update arithmetic of `mxnet_tpu/ops/optimizer_ops.py` (`_rescale`,
 
 The update functions are plain functions on tensors that return the new
 weight and states, computed in fp32 and cast back to each input's dtype, as
-the JAX package's ops do. The optimizers write those results into the
-weight and state tensors in place, where the JAX package rebinds its
-NDArrays, so an `nn.Parameter` keeps its identity. The updates run eagerly,
-one parameter at a time; the JAX package's fused (jitted) whole-step update
-computes the same arithmetic. Not ported: the other optimizers, learning-rate
-schedulers, row-sparse (lazy) updates, aggregated multi-weight updates and
-the save/load of updater states.
+the JAX package's ops do. A weight is a tensor (an `nn.Parameter`) or an
+NDArray (a gluon Parameter's data); the per-parameter updates write the
+results into its tensor in place, so an `nn.Parameter` keeps its identity
+and a captured CUDA graph reading the weight sees the new value.
+
+An `Updater` given a group of weights updates them as one: under
+`MXNET_FUSED_STEP` (on by default) through `Optimizer.fused_update`, one
+multi-tensor update over the whole group written in place (the
+``torch._foreach_*`` ops; the JAX package's one jitted update with donated
+buffers); else, for SGD's NDArray weights, through the aggregated
+``multi_sgd_*`` ops in chunks of `MXNET_OPTIMIZER_AGGREGATION_SIZE`
+(default 4), which rebind the weights as the JAX package's ops do; else one
+parameter at a time. Not ported: the other optimizers and row-sparse (lazy)
+updates.
 """
 from __future__ import annotations
 
 import math
+import os
+import pickle
 import warnings
 
 import torch
 
+from ..base import getenv, register_env
+
+register_env("MXNET_FUSED_STEP", True,
+             "update a group of parameters as one multi-tensor update "
+             "(0: the aggregated or per-parameter updates)")
+
 __all__ = ["Optimizer", "SGD", "Adam", "Test", "Updater", "get_updater",
            "register", "create", "sgd_update", "sgd_mom_update",
            "mp_sgd_update", "mp_sgd_mom_update", "adam_update"]
+
+
+def _tensor(x):
+    """The tensor of an NDArray, or the tensor itself."""
+    return x if isinstance(x, torch.Tensor) else x._data
 
 
 def _is_low_precision(dtype):
@@ -121,12 +141,12 @@ class Optimizer:
     def __init__(self, rescale_grad=1.0, param_idx2name=None, wd=0.0,
                  clip_gradient=None, learning_rate=0.01, lr_scheduler=None,
                  begin_num_update=0, multi_precision=False, param_dict=None):
-        if lr_scheduler is not None:
-            raise NotImplementedError(
-                "the port's optimizers take no lr_scheduler yet")
         self.rescale_grad = rescale_grad
         self.lr = learning_rate
-        self.lr_scheduler = None
+        self.lr_scheduler = lr_scheduler
+        if lr_scheduler is not None:
+            self.lr_scheduler.base_lr = learning_rate
+        self.aggregate_num = 0
         self.wd = wd
         self.begin_num_update = begin_num_update
         self.num_update = begin_num_update
@@ -149,6 +169,7 @@ class Optimizer:
     def create_state_multi_precision(self, index, weight):
         """The state, with an fp32 master copy in front when multi_precision
         is on and the weight is fp16 or bf16: ``(master, state)``."""
+        weight = _tensor(weight)
         if self.multi_precision and _is_low_precision(weight.dtype):
             master = weight.detach().float()
             return (master, self.create_state(index, master))
@@ -171,7 +192,23 @@ class Optimizer:
         else:
             self.update(index, weight, grad, state)
 
+    fused_update_supported = False
+
+    def fused_update(self, weights, grads, states, lrs, wds, rescale_grad):
+        """Update every weight of a group at once, in place: ``weights``,
+        ``grads`` and the state trees are tensors, ``lrs`` and ``wds`` one
+        float per weight. Optimizers with ``fused_update_supported``
+        implement it."""
+        raise NotImplementedError(
+            f"{type(self).__name__} has no fused update")
+
     def set_learning_rate(self, lr):
+        if self.lr_scheduler is not None:
+            raise UserWarning(
+                "LRScheduler of the optimizer has already been defined. Note "
+                "that set_learning_rate can mutate the value of the learning "
+                "rate of the optimizer only when the LRScheduler of the "
+                "optimizer is undefined.")
         self.lr = lr
 
     def set_lr_mult(self, args_lr_mult):
@@ -207,11 +244,34 @@ class Optimizer:
             return table.get(self.idx2name[index], 1.0)
         return 1.0
 
+    def _get_lrs(self, indices):
+        """The learning rates of ``indices``: the scheduler's rate (asked
+        once per update count) or ``lr``, times each multiplier."""
+        lr = self.lr
+        if self.lr_scheduler is not None:
+            memo = getattr(self, "_lr_sched_memo", None)
+            if memo is None or memo[0] != self.num_update:
+                memo = self._lr_sched_memo = (
+                    self.num_update, self.lr_scheduler(self.num_update))
+            lr = memo[1]
+        return [lr * self._mult(i, "lr_mult", self.lr_mult) for i in indices]
+
+    def _get_wds(self, indices):
+        return [self.wd * self._mult(i, "wd_mult", self.wd_mult)
+                for i in indices]
+
     def _get_lr(self, index):
-        return self.lr * self._mult(index, "lr_mult", self.lr_mult)
+        return self._get_lrs([index])[0]
 
     def _get_wd(self, index):
-        return self.wd * self._mult(index, "wd_mult", self.wd_mult)
+        return self._get_wds([index])[0]
+
+    def __getstate__(self):
+        # the trainer that loads the states sets its own parameters
+        ret = self.__dict__.copy()
+        ret["param_dict"] = {}
+        ret.pop("_lr_sched_memo", None)
+        return ret
 
 
 register = Optimizer.register
@@ -227,8 +287,11 @@ class SGD(Optimizer):
         super().__init__(**kwargs)
         self.momentum = momentum
         self.lazy_update = lazy_update  # dense gradients only: no effect
+        self.aggregate_num = max(1, min(60, int(os.getenv(
+            "MXNET_OPTIMIZER_AGGREGATION_SIZE", "4"))))
 
     def create_state_multi_precision(self, index, weight):
+        weight = _tensor(weight)
         if self.multi_precision and _is_low_precision(weight.dtype):
             master = weight.detach().float()
             return (self.create_state(index, master), master)
@@ -236,10 +299,16 @@ class SGD(Optimizer):
 
     def create_state(self, index, weight):
         if self.momentum != 0.0:
-            return torch.zeros_like(weight, memory_format=torch.contiguous_format)
+            return torch.zeros_like(_tensor(weight),
+                                    memory_format=torch.contiguous_format)
         return None
 
     def _update_impl(self, index, weight, grad, state, multi_precision=False):
+        if isinstance(index, (list, tuple)):
+            self._update_aggregate(index, weight, grad, state,
+                                   multi_precision)
+            return
+        weight, grad = _tensor(weight), _tensor(grad)
         self._update_count(index)
         kwargs = {"rescale_grad": self.rescale_grad,
                   "lr": self._get_lr(index), "wd": self._get_wd(index)}
@@ -264,13 +333,110 @@ class SGD(Optimizer):
         master.copy_(w32)
         weight.copy_(w)
 
+    def _update_aggregate(self, indices, weights, grads, states,
+                          multi_precision):
+        """One ``multi_sgd_*`` op over a chunk of NDArray weights, which it
+        rebinds to the new values; the states are written in place."""
+        from ..ndarray import NDArray, invoke_nd
+
+        self._update_count(indices)
+        kwargs = {"rescale_grad": self.rescale_grad,
+                  "lrs": self._get_lrs(indices),
+                  "wds": self._get_wds(indices), "num_weights": len(indices)}
+        if self.momentum > 0:
+            kwargs["momentum"] = self.momentum
+        if self.clip_gradient:
+            kwargs["clip_gradient"] = self.clip_gradient
+
+        # each state as an NDArray over its own tensor: written in place
+        data = []
+        for w, g, s in zip(weights, grads, states):
+            data += [w, g]
+            if multi_precision:
+                data += ([NDArray(s[0])] if self.momentum > 0 else []) \
+                    + [NDArray(s[1])]
+            elif self.momentum > 0:
+                data.append(NDArray(s))
+        op = {(False, False): "multi_sgd_update",
+              (False, True): "multi_sgd_mom_update",
+              (True, False): "multi_mp_sgd_update",
+              (True, True): "multi_mp_sgd_mom_update"}[
+                  (bool(multi_precision), self.momentum > 0)]
+        invoke_nd(op, *data, out=list(weights), **kwargs)
+
     def update(self, index, weight, grad, state):
         self._update_impl(index, weight, grad, state, multi_precision=False)
 
     def update_multi_precision(self, index, weight, grad, state):
+        first = weight[0] if isinstance(index, (list, tuple)) else weight
         self._update_impl(index, weight, grad, state,
                           multi_precision=self.multi_precision
-                          and _is_low_precision(weight.dtype))
+                          and _is_low_precision(_tensor(first).dtype))
+
+    fused_update_supported = True
+
+    @torch.no_grad()
+    def fused_update(self, weights, grads, states, lrs, wds, rescale_grad):
+        """`sgd_update` / `sgd_mom_update` / `mp_sgd_*`'s arithmetic over a
+        group with the ``torch._foreach_*`` ops, in place: fp32 math (the
+        rescale, the clip, then ``+ wd * weight`` on the fp32 weight or
+        master), the momentum step where a state exists, the results cast
+        back into the weights and states. One multi-tensor op per step of
+        the arithmetic for each set of parameters sharing (lr, wd,
+        momentum or not)."""
+        groups = {}
+        for w, g, s, lr, wd in zip(weights, grads, states, lrs, wds):
+            mom, w32 = s if isinstance(s, tuple) else (s, w)
+            groups.setdefault((lr, wd, mom is not None), []).append(
+                (w, g, mom, w32))
+        clip = float(self.clip_gradient) if self.clip_gradient else 0.0
+        for (lr, wd, has_mom), items in groups.items():
+            ws, gs, moms, w32s = (list(t) for t in zip(*items))
+            rescale = float(rescale_grad)
+            if rescale != 1.0 and all(t.dtype == torch.float32 for t in gs):
+                g = list(torch._foreach_mul(gs, rescale))
+            else:
+                g = _f32_copies(gs)
+                if rescale != 1.0:
+                    torch._foreach_mul_(g, rescale)
+            if clip > 0:
+                torch._foreach_clamp_min_(g, -clip)
+                torch._foreach_clamp_max_(g, clip)
+            w32 = _f32_views(w32s)
+            if wd:
+                torch._foreach_add_(g, w32, alpha=float(wd))
+            if has_mom:
+                m32 = _f32_views(moms)
+                torch._foreach_mul_(m32, float(self.momentum))
+                torch._foreach_add_(m32, g, alpha=-float(lr))
+                torch._foreach_add_(w32, m32)
+                _write_back(moms, m32)
+            else:
+                torch._foreach_add_(w32, g, alpha=-float(lr))
+            _write_back(w32s, w32)
+            if any(w is not m for w, m in zip(ws, w32s)):  # masters
+                torch._foreach_copy_(ws, w32s)
+
+
+def _f32_copies(ts):
+    """fp32 copies of tensors (one multi-tensor copy-cast)."""
+    out = [torch.empty(t.shape, dtype=torch.float32, device=t.device)
+           for t in ts]
+    torch._foreach_copy_(out, ts)
+    return out
+
+
+def _f32_views(ts):
+    """The tensors themselves when all are fp32, else fp32 copies that
+    `_write_back` returns."""
+    if all(t.dtype == torch.float32 for t in ts):
+        return ts
+    return _f32_copies(ts)
+
+
+def _write_back(ts, f32):
+    if f32 is not ts:
+        torch._foreach_copy_(ts, f32)
 
 
 @register
@@ -324,26 +490,95 @@ class Test(Optimizer):
 
 class Updater:
     """Applies an optimizer by index, creating each index's state at its
-    first update."""
+    first update; a group of weights is updated as one (the module's
+    docstring)."""
 
     def __init__(self, optimizer):
         self.optimizer = optimizer
         self.states = {}
+        self.states_synced = {}
+        self.aggregate_updates = optimizer.aggregate_num > 0
+
+    def ensure_states(self, indices, weights):
+        """Create each index's state, or move a loaded one to its weight's
+        device."""
+        for idx, w in zip(indices, weights):
+            if idx not in self.states:
+                self.states[idx] = \
+                    self.optimizer.create_state_multi_precision(idx, w)
+            elif not self.states_synced.get(idx, True):
+                self.states[idx] = _to_device(self.states[idx],
+                                              _tensor(w).device)
+            self.states_synced[idx] = True
 
     @torch.no_grad()
     def __call__(self, index, grad, weight):
-        """Update ``weight`` in place from ``grad``; ``index``, ``grad`` and
+        """Update ``weight`` from ``grad``; ``index``, ``grad`` and
         ``weight`` are one each or equal-length lists."""
         if not isinstance(index, (list, tuple)):
             index, grad, weight = [index], [grad], [weight]
         if not len(index) == len(grad) == len(weight):
             raise ValueError(f"Updater: {len(index)} indices, {len(grad)} "
                              f"gradients and {len(weight)} weights")
+        self.ensure_states(index, weight)
+        opt = self.optimizer
+        if len(index) > 1 and opt.fused_update_supported \
+                and getenv("MXNET_FUSED_STEP"):
+            opt._update_count(index)
+            opt.fused_update([_tensor(w) for w in weight],
+                             [_tensor(g) for g in grad],
+                             [self.states[i] for i in index],
+                             opt._get_lrs(index), opt._get_wds(index),
+                             opt.rescale_grad)
+            return
+        if self.aggregate_updates and len(index) > 1 and \
+                not any(isinstance(w, torch.Tensor) for w in weight):
+            self._aggregated_update(index, grad, weight)
+            return
         for idx, g, w in zip(index, grad, weight):
-            if idx not in self.states:
-                self.states[idx] = \
-                    self.optimizer.create_state_multi_precision(idx, w)
-            self.optimizer.update_multi_precision(idx, w, g, self.states[idx])
+            opt.update_multi_precision(idx, _tensor(w), _tensor(g),
+                                       self.states[idx])
+
+    def _aggregated_update(self, indices, grads, weights):
+        """Same-dtype chunks of ``aggregate_num`` weights, one
+        ``multi_sgd_*`` op each."""
+        by_type = {}
+        for idx, g, w in zip(indices, grads, weights):
+            by_type.setdefault(w.dtype, []).append((idx, g, w))
+        step = self.optimizer.aggregate_num
+        for group in by_type.values():
+            for start in range(0, len(group), step):
+                idxs, gs, ws = zip(*group[start:start + step])
+                self.optimizer.update_multi_precision(
+                    list(idxs), list(ws), list(gs),
+                    [self.states[i] for i in idxs])
+
+    def get_states(self, dump_optimizer=False):
+        """The states (and the optimizer), pickled, their tensors on the
+        host."""
+        states = {k: _to_device(v, torch.device("cpu"))
+                  for k, v in self.states.items()}
+        return pickle.dumps((states, self.optimizer) if dump_optimizer
+                            else states)
+
+    def set_states(self, states):
+        """Load states from `get_states`' bytes (the port's own files:
+        unpickling runs code, so load only files this program wrote); each
+        moves to its weight's device at its next update."""
+        states = pickle.loads(states)
+        if isinstance(states, tuple) and len(states) == 2:
+            self.states, self.optimizer = states
+        else:
+            self.states = states
+        self.states_synced = dict.fromkeys(self.states, False)
+
+
+def _to_device(state, device):
+    if isinstance(state, torch.Tensor):
+        return state.detach().to(device)
+    if isinstance(state, (tuple, list)):
+        return type(state)(_to_device(s, device) for s in state)
+    return state
 
 
 def get_updater(optimizer):

@@ -29,7 +29,16 @@ PORTED_NN = ("FullyConnected", "Convolution", "Pooling", "Activation",
              "softmax", "log_softmax", "softmin", "softmax_cross_entropy",
              "SoftmaxOutput", "Softmax", "BatchNorm", "LayerNorm", "Dropout",
              "sgd_update", "sgd_mom_update", "mp_sgd_update",
-             "mp_sgd_mom_update", "dot", "batch_dot")
+             "mp_sgd_mom_update", "multi_sgd_update", "multi_sgd_mom_update",
+             "multi_mp_sgd_update", "multi_mp_sgd_mom_update", "dot",
+             "batch_dot")
+
+
+def aux_inputs(op, attrs):
+    """The inputs an op's trailing outputs are written into: ``mutate_aux``
+    is a tuple, or a function of the attrs (the ``multi_*`` ops)."""
+    aux = op.mutate_aux or ()
+    return aux(attrs) if callable(aux) else aux
 
 
 # data-dependent output shapes: run eagerly, outside the one jitted program
@@ -59,7 +68,7 @@ def jax_case(case, args, cts):
     if not diff:
         return f(), ()
     outs, vjp = jax.vjp(f, *[args[i] for i in diff])
-    n_user = len(outs) - len(op.mutate_aux or ())
+    n_user = len(outs) - len(aux_inputs(op, attrs))
     floats = iter(cts)
     full_cts = []
     for k, o in enumerate(outs):
@@ -95,9 +104,10 @@ def results():
 def test_op_matches_jax(case, results):
     got, (outs, gs) = results[case[0]]
     op = jreg.get_op(case[1])
-    n_user = len(outs) - len(op.mutate_aux or ())
+    aux = aux_inputs(op, case[3])
+    n_user = len(outs) - len(aux)
     after = cs.op_case_arrays(case)
-    for j, in_idx in enumerate(op.mutate_aux or ()):
+    for j, in_idx in enumerate(aux):
         after[in_idx] = outs[n_user + j]
     want = ([np.asarray(o) for o in outs[:n_user]],
             dict(zip(cs.op_case_grad_inputs(case), map(np.asarray, gs))),
