@@ -80,7 +80,41 @@ Phases, each printed as one JSON line:
            1e-6 / atol 1e-6; (d) no capture after the warm-up epoch; (e)
            `mx.metric.Accuracy` of the small model's predictions equal on
            the card and on the CPU; (f) no kernel launched; and a
-           hybridized Dropout's replays draw new masks at the right rate;
+           hybridized Dropout's replays draw new masks at the right rate.
+           Then `SGD.fused_update`'s float form (the Trainer's) against
+           its device-tensor form (the Module step's) on the fp32 run's
+           parameters: equal within rtol 1e-6 / atol 1e-6, and each
+           one's time;
+  module   slice 8's path, after gluon: `module_train` (`bench.py:684-768`'s
+           `_measure_module` loop, the same function the CPU test runs on
+           the JAX package) on `resnet50_symbol(1000, (3, 224, 224))` at
+           batch 32 x 224², fp32 (TF32 off): `mx.mod.Module` on an
+           `NDArrayIter` over 4 batches, Xavier weights, SGD (lr 0.1,
+           momentum 0.9, wd 1e-4); each step `Module.fused_step` (forward,
+           backward and the update captured as ONE CUDA graph, replayed),
+           then the same with `MXNET_FUSED_STEP=0` (the eager
+           forward_backward() + update()); one warm-up epoch and two timed,
+           each step paced by reading an updated weight. Prints img/s of
+           both, the median step, the host's enqueue time, the capture
+           seconds, the steps captured in each epoch, the FLOP bound (the
+           symbol's convolutions and FullyConnected through `infer_shape`,
+           forward x 3) and its share, peak memory and the card line.
+           Checks, each raising: (a) finite outputs, every array moved but
+           the fixed gammas; (b) the small symbolic ResNet (`MODULE_SMALL`)
+           two steps on the card and on the CPU agree within 1e-4 (outputs,
+           weights, momenta, moving stats); (c) five captured steps against
+           five eager ones on the card, at rtol 3e-5 / atol 3e-6; (d) the
+           same under a `FactorScheduler`; (e) no capture after the warm-up
+           epoch, and short last batches pad into the graph there is; (f)
+           `save_checkpoint` on the card, `Module.load` on the CPU: the
+           same symbol text and one forward within 1e-4; (g) no kernel
+           launched; and a Dropout in the captured step draws new masks.
+           (c) and (d) run with cuDNN's deterministic algorithms, the rest
+           with its default ones. Then a reading (`module_noise`): at six
+           more initial weights, (d)'s epoch with the default algorithms
+           captured once and eager twice, how far capture and how far
+           the algorithms' run-to-run noise part the results; with the
+           deterministic ones, captured and eager must agree;
   kernels  each kernel against its plain PyTorch version on the card, at the
            shapes the main path gives it and at extra cases (every head dim
            and dtype variant of K1 and K2), with times (`cuda_ms`: many calls
@@ -95,9 +129,10 @@ to 0 just before each path and read just after; each path must launch its
 own kernels and no other. Any failed check raises, so the script exits
 non-zero and prints no last line; so does a machine without a CUDA card.
 `--profile` also writes a torch.profiler breakdown of one more step of each
-training path (the nd and gluon paths at both dtypes too), with the host's
-launch calls, and of 20 decode ticks over
-a full slab, by kernel, to
+training path (the nd and gluon paths at both dtypes, the module path
+fused and eager, taken before its small-model checks, too), of one call
+of each form of the fused update, with the host's launch calls, and of
+20 decode ticks over a full slab, by kernel, to
 OUT.json; each profile must hold every launch of the port's kernels that
 its step made. A run not over after `--deadline` seconds (default 1100)
 dumps every thread's stack and exits 1.
@@ -1565,6 +1600,20 @@ GLUON_SMALL = {"layers": [1, 1], "channels": [8, 16, 32], "classes": 10,
 GLUON_UPDATE_TOL = {"rtol": 1e-6, "atol": 1e-6}
 
 
+@contextlib.contextmanager
+def fused_env(fused):
+    """`MXNET_FUSED_STEP` set to ``fused`` for the block."""
+    prev = os.environ.get("MXNET_FUSED_STEP")
+    os.environ["MXNET_FUSED_STEP"] = "1" if fused else "0"
+    try:
+        yield
+    finally:
+        if prev is None:
+            os.environ.pop("MXNET_FUSED_STEP", None)
+        else:
+            os.environ["MXNET_FUSED_STEP"] = prev
+
+
 def gluon_train(mx, net_fn, data, label, *, dtype, batch, epochs,
                 fused=True, ctx=None, params_file=None, hybridize=True,
                 hook=None):
@@ -1581,49 +1630,41 @@ def gluon_train(mx, net_fn, data, label, *, dtype, batch, epochs,
     given, is called with ``"begin"`` before each step and ``"end"`` after
     its `trainer.step`. Returns the net, the trainer, the loss block, the
     iterator and each step's loss array."""
-    prev_fused = os.environ.get("MXNET_FUSED_STEP")
-    os.environ["MXNET_FUSED_STEP"] = "1" if fused else "0"
-    try:
-        with ctx or mx.current_context():
-            net = net_fn()
-            net.initialize(mx.init.Xavier(), ctx=ctx)
-            if params_file is not None:
-                net.load_parameters(params_file, ctx=mx.current_context())
-            if hybridize:
-                net.hybridize(static_alloc=True)
-            if dtype != "float32":
-                net.cast(dtype)
-            train_iter = mx.io.NDArrayIter(data, label, batch_size=batch,
-                                           shuffle=False)
-            sce = mx.gluon.loss.SoftmaxCrossEntropyLoss()
-            if hybridize:
-                sce.hybridize()
-            trainer = mx.gluon.Trainer(
-                net.collect_params(), "sgd",
-                dict(GLUON_OPT, multi_precision=dtype != "float32"))
-            losses = []
-            for epoch in range(epochs):
-                train_iter.reset()
-                for b in train_iter:
-                    if hook is not None:
-                        hook("begin", epoch, net)
-                    x = b.data[0]
-                    y = b.label[0]
-                    if dtype != "float32":
-                        x = x.astype(dtype)
-                    with mx.autograd.record():
-                        out = net(x)
-                        loss = sce(out, y)
-                    loss.backward()
-                    trainer.step(batch)
-                    losses.append(loss)
-                    if hook is not None:
-                        hook("end", epoch, net)
-    finally:
-        if prev_fused is None:
-            os.environ.pop("MXNET_FUSED_STEP", None)
-        else:
-            os.environ["MXNET_FUSED_STEP"] = prev_fused
+    with fused_env(fused), ctx or mx.current_context():
+        net = net_fn()
+        net.initialize(mx.init.Xavier(), ctx=ctx)
+        if params_file is not None:
+            net.load_parameters(params_file, ctx=mx.current_context())
+        if hybridize:
+            net.hybridize(static_alloc=True)
+        if dtype != "float32":
+            net.cast(dtype)
+        train_iter = mx.io.NDArrayIter(data, label, batch_size=batch,
+                                       shuffle=False)
+        sce = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+        if hybridize:
+            sce.hybridize()
+        trainer = mx.gluon.Trainer(
+            net.collect_params(), "sgd",
+            dict(GLUON_OPT, multi_precision=dtype != "float32"))
+        losses = []
+        for epoch in range(epochs):
+            train_iter.reset()
+            for b in train_iter:
+                if hook is not None:
+                    hook("begin", epoch, net)
+                x = b.data[0]
+                y = b.label[0]
+                if dtype != "float32":
+                    x = x.astype(dtype)
+                with mx.autograd.record():
+                    out = net(x)
+                    loss = sce(out, y)
+                loss.backward()
+                trainer.step(batch)
+                losses.append(loss)
+                if hook is not None:
+                    hook("end", epoch, net)
     return {"net": net, "trainer": trainer, "loss_fn": sce,
             "iter": train_iter, "losses": losses}
 
@@ -1701,8 +1742,8 @@ def gluon_full_width(torch, mx, dtype, smi, flop):
     zoo's `resnet50_v1(classes=1000)` through `gluon_train`, batch 32 at
     224², 4 batches an epoch, one warm-up epoch (the captures) and two
     timed, each step paced by reading an updated weight
-    (`bench.py:626-650`). Returns the line and a function that takes one
-    more step."""
+    (`bench.py:626-650`). Returns the line, a function that takes one
+    more step, and the run's `Trainer`."""
     import numpy as np
     from mxnet_tpu_torch.compile_cache import named_stats
 
@@ -1774,7 +1815,8 @@ def gluon_full_width(torch, mx, dtype, smi, flop):
             "step_flop": flop, "bound_ms": bound_ms,
             "bound_by": "operations", "bound_share": bound_ms / step_ms,
             "peak_mem_gb": peak / 1e9, "held_before_gb": held / 1e9,
-            "card": smi}, lambda: gluon_one_step(mx, run, first, dtype)
+            "card": smi}, lambda: gluon_one_step(mx, run, first, dtype), \
+        run["trainer"]
 
 
 def gluon_one_step(mx, run, batch, dtype):
@@ -1895,24 +1937,550 @@ def gluon_checks(mx, workdir):
             "dropout_kept": gluon_dropout(mx, card)}
 
 
+def gluon_update_forms(torch, trainer):
+    """`SGD.fused_update`'s two forms on the card, over the parameters,
+    gradients and momenta of a full-width fp32 gluon run's ``trainer``:
+    with floats, as the gluon `Trainer` passes them, and with a device
+    tensor written from pinned memory, as the Module's captured step reads
+    them (`fused_hyper_slots`). Raises unless both write the same weights
+    and momenta within `GLUON_UPDATE_TOL`. Returns each form's device time
+    a call (`cuda_ms`, the tensor's copy included) and one call's time
+    with its host time (`call_ms`), and {"update_<form>": a function that
+    makes one more call}, for `--profile`'s host launch calls."""
+    from mxnet_tpu_torch.optimizer.optimizer import (fused_hyper_args,
+                                                     fused_hyper_slots)
+
+    opt = trainer._optimizer
+    idx = [i for i, p in enumerate(trainer._params) if p.grad_req != "null"]
+    weights = [trainer._params[i].list_data()[0]._data.detach() for i in idx]
+    grads = [trainer._params[i].list_grad()[0]._data.detach() for i in idx]
+    lrs, wds = opt._fused_hyperparams(idx)
+    groups, values = fused_hyper_slots(lrs, wds)
+    values.append(opt.rescale_grad)
+    copies = {form: ([w.clone() for w in weights],
+                     [trainer._updater.states[i].clone() for i in idx])
+              for form in ("float", "tensor")}
+
+    def call(form):
+        ws, moms = copies[form]
+        if form == "float":
+            opt.fused_update(ws, grads, moms, lrs, wds, opt.rescale_grad)
+            return
+        hyper = torch.tensor(values, dtype=torch.float32).pin_memory().to(
+            weights[0].device, non_blocking=True)
+        opt.fused_update(ws, grads, moms, *fused_hyper_args(hyper, groups),
+                         groups=groups)
+
+    for form in copies:
+        call(form)
+    errs = [float((a - b).abs().max())
+            for group in (0, 1) for a, b in zip(copies["float"][group],
+                                                copies["tensor"][group])]
+    check(all(torch.allclose(a, b, **GLUON_UPDATE_TOL)
+              for group in (0, 1) for a, b in zip(copies["float"][group],
+                                                  copies["tensor"][group])),
+          f"fused_update's float and tensor forms differ by {max(errs)}")
+    out = {"params": sum(w.numel() for w in weights),
+           "max_abs_err": max(errs), "tol": GLUON_UPDATE_TOL}
+    for form in copies:
+        out[f"{form}_ms"] = cuda_ms(lambda: call(form))
+        out[f"{form}_call_ms"] = call_ms(lambda: call(form))
+    return out, {f"update_{form}": lambda form=form: call(form)
+                 for form in copies}
+
+
 def gluon_phase(torch, smi, workdir):
     """Slice 7's path: `gluon_train` on the model zoo's ResNet-50 v1 at full
     width in fp32 (TF32 off) and bf16, then checks (b), (c) and (e) on the
-    small model. (f): no kernel launches. Returns the line and {dtype: a
+    small model. (f): no kernel launches. Then `gluon_update_forms` on the
+    fp32 run's trainer. Returns the line and {dtype or update form: a
     function that takes one more step}."""
     import mxnet_tpu_torch as mx
 
     flop = resnet50_v1_step_flop()
     reset_launches()
-    full, more = [], {}
+    full, more, trainers = [], {}, {}
     for dtype in ("float32", "bfloat16"):
-        line, more[dtype] = gluon_full_width(torch, mx, dtype, smi, flop)
+        line, more[dtype], trainers[dtype] = gluon_full_width(
+            torch, mx, dtype, smi, flop)
         full.append(line)
     launches = read_launches()
     check(not any(launches.values()),
           f"the gluon path launched kernels: {launches}")
+    forms, form_steps = gluon_update_forms(torch, trainers["float32"])
     return {"full_width": full, "kernel_launches": launches,
-            **gluon_checks(mx, workdir)}, more
+            **gluon_checks(mx, workdir), "update_forms": forms}, \
+        {**more, **form_steps}
+
+
+MODULE_BATCHES = 4  # batches an epoch, bench.py:705
+MODULE_EPOCHS = 1 + 2  # one warm-up epoch (the capture), two timed
+MODULE_OPT = {"learning_rate": 0.1, "momentum": 0.9, "wd": 1e-4}  # :717-719
+# the small fp32 model of checks (b)-(f) and of the CPU test: the symbolic
+# ResNet with one unit in each of four stages and the ImageNet stem, batch 4
+MODULE_SMALL = {"units": [1, 1, 1, 1], "num_stages": 4,
+                "filter_list": [8, 16, 32, 64, 128], "num_classes": 10,
+                "image_shape": (3, 64, 64), "batch": 4}
+# captured against eager steps: `test_fused_step.py:116`'s bounds
+MODULE_FUSED_TOL = {"rtol": 3e-5, "atol": 3e-6}
+MODULE_NOISE_INITS = 6  # sets of weights the noise reading draws
+
+
+def module_train(mx, sym_fn, data, label, *, batch, epochs, fused,
+                 ctx=None, arg_params=None, aux_params=None, hook=None,
+                 optimizer_params=None):
+    """`bench.py:684-768`'s `_measure_module` loop, written only against
+    the package `mx` it is given (`mxnet_tpu` or `mxnet_tpu_torch`): a
+    `mx.mod.Module` over ``sym_fn()`` bound to an `NDArrayIter` over
+    ``data`` and ``label`` (unshuffled), its parameters from
+    `mx.init.Xavier()` or from ``arg_params`` / ``aux_params`` (numpy
+    arrays by name), SGD (lr 0.1, momentum 0.9, wd 1e-4, unless
+    ``optimizer_params`` says otherwise); then ``epochs`` epochs of
+    ``if not mod.fused_step(b): mod.forward_backward(b); mod.update()``,
+    each step paced by reading a weight its update wrote. ``fused`` sets
+    `MXNET_FUSED_STEP` for the run; everything is made on ``ctx``
+    (default: the current context). ``hook(what, epoch, mod)``, if given,
+    is called with ``"begin"`` before each step, ``"end"`` after it is
+    enqueued and ``"read"`` after the read. Returns the module, the
+    iterator and each step's first output (a copy)."""
+    hook = hook or (lambda what, epoch, mod: None)
+    with fused_env(fused), ctx or mx.current_context():
+        ctx = mx.current_context()
+        mod = mx.mod.Module(sym_fn(), context=ctx)
+        train_iter = mx.io.NDArrayIter(data, label, batch_size=batch,
+                                       shuffle=False)
+        mod.bind(data_shapes=train_iter.provide_data,
+                 label_shapes=train_iter.provide_label)
+        if arg_params is None:
+            mod.init_params(mx.init.Xavier())
+        else:
+            mod.init_params(
+                arg_params={k: mx.nd.array(v)
+                            for k, v in arg_params.items()},
+                aux_params={k: mx.nd.array(v)
+                            for k, v in (aux_params or {}).items()})
+        mod.init_optimizer(optimizer="sgd", optimizer_params=tuple(
+            (optimizer_params or MODULE_OPT).items()))
+        paced = mod._exec.arg_dict[mod._param_names[-1]]
+        outputs = []
+        for epoch in range(epochs):
+            train_iter.reset()
+            for b in train_iter:
+                hook("begin", epoch, mod)
+                if not mod.fused_step(b):
+                    mod.forward_backward(b)
+                    mod.update()
+                hook("end", epoch, mod)
+                paced.asnumpy()  # waits for the step's update
+                hook("read", epoch, mod)
+                outputs.append(mod.get_outputs()[0].copy())
+    return {"mod": mod, "iter": train_iter, "outputs": outputs}
+
+
+def module_small_sym(mx):
+    """``sym_fn`` of the small model, from the package's own
+    `models.resnet`."""
+    import importlib
+
+    resnet = importlib.import_module(mx.__name__ + ".models.resnet")
+    keys = ("units", "num_stages", "filter_list", "num_classes",
+            "image_shape")
+    return lambda: resnet.resnet(**{k: MODULE_SMALL[k] for k in keys})
+
+
+def module_state(run):
+    """numpy copies of a `module_train` run: each step's first output, the
+    arguments and aux states by name, and each momentum by its
+    parameter's name."""
+    mod = run["mod"]
+    arg, aux = mod.get_params()
+    moms = {}
+    for i, name in enumerate(mod._param_names):
+        state = mod._updater.states.get(i)
+        if state is not None:
+            moms[name] = _to_numpy(state[0] if isinstance(state, tuple)
+                                   else state)
+    return {"outputs": [o.asnumpy() for o in run["outputs"]],
+            "params": {k: v.asnumpy() for k, v in {**arg, **aux}.items()},
+            "moms": moms}
+
+
+def module_errors(what, got, want, tol):
+    """[(name, max abs err, within ``tol``)] of two `module_state`s: each
+    step's output, then every array and momentum by name."""
+    import numpy as np
+
+    check(len(got["outputs"]) == len(want["outputs"]),
+          f"{what}: {len(got['outputs'])} steps against "
+          f"{len(want['outputs'])}")
+    pairs = [(f"output {i}", a, b) for i, (a, b) in
+             enumerate(zip(got["outputs"], want["outputs"]))]
+    for group in ("params", "moms"):
+        check(sorted(got[group]) == sorted(want[group]),
+              f"{what}: {group} names differ")
+        pairs += [(f"{group} {k}", v, want[group][k])
+                  for k, v in got[group].items()]
+    return [(name, float(np.abs(a - b).max()), bool(np.allclose(a, b, **tol)))
+            for name, a, b in pairs]
+
+
+def module_compare(what, got, want, tol):
+    """Raise unless two `module_state`s agree within ``tol``; returns the
+    count of arrays compared and the largest error."""
+    errs = module_errors(what, got, want, tol)
+    for name, err, ok in errs:
+        check(ok, f"{what}: {name} max err {err} over {tol}")
+    return {"compared": len(errs), "max_abs_err": max(e for _, e, _ in errs)}
+
+
+def module_spread(what, got, want, tol):
+    """How far two `module_state`s part, as a reading that never raises:
+    the largest error, where, and how many arrays leave ``tol``."""
+    errs = module_errors(what, got, want, tol)
+    name, err, _ = max(errs, key=lambda e: e[1])
+    return {"max_abs_err": err, "at": name,
+            "outside_tol": sum(not ok for *_, ok in errs)}
+
+
+def symbol_step_flop(sym, shapes):
+    """The FLOP of one train step of ``sym`` at the input ``shapes``: 3 x
+    its forward's convolutions and FullyConnected, from the shapes that
+    `infer_shape` gives every node."""
+    import numpy as np
+
+    graph = json.loads(sym.tojson())
+    internals = sym.get_internals()
+    _, out_shapes, _ = internals.infer_shape(**shapes)
+    out_of = dict(zip(internals.list_outputs(), out_shapes))
+    arg_shapes, _, _ = sym.infer_shape(**shapes)
+    arg_of = dict(zip(sym.list_arguments(), arg_shapes))
+    flop = 0
+    for node in graph["nodes"]:
+        if node["op"] not in ("Convolution", "FullyConnected"):
+            continue
+        weight = graph["nodes"][node["inputs"][1][0]]["name"]
+        out = out_of[node["name"] + "_output"]
+        w = arg_of[weight]
+        if node["op"] == "Convolution":
+            flop += 2 * int(np.prod(out)) * int(np.prod(w[1:]))
+        else:
+            flop += 2 * out[0] * int(np.prod(w))
+    return 3 * flop
+
+
+def module_fixed_params(sym):
+    """The parameters the graph never changes: the gammas of BatchNorms
+    with ``fix_gamma`` (zero gradient; no weight decay off ``_weight``)."""
+    graph = json.loads(sym.tojson())
+    return {graph["nodes"][node["inputs"][1][0]]["name"]
+            for node in graph["nodes"] if node["op"] == "BatchNorm"
+            and node.get("attrs", {}).get("fix_gamma") == "True"}
+
+
+def module_full_width(torch, mx, smi, fused):
+    """The measurement: `module_train` on `resnet50_symbol(1000, (3, 224,
+    224))`, batch 32 at 224², 4 batches an epoch, one warm-up epoch and two
+    timed, fused (the captured step) or eager; with checks (a) and, for
+    the fused run, (e)'s no capture after the warm-up epoch. Returns the
+    line and a function that takes one more step."""
+    import numpy as np
+    from mxnet_tpu_torch.compile_cache import named_stats
+    from mxnet_tpu_torch.models.resnet import resnet50_symbol
+
+    data, label = gluon_batches(0, ND_BATCH * MODULE_BATCHES, ND_SIZE,
+                                ND_CLASSES)
+    times = {"begin": [], "end": [], "read": [], "programs": []}
+    init = {}
+
+    def hook(what, epoch, mod):
+        if not init:  # the weights before the first step
+            arg, aux = mod.get_params()
+            init.update({k: v.asnumpy() for k, v in {**arg, **aux}.items()})
+        now = time.perf_counter()
+        if what == "begin":
+            if len(times["programs"]) == epoch:
+                times["programs"].append(named_stats("executor")["misses"])
+            times["begin"].append((epoch, now))
+        else:
+            times[what].append(now)
+
+    def sym_fn():
+        return resnet50_symbol(num_classes=ND_CLASSES,
+                               image_shape=(3, ND_SIZE, ND_SIZE))
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    run = module_train(mx, sym_fn, data, label, batch=ND_BATCH,
+                       epochs=MODULE_EPOCHS, fused=fused, ctx=mx.gpu(0),
+                       hook=hook)
+    wall_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    mod = run["mod"]
+    programs = times["programs"] + [named_stats("executor")["misses"]]
+    captured = [b - a for a, b in zip(programs, programs[1:])]
+    warm = [i for i, (e, _) in enumerate(times["begin"]) if e == 0]
+    timed = [i for i, (e, _) in enumerate(times["begin"]) if e > 0]
+    step_s = [times["read"][i] - times["begin"][i][1] for i in timed]
+    host_s = [times["end"][i] - times["begin"][i][1] for i in timed]
+    what = "fused" if fused else "eager"
+    # (a): finite outputs; every weight and moving stat moved
+    outs = run["outputs"]
+    check(all(bool(np.isfinite(o.asnumpy()).all()) for o in outs),
+          f"module {what}: a non-finite output")
+    arg, aux = mod.get_params()
+    fixed = module_fixed_params(mod.symbol)
+    unmoved = [k for k, v in {**arg, **aux}.items() if k not in fixed
+               and np.array_equal(v.asnumpy(), init[k])]
+    check(not unmoved, f"module {what}: arrays unchanged: {unmoved}")
+    check(all(k.endswith("gamma") for k in fixed),
+          f"module {what}: fixed parameters {fixed}")
+    graphs = sum(s.captures for s in mod._exec._steps.values())
+    if fused:
+        check(captured[0] == 1 and not any(captured[1:]) and graphs == 1,
+              f"module fused: steps captured by epoch {captured}, "
+              f"graphs {graphs}")
+    else:
+        check(not any(captured), f"module eager: captured {captured}")
+    step_ms = statistics.median(step_s) * 1e3
+    flop = symbol_step_flop(mod.symbol, {"data": (ND_BATCH, 3, ND_SIZE,
+                                                  ND_SIZE),
+                                         "softmax_label": (ND_BATCH,)})
+    bound_ms = flop / PEAK_FLOPS["float32"] * 1e3
+    run["iter"].reset()
+    first = run["iter"].next()
+
+    def one_more_step():
+        with fused_env(fused):
+            if not mod.fused_step(first):
+                mod.forward_backward(first)
+                mod.update()
+        return mod.get_outputs()[0]
+
+    return {"path": what, "dtype": "float32", "batch": ND_BATCH,
+            "image": ND_SIZE, "classes": ND_CLASSES,
+            "params": sum(v.size for v in arg.values()),
+            "fixed_params": sorted(fixed),
+            "step_ms": [s * 1e3 for s in step_s],
+            "median_step_ms": step_ms, "img_per_s": ND_BATCH / step_ms * 1e3,
+            "median_host_ms": statistics.median(host_s) * 1e3,
+            "capture_s": times["read"][warm[-1]] - t0,
+            "programs_by_epoch": captured, "graphs": graphs,
+            "wall_s": wall_s, "step_flop": flop, "bound_ms": bound_ms,
+            "bound_by": "operations", "bound_share": bound_ms / step_ms,
+            "peak_mem_gb": peak / 1e9, "held_before_gb": held / 1e9,
+            "card": smi}, one_more_step
+
+
+def module_small_init(mx):
+    """The small model's Xavier weights, drawn once on the CPU: numpy
+    (arg_params, aux_params)."""
+    with mx.cpu():
+        mod = mx.mod.Module(module_small_sym(mx)(), context=mx.cpu())
+        shape = (MODULE_SMALL["batch"],) + tuple(MODULE_SMALL["image_shape"])
+        mod.bind(data_shapes=[("data", shape)],
+                 label_shapes=[("softmax_label", (MODULE_SMALL["batch"],))])
+        mod.init_params(mx.init.Xavier())
+        arg, aux = mod.get_params()
+    return ({k: v.asnumpy() for k, v in arg.items()},
+            {k: v.asnumpy() for k, v in aux.items()})
+
+
+def module_small_batches(seed, n):
+    return gluon_batches(seed, n, MODULE_SMALL["image_shape"][1],
+                         MODULE_SMALL["num_classes"])
+
+
+def module_small_run(mx, ctx, init, n, *, fused=True, opt=None, seed=0):
+    data, label = module_small_batches(seed, n)
+    return module_train(mx, module_small_sym(mx), data, label,
+                        batch=MODULE_SMALL["batch"], epochs=1, fused=fused,
+                        ctx=ctx, arg_params=init[0], aux_params=init[1],
+                        optimizer_params=opt)
+
+
+def module_dropout(mx, ctx, steps=3, p=0.5):
+    """A symbol with Dropout trained ``steps`` fused steps at lr 0 (on a
+    card: replays of one captured graph): the outputs differ from step to
+    step, so each replay drew a new mask. Returns the fraction of entries
+    that changed between consecutive steps."""
+    import numpy as np
+
+    def sym_fn():
+        data = mx.sym.Variable("data")
+        drop = mx.sym.Dropout(data, p=p)
+        fc = mx.sym.FullyConnected(drop, num_hidden=8, name="fc")
+        return mx.sym.SoftmaxOutput(fc, name="softmax")
+
+    x = np.ones((16, 32), dtype=np.float32)
+    y = np.zeros((16,), dtype=np.float32)
+    run = module_train(mx, sym_fn, x, y, batch=16, epochs=steps, fused=True,
+                       ctx=ctx, optimizer_params={"learning_rate": 0.0})
+    outs = [o.asnumpy() for o in run["outputs"]]
+    changed = [float(np.mean(a != b)) for a, b in zip(outs, outs[1:])]
+    check(all(c > 0.5 for c in changed),
+          f"Dropout in the fused step on {ctx} repeated masks: {changed}")
+    return changed
+
+
+@contextlib.contextmanager
+def cudnn_deterministic():
+    """cuDNN's deterministic algorithms for the block. Its default ones
+    differ run to run by ~1e-6 on the small model (the weight gradients),
+    and the model's gradient jumps where a max-pool or ReLU switches, so
+    that noise can grow past the bounds of the checks that compare five
+    steps of two paths (`module_noise` reads how far); with them, two runs
+    of one path are bit-equal."""
+    import torch
+
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = prev
+
+
+def module_small_sched_opt(mx):
+    """Check (d)'s optimizer: `MODULE_OPT` under a `FactorScheduler` whose
+    rate halves after every two updates."""
+    return dict(MODULE_OPT, lr_scheduler=mx.lr_scheduler.FactorScheduler(
+        step=2, factor=0.5))
+
+
+def module_noise(mx, card, n):
+    """Why (c) and (d) run under cuDNN's deterministic algorithms. At each
+    of `MODULE_NOISE_INITS` more sets of Xavier weights, (d)'s epoch of
+    ``n`` rows with cuDNN's default algorithms, captured once and eager
+    twice: how far capture parts the results from eager, and how far the
+    algorithms' run-to-run noise parts two eager runs (readings, which
+    never raise); then captured and eager with the deterministic
+    algorithms, which must agree within `MODULE_FUSED_TOL`."""
+    def state(init, fused):
+        return module_state(module_small_run(
+            mx, card, init, n, fused=fused, opt=module_small_sched_opt(mx)))
+
+    rows = []
+    for _ in range(MODULE_NOISE_INITS):
+        init = module_small_init(mx)
+        captured, eager, again = (state(init, fused)
+                                  for fused in (True, False, False))
+        with cudnn_deterministic():
+            det = module_compare(
+                "module small captured vs eager, deterministic, noise",
+                state(init, True), state(init, False), MODULE_FUSED_TOL)
+        rows.append({
+            "captured_vs_eager": module_spread(
+                "noise", captured, eager, MODULE_FUSED_TOL),
+            "eager_vs_eager": module_spread(
+                "noise", eager, again, MODULE_FUSED_TOL),
+            "deterministic_captured_vs_eager": det})
+    return rows
+
+
+def module_checks(mx, workdir):
+    """Checks (b)-(f) on the small model, from one set of Xavier weights
+    drawn on the CPU; (c) and (d) with cuDNN's deterministic algorithms;
+    then the noise reading (`module_noise`)."""
+    import numpy as np
+    from mxnet_tpu_torch.compile_cache import named_stats
+
+    card, cpu = mx.gpu(0), mx.cpu()
+    init = module_small_init(mx)
+    # (b): two captured steps on the card, with cuDNN's default
+    # algorithms, against two on the CPU
+    b = module_compare("module small card vs CPU",
+                       module_state(module_small_run(mx, card, init, 8)),
+                       module_state(module_small_run(mx, cpu, init, 8)),
+                       ND_SMALL_TOL)
+    # (c), (d): one epoch of five steps, captured against eager
+    # (MXNET_FUSED_STEP=0), at a fixed rate and under a FactorScheduler
+    n = 5 * MODULE_SMALL["batch"]
+    with cudnn_deterministic():
+        c = module_compare(
+            "module small captured vs eager",
+            module_state(module_small_run(mx, card, init, n)),
+            module_state(module_small_run(mx, card, init, n, fused=False)),
+            MODULE_FUSED_TOL)
+        sched_runs = {fused: module_small_run(
+            mx, card, init, n, fused=fused, opt=module_small_sched_opt(mx))
+            for fused in (True, False)}
+        d = module_compare("module small captured vs eager, FactorScheduler",
+                           module_state(sched_runs[True]),
+                           module_state(sched_runs[False]), MODULE_FUSED_TOL)
+    d["lr_after"] = sched_runs[True]["mod"]._optimizer.lr_scheduler(
+        sched_runs[True]["mod"]._optimizer.num_update)
+    # (e): a short last batch pads into the captured graph: 5 rows in an
+    # iterator of batch 4 (the iterator pads), then a 1-row DataBatch
+    # (the module pads)
+    before = named_stats("executor")["misses"]
+    run = module_small_run(mx, card, init, 5)
+    mod = run["mod"]
+    after_iter = named_stats("executor")["misses"] - before
+    x, y = module_small_batches(3, 1)
+    with card:
+        mod.fused_step(mx.io.DataBatch([mx.nd.array(x)], [mx.nd.array(y)]))
+    short_rows = mod.get_outputs()[0].shape[0]
+    after_short = named_stats("executor")["misses"] - before
+    check(after_iter == 1 and after_short == 1 and short_rows == 1,
+          f"module short batch: captures {after_iter} then {after_short}, "
+          f"{short_rows} output rows")
+    # (f): a checkpoint saved on the card, loaded on the CPU
+    prefix = os.path.join(workdir, "module_small")
+    mod.save_checkpoint(prefix, 1)
+    with open(prefix + "-symbol.json") as f:
+        text = f.read()
+    check(text == mod.symbol.tojson(), "module checkpoint: symbol text")
+    xs, ys = module_small_batches(4, MODULE_SMALL["batch"])
+    fwd = {}
+    for ctx, m in ((card, mod), (cpu, None)):
+        with ctx:
+            if m is None:
+                m = mx.mod.Module.load(prefix, 1, context=cpu)
+                m.bind(data_shapes=mod.data_shapes,
+                       label_shapes=mod.label_shapes, for_training=False)
+                check(m.symbol.tojson() == text,
+                      "module checkpoint: loaded symbol text")
+            m.forward(mx.io.DataBatch([mx.nd.array(xs)], [mx.nd.array(ys)]),
+                      is_train=False)
+            fwd[str(ctx)] = m.get_outputs()[0].asnumpy()
+    err = float(np.abs(fwd[str(card)] - fwd[str(cpu)]).max())
+    check(err <= 1e-4, f"module checkpoint: forward differs by {err}")
+    return {"small": MODULE_SMALL, "b": dict(b, tol=ND_SMALL_TOL),
+            "c": dict(c, tol=MODULE_FUSED_TOL),
+            "d": dict(d, tol=MODULE_FUSED_TOL),
+            "e": {"captures_5_rows_in_batch_4": after_iter,
+                  "captures_after_1_row_batch": after_short,
+                  "output_rows": short_rows},
+            "f": {"forward_max_abs_err": err, "symbol_bytes": len(text)},
+            "dropout_changed": module_dropout(mx, card),
+            "noise": module_noise(mx, card, n)}
+
+
+def module_phase(torch, smi, workdir, profile=False):
+    """Slice 8's path: `module_train` on the symbolic ResNet-50 at full
+    width, fused (one captured CUDA graph a step) and eager, then checks
+    (b)-(f) on the small model. (g): no kernel launches. Returns the line
+    and, when ``profile``, the profiles of one more step of each path,
+    taken before the small model's ~20 captures (after them, the first
+    profiled replay of the full-width graph crashed: ROADMAP C.4)."""
+    import mxnet_tpu_torch as mx
+
+    reset_launches()
+    full, more = [], {}
+    for fused in (True, False):
+        line, more["fused" if fused else "eager"] = module_full_width(
+            torch, mx, smi, fused)
+        full.append(line)
+    launches = read_launches()
+    check(not any(launches.values()),
+          f"the module path launched kernels: {launches}")
+    profiles = {f"module_{path}": profile_step(torch, step, must_run=(
+        "convolution", "batchnorm")) for path, step in more.items()} \
+        if profile else {}
+    return {"full_width": full, "kernel_launches": launches,
+            **module_checks(mx, workdir)}, profiles
 
 
 def attention_case(torch, fa, F, *, b, l, h, d, dtype, causal, tol, timed):
@@ -2381,14 +2949,18 @@ def main(argv=None):
     progress("nd")
     with tempfile.TemporaryDirectory() as workdir:
         gluon, gluon_steps = gluon_phase(torch, smi, workdir)
-    progress("gluon")
+        progress("gluon")
+        module, module_profiles = module_phase(torch, smi, workdir,
+                                               profile=bool(args.profile))
+    progress("module")
     kernels = kernels_phase(torch, fa, gcm, {
         "train": train["kernel_launches"],
         "ring": ring["kernel_launches"],
         "trainer": trainer["kernel_launches"],
         "generate": generate["kernel_launches"],
         "nd": nd["kernel_launches"],
-        "gluon": gluon["kernel_launches"]})
+        "gluon": gluon["kernel_launches"],
+        "module": module["kernel_launches"]})
     emit(kernels=kernels)
     emit(train=train, small_reference=small)
     emit(ring=ring, small_reference=small_ring)
@@ -2396,6 +2968,7 @@ def main(argv=None):
     emit(generate=generate, small_reference=small_generate)
     emit(nd=nd)
     emit(gluon=gluon)
+    emit(module=module)
     if args.profile:
         def one_more_step(state_of_path):
             _, step, state, tokens, targets = state_of_path
@@ -2410,9 +2983,11 @@ def main(argv=None):
             **{f"nd_{dtype}": profile_step(torch, step, must_run=(
                 "convolution", "batchnorm"))
                for dtype, step in nd_steps.items()},
-            **{f"gluon_{dtype}": profile_step(torch, step, must_run=(
+            **{f"gluon_{name}": profile_step(torch, step, must_run=() if
+                                             name.startswith("update") else (
                 "convolution", "batchnorm"))
-               for dtype, step in gluon_steps.items()}}
+               for name, step in gluon_steps.items()},
+            **module_profiles}
         with open(args.profile, "w") as f:
             json.dump(profiles, f, indent=1)
         emit(profile={"path": args.profile, **{

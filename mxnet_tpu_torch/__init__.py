@@ -32,18 +32,31 @@ the gluon training path (`gluon`: Parameter, Block and HybridBlock, whose
 `hybridize` captures the forward and backward as CUDA graphs (`_cached_op`),
 the layers, losses and ResNet model zoo; `initializer`, `io.NDArrayIter`,
 `metric`, `lr_scheduler`, and the fused multi-tensor SGD update of
-`optimizer`), which runs no TPU kernel's port either.
+`optimizer`), which runs no TPU kernel's port either; and the symbolic
+path (`mx.sym`: Symbol, its op namespace, shape inference, JSON and the
+`Executor`; `mx.mod`: `Module` with `fit`, whose training step is one
+captured CUDA graph a signature on a card; checkpoints in `model`;
+`callback`, `monitor`, `AttrScope`; the symbolic ResNet of
+`models.resnet`; `gluon.HybridBlock.export` and `gluon.SymbolBlock`),
+which runs no TPU kernel's port either.
 """
 from . import autograd, ndarray, random
 from . import ndarray as nd
 from . import initializer
 from . import initializer as init
 from . import name, lr_scheduler, optimizer, metric, io, gluon
+from . import attribute, symbol, module, model, callback, monitor
+from . import symbol as sym
+from . import module as mod
+from .attribute import AttrScope
 from .base import MXNetError
 from .context import Context, cpu, current_context, gpu, num_gpus, \
     resolve_device, tpu
+from .symbol import Symbol
 
 __all__ = ["nd", "ndarray", "autograd", "random", "initializer", "init",
            "name", "lr_scheduler", "optimizer", "metric", "io", "gluon",
+           "attribute", "symbol", "sym", "Symbol", "module", "mod", "model",
+           "callback", "monitor", "AttrScope",
            "cpu", "gpu", "tpu", "num_gpus", "Context", "current_context",
            "MXNetError", "resolve_device"]

@@ -40,20 +40,14 @@ its buffers.
 """
 from __future__ import annotations
 
-import contextlib
-import gc
-
 import torch
 
 from . import autograd
 from . import random as _random
 from .base import MXNetError
-from .compile_cache import CompileCache
+from .compile_cache import WARMUP_CALLS, CompileCache, collector_held
 
 __all__ = ["CachedOp"]
-
-# eager calls on a side stream before a capture (as GraphProgram makes)
-_WARMUP_CALLS = 2
 
 
 class CachedOp:
@@ -115,22 +109,6 @@ class _Replay(torch.autograd.Function):
         return (None,) + ctx.prog.backward(ctx.generation, cts)
 
 
-@contextlib.contextmanager
-def _collector_held():
-    """Python's cyclic garbage collector run now and held off until the
-    block ends. A dead block's programs die in reference cycles; destroying
-    their graphs during a capture makes CUDA calls that a capture forbids,
-    which invalidates it (seen as cuDNN's CUDNN_STATUS_INTERNAL_ERROR)."""
-    gc.collect()
-    enabled = gc.isenabled()
-    gc.disable()
-    try:
-        yield
-    finally:
-        if enabled:
-            gc.enable()
-
-
 class _GraphProgram:
     """The forward (and under recording the backward) of ``fn`` at one
     signature, captured as CUDA graphs from ``inputs``."""
@@ -151,7 +129,7 @@ class _GraphProgram:
         self.gen = _random.generator(self.device)
         stream = torch.cuda.Stream(self.device)
         stream.wait_stream(torch.cuda.current_stream(self.device))
-        with _collector_held(), torch.cuda.stream(stream):
+        with collector_held(), torch.cuda.stream(stream):
             self.mutated = self._warm_up()
             self.fwd_graph = self._graph()
             with torch.cuda.graph(self.fwd_graph, pool=self.pool,
@@ -203,7 +181,7 @@ class _GraphProgram:
                  for i, t in enumerate(self.static_ins[:self.n_state])
                  if not t.requires_grad}
         versions = [t._version for t in self.static_ins]
-        for _ in range(_WARMUP_CALLS):
+        for _ in range(WARMUP_CALLS):
             outs = self._run()
             if self.recording:
                 diff = [o for o in outs if o.requires_grad]

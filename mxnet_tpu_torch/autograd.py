@@ -224,9 +224,10 @@ def grad(heads, variables, head_grads=None, retain_graph=None,
 
 
 def get_symbol(x):
-    raise NotImplementedError(
-        "autograd.get_symbol needs the symbolic API, which the port has not "
-        "yet (ROADMAP.md queue A, item 5)")
+    """Raises, as the JAX package's does: a recorded graph has no symbol;
+    `HybridBlock.export` writes one."""
+    raise MXNetError("autograd.get_symbol is not supported; use "
+                     "HybridBlock.export")
 
 
 class _Bridge(torch.autograd.Function):

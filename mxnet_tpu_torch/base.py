@@ -9,7 +9,7 @@ import numpy as _np
 import torch
 
 __all__ = ["MXNetError", "register_env", "getenv", "np_dtype", "torch_dtype",
-           "numeric_types", "integer_types"]
+           "dtype_name", "numeric_types", "integer_types"]
 
 
 class MXNetError(RuntimeError):
@@ -63,6 +63,12 @@ def np_dtype(dtype):
     if isinstance(dtype, str) and dtype == "bfloat16":
         return torch.bfloat16
     return _np.dtype(dtype)
+
+
+def dtype_name(dtype):
+    """A dtype's name: ``"float32"``, ..., ``"bfloat16"``."""
+    dt = np_dtype(dtype)
+    return "bfloat16" if dt == torch.bfloat16 else dt.name
 
 
 def torch_dtype(dtype):

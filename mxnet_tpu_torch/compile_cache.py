@@ -9,15 +9,45 @@ later call refills the inputs and replays the graph; on the CPU it calls
 the eager function. Either way `misses` counts builds exactly, and a
 steady state that builds nothing shows as a zero miss delta in
 `named_stats`.
+
+Every CUDA graph of the port is captured under `collector_held` after
+`WARMUP_CALLS` eager calls: `GraphProgram` here, `CachedOp`
+(`_cached_op.py`) and the Module's training step (`symbol/executor.py`).
 """
 from __future__ import annotations
 
+import contextlib
+import gc
 import threading
 
 import numpy as np
 import torch
 
-__all__ = ["CompileCache", "GraphProgram", "named_stats"]
+__all__ = ["CompileCache", "GraphProgram", "named_stats", "collector_held",
+           "WARMUP_CALLS"]
+
+# eager calls on a side stream before a capture: the lazy set-up (cuDNN's
+# algorithm choice, workspaces, autograd's stream state) that a capture
+# must not see
+WARMUP_CALLS = 2
+
+
+@contextlib.contextmanager
+def collector_held():
+    """Python's cyclic garbage collector run now and held off until the
+    block ends; every capture runs inside one. A dead block's or module's
+    programs die in reference cycles, and destroying their graphs during a
+    capture makes CUDA calls that a capture forbids, which invalidates it
+    (seen as cuDNN's CUDNN_STATUS_INTERNAL_ERROR)."""
+    gc.collect()
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if enabled:
+            gc.enable()
+
 
 # `named_stats(name)` must answer "did steady state build anything?" with
 # counts that only grow, whatever caches of that name were collected since
@@ -129,9 +159,9 @@ class GraphProgram:
         stream = torch.cuda.Stream(self.device)
         stream.wait_stream(torch.cuda.current_stream(self.device))
         graph = torch.cuda.CUDAGraph()
-        with torch.inference_mode():
+        with collector_held(), torch.inference_mode():
             with torch.cuda.stream(stream):
-                for _ in range(2):
+                for _ in range(WARMUP_CALLS):
                     self.fn(*self._inputs)
             with torch.cuda.graph(graph, pool=self._pool, stream=stream,
                                   capture_error_mode="thread_local"):

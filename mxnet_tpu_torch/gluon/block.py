@@ -32,7 +32,7 @@ from .. import autograd
 from .. import name as _name
 from .. import ndarray as nd
 from .._cached_op import CachedOp
-from ..base import torch_dtype
+from ..base import MXNetError, torch_dtype
 from ..context import cpu
 from ..ndarray import NDArray
 from .parameter import (DeferredInitializationError, Parameter,
@@ -544,7 +544,15 @@ class HybridBlock(Block):
     def forward(self, x, *args):
         """Run ``hybrid_forward`` with ``F = nd`` and the parameters'
         values; through the CachedOp when this block is the outermost
-        hybridized one."""
+        hybridized one. Given a Symbol, ``F = mx.sym`` and the parameters'
+        variables: the trace that `export` writes."""
+        from ..symbol import Symbol
+
+        if isinstance(x, Symbol):
+            from .. import symbol as _sym_api
+
+            params = {k: v.var() for k, v in self._reg_params.items()}
+            return self.hybrid_forward(_sym_api, x, *args, **params)
         if self._active and _PARAM_OVERRIDE.get() is None:
             return self._call_cached_op(x, *args)
         try:
@@ -563,23 +571,152 @@ class HybridBlock(Block):
         raise NotImplementedError
 
     def export(self, path, epoch=0, remove_amp_cast=True):
-        raise NotImplementedError(
-            "HybridBlock.export writes a symbol file and needs the symbolic "
-            "API, which the port has not yet (ROADMAP.md queue A, item 5)")
+        """Write ``path-symbol.json`` and ``path-####.params`` (reference
+        block.py HybridBlock.export): the forward traced with
+        ``F = mx.sym``, so the files load in `SymbolBlock.imports` and the
+        Module's checkpoint loader, of either package. Returns the
+        symbol."""
+        from .. import symbol as _sym_api
+
+        n_in = len(self._in_fmt) if isinstance(self._in_fmt, (list, tuple)) \
+            else 1
+        if n_in == 1:
+            data_syms = [_sym_api.var("data")]
+        else:
+            data_syms = [_sym_api.var(f"data{i}") for i in range(n_in)]
+        out = self(*data_syms)
+        if not isinstance(out, (list, tuple)):
+            out = [out]
+        sym = _sym_api.Group(list(out)) if len(out) > 1 else out[0]
+        sym.save(f"{path}-symbol.json", remove_amp_cast=remove_amp_cast)
+
+        arg_names = set(sym.list_arguments())
+        aux_names = set(sym.list_auxiliary_states())
+        arg_dict = {}
+        for name, param in self.collect_params().items():
+            if name in arg_names:
+                arg_dict[f"arg:{name}"] = param.data().as_in_context(cpu())
+            elif name in aux_names:
+                arg_dict[f"aux:{name}"] = param.data().as_in_context(cpu())
+        nd.save(f"{path}-{epoch:04d}.params", arg_dict)
+        return sym
 
 
 class SymbolBlock(HybridBlock):
-    """A block over a Symbol graph: needs the symbolic API, not ported yet
-    (ROADMAP.md queue A, item 5)."""
+    """A block over a Symbol graph (reference `block.py:952`): what
+    `HybridBlock.export` and `model.save_checkpoint` files load into. Its
+    parameters are the symbol's arguments other than the inputs, named as
+    in the symbol; the graph runs through the executor's graph function
+    (`symbol/executor.py` `_graph_fn`)."""
 
     def __init__(self, outputs, inputs, params=None):
-        raise NotImplementedError(
-            "SymbolBlock needs the symbolic API, which the port has not yet "
-            "(ROADMAP.md queue A, item 5)")
+        from ..symbol.symbol import Group, Symbol
+
+        # param names must equal the symbol's argument names: no prefix
+        super().__init__(prefix="", params=None)
+        self._params = ParameterDict("", shared=params)
+
+        if isinstance(inputs, Symbol):
+            inputs = list(inputs) if len(inputs) > 1 else [inputs]
+        if isinstance(outputs, (list, tuple)):
+            outputs = Group(list(outputs)) if len(outputs) > 1 \
+                else outputs[0]
+        self._sym = outputs
+        self._input_names = [i.name for i in inputs]
+
+        arg_names = self._sym.list_arguments()
+        aux_names = set(self._sym.list_auxiliary_states())
+        self._param_order = []
+        for name in arg_names + sorted(aux_names):
+            if name in self._input_names:
+                continue
+            grad_req = "null" if name in aux_names else "write"
+            self._reg_params[name] = self.params.get(
+                name, grad_req=grad_req, allow_deferred_init=True)
+            self._param_order.append(name)
+        self._graph_fns = {}
 
     @staticmethod
     def imports(symbol_file, input_names, param_file=None, ctx=None,
                 allow_missing=False, ignore_extra=False):
-        raise NotImplementedError(
-            "SymbolBlock.imports needs the symbolic API, which the port has "
-            "not yet (ROADMAP.md queue A, item 5)")
+        """Load an exported model: ``SymbolBlock.imports('m-symbol.json',
+        ['data'], 'm-0000.params')`` (reference block.py
+        SymbolBlock.imports)."""
+        from .. import symbol as _sym_api
+
+        sym = _sym_api.load(symbol_file)
+        if isinstance(input_names, str):
+            input_names = [input_names]
+        ret = SymbolBlock(sym, [_sym_api.var(n) for n in input_names])
+        if param_file is not None:
+            ret.collect_params().load(param_file, ctx=ctx,
+                                      allow_missing=allow_missing,
+                                      ignore_extra=ignore_extra)
+        return ret
+
+    def _sb_fn(self, train):
+        fn = self._graph_fns.get(train)
+        if fn is None:
+            from ..symbol.executor import _graph_fn
+
+            aux = self._sym.list_auxiliary_states()
+            args = self._input_names + [p for p in self._param_order
+                                        if p not in aux]
+            fn = self._graph_fns[train] = _graph_fn(self._sym, args, aux,
+                                                    train)
+        return fn
+
+    def _finish_shapes(self, inputs):
+        """Deferred parameters get their shapes from the inputs'."""
+        shapes = {n: tuple(i.shape) for n, i in zip(self._input_names,
+                                                    inputs)}
+        arg_shapes, _, aux_shapes = self._sym.infer_shape_partial(**shapes)
+        named = list(zip(self._sym.list_arguments(), arg_shapes)) + \
+            list(zip(self._sym.list_auxiliary_states(), aux_shapes))
+        for n, s in named:
+            p = self._reg_params.get(n)
+            if p is not None and s is not None and p._data is None:
+                p.shape = s
+                if p._deferred_init:
+                    p._finish_deferred_init()
+                else:
+                    p.initialize()
+
+    def forward(self, x, *args):
+        from ..symbol import Symbol
+
+        if isinstance(x, Symbol):
+            raise MXNetError("SymbolBlock cannot be re-traced symbolically")
+        if self._active and _PARAM_OVERRIDE.get() is None:
+            return self._call_cached_op(x, *args)
+        inputs = [x] + [a for a in args if a is not None]
+        if len(inputs) != len(self._input_names):
+            raise MXNetError(f"SymbolBlock expects {len(self._input_names)} "
+                             f"inputs {self._input_names}, got {len(inputs)}")
+        try:
+            values = {n: _param_value(self._reg_params[n])
+                      for n in self._param_order}
+        except DeferredInitializationError:
+            self._finish_shapes(inputs)
+            values = {n: _param_value(self._reg_params[n])
+                      for n in self._param_order}
+        aux_names = self._sym.list_auxiliary_states()
+        train = bool(autograd.is_training())
+        recording = autograd.is_recording()
+        arg_nds = inputs + [values[n] for n in self._param_order
+                            if n not in aux_names]
+        if recording:
+            for a in arg_nds:
+                autograd._note_input(a)
+        aux_nds = [values[n] for n in aux_names]
+        with torch.set_grad_enabled(recording):
+            outs, aux_new = self._sb_fn(train)(
+                tuple(a._data for a in arg_nds),
+                tuple(a._data for a in aux_nds))
+        if train:
+            with torch.no_grad():
+                for a, new in zip(aux_nds, aux_new):
+                    if new is not a._data:
+                        a._data.copy_(new)
+        out_nds = [NDArray(o) for o in outs]
+        return out_nds[0] if len(out_nds) == 1 else out_nds

@@ -22,7 +22,7 @@ import torch
 from .. import autograd
 from .. import initializer
 from .. import ndarray as nd
-from ..base import MXNetError, np_dtype
+from ..base import MXNetError, dtype_name, np_dtype
 from ..context import Context, cpu, current_context
 from ..ndarray import NDArray
 
@@ -38,11 +38,6 @@ class DeferredInitializationError(MXNetError):
 
 def _shape_complete(shape):
     return shape is not None and all(int(s) > 0 for s in shape)
-
-
-def _dtype_name(dtype):
-    dt = np_dtype(dtype)
-    return "bfloat16" if dt == torch.bfloat16 else dt.name
 
 
 class Parameter:
@@ -76,13 +71,14 @@ class Parameter:
         self.grad_req = grad_req
         self.attributes = {}
         self._trainer = None
+        self._var = None
 
     def _set_trainer(self, trainer):
         self._trainer = trainer
 
     def __repr__(self):
         return (f"Parameter {self.name} (shape={self.shape}, "
-                f"dtype={_dtype_name(self.dtype)})")
+                f"dtype={dtype_name(self.dtype)})")
 
     # -- properties ---------------------------------------------------------
 
@@ -322,9 +318,14 @@ class Parameter:
                                             self._grad_req)
 
     def var(self):
-        raise NotImplementedError(
-            "Parameter.var needs the symbolic API, which the port has not "
-            "yet (ROADMAP.md queue A, item 5)")
+        """The Symbol of this parameter (symbolic API)."""
+        if self._var is None:
+            from .. import symbol
+
+            self._var = symbol.var(self.name, shape=self.shape,
+                                   dtype=self.dtype, lr_mult=self.lr_mult,
+                                   wd_mult=self.wd_mult, init=self.init)
+        return self._var
 
     def row_sparse_data(self, row_id):
         raise NotImplementedError(

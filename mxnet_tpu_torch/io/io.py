@@ -19,7 +19,7 @@ import numpy as _np
 from ..base import MXNetError
 
 __all__ = ["DataDesc", "DataBatch", "DataIter", "NDArrayIter", "ResizeIter",
-           "PrefetchingIter", "CSVIter"]
+           "PrefetchingIter", "CSVIter", "pad_arrays"]
 
 
 class DataDesc(collections.namedtuple("DataDesc", ["name", "shape"])):
@@ -67,6 +67,36 @@ class DataBatch:
         lshapes = [l.shape for l in self.label] if self.label else []
         return (f"{type(self).__name__}: data shapes: {dshapes} label "
                 f"shapes: {lshapes}")
+
+
+def pad_arrays(arrays, batch_size):
+    """Pad each array in ``arrays`` along axis 0 up to ``batch_size`` by
+    recycling its rows from the start (wrapping around when the batch is
+    shorter than the pad); returns ``(padded_list, pad)`` (parity
+    `mxnet_tpu/io/io.py` `pad_arrays`). A short last batch padded up to
+    the bound batch size reuses the step already captured for that shape;
+    `Module` slices ``pad`` rows back off its outputs and metrics. The
+    padded rows do train, as `NDArrayIter`'s ``last_batch_handle='pad'``
+    rows do."""
+    import torch
+
+    from ..ndarray import NDArray
+
+    out, pad = [], 0
+    for a in arrays:
+        n = a.shape[0]
+        if n >= batch_size:
+            out.append(a)
+            continue
+        if n == 0:
+            raise MXNetError("pad_arrays: cannot pad an empty batch "
+                             "(no rows to recycle)")
+        pad = batch_size - n
+        data = a._data if isinstance(a, NDArray) else torch.as_tensor(a)
+        idx = torch.as_tensor(_np.concatenate(
+            [_np.arange(n), _np.arange(pad) % n]), device=data.device)
+        out.append(NDArray(data.index_select(0, idx)))
+    return out, pad
 
 
 class DataIter:

@@ -104,11 +104,12 @@ class NDArray:
 
     def asnumpy(self):
         """Blocking copy to the host. bfloat16, which numpy lacks, comes
-        back as float32."""
+        back as float32. Always a copy: the arrays bound by an executor are
+        written in place later."""
         t = self._data.detach()
         if t.dtype == torch.bfloat16:
             t = t.float()
-        return t.cpu().numpy()
+        return t.cpu().numpy() if t.is_cuda else t.numpy().copy()
 
     def asscalar(self):
         if self.size != 1:

@@ -194,13 +194,26 @@ class Optimizer:
 
     fused_update_supported = False
 
-    def fused_update(self, weights, grads, states, lrs, wds, rescale_grad):
+    def fused_update(self, weights, grads, states, lrs, wds, rescale_grad,
+                     groups=None):
         """Update every weight of a group at once, in place: ``weights``,
         ``grads`` and the state trees are tensors, ``lrs`` and ``wds`` one
         float per weight. Optimizers with ``fused_update_supported``
-        implement it."""
+        implement it; SGD's also takes its hyperparameters as tensors."""
         raise NotImplementedError(
             f"{type(self).__name__} has no fused update")
+
+    def _fused_hyperparams(self, indices):
+        """The (lrs, wds) of ``indices`` that a fused update applies, with
+        any correction that depends on the update count; call after
+        `_update_count`."""
+        return self._get_lrs(indices), self._get_wds(indices)
+
+    def _fused_static_key(self):
+        """What a fused update depends on beyond its tensors and its
+        (lrs, wds, rescale_grad): part of a captured step's signature, so
+        changing one captures anew."""
+        return (type(self).__name__, self.clip_gradient, self.multi_precision)
 
     def set_learning_rate(self, lr):
         if self.lr_scheduler is not None:
@@ -375,47 +388,110 @@ class SGD(Optimizer):
 
     fused_update_supported = True
 
+    def _fused_static_key(self):
+        return super()._fused_static_key() + (self.momentum,)
+
     @torch.no_grad()
-    def fused_update(self, weights, grads, states, lrs, wds, rescale_grad):
+    def fused_update(self, weights, grads, states, lrs, wds, rescale_grad,
+                     groups=None):
         """`sgd_update` / `sgd_mom_update` / `mp_sgd_*`'s arithmetic over a
         group with the ``torch._foreach_*`` ops, in place: fp32 math (the
         rescale, the clip, then ``+ wd * weight`` on the fp32 weight or
         master), the momentum step where a state exists, the results cast
         back into the weights and states. One multi-tensor op per step of
         the arithmetic for each set of parameters sharing (lr, wd,
-        momentum or not)."""
-        groups = {}
-        for w, g, s, lr, wd in zip(weights, grads, states, lrs, wds):
+        momentum or not).
+
+        ``lrs``, ``wds`` and ``rescale_grad`` are floats, or 0-dim fp32
+        tensors on the weights' device, which a captured CUDA graph reads
+        at each replay (`Executor.fused_step`); then ``groups`` gives one
+        key per weight, equal for the weights that share (lr, wd)."""
+        if groups is None:
+            groups = list(zip(lrs, wds))
+        sets = {}
+        for w, g, s, lr, wd, key in zip(weights, grads, states, lrs, wds,
+                                        groups):
             mom, w32 = s if isinstance(s, tuple) else (s, w)
-            groups.setdefault((lr, wd, mom is not None), []).append(
+            sets.setdefault((key, mom is not None), (lr, wd, []))[2].append(
                 (w, g, mom, w32))
         clip = float(self.clip_gradient) if self.clip_gradient else 0.0
-        for (lr, wd, has_mom), items in groups.items():
+        on_device = isinstance(rescale_grad, torch.Tensor)
+        for (_, has_mom), (lr, wd, items) in sets.items():
             ws, gs, moms, w32s = (list(t) for t in zip(*items))
-            rescale = float(rescale_grad)
-            if rescale != 1.0 and all(t.dtype == torch.float32 for t in gs):
-                g = list(torch._foreach_mul(gs, rescale))
+            if on_device:
+                g = list(torch._foreach_mul(_f32_views(gs), rescale_grad))
             else:
-                g = _f32_copies(gs)
-                if rescale != 1.0:
-                    torch._foreach_mul_(g, rescale)
+                rescale = float(rescale_grad)
+                if rescale != 1.0 and all(t.dtype == torch.float32
+                                          for t in gs):
+                    g = list(torch._foreach_mul(gs, rescale))
+                else:
+                    g = _f32_copies(gs)
+                    if rescale != 1.0:
+                        torch._foreach_mul_(g, rescale)
             if clip > 0:
                 torch._foreach_clamp_min_(g, -clip)
                 torch._foreach_clamp_max_(g, clip)
             w32 = _f32_views(w32s)
-            if wd:
+            if on_device:
+                torch._foreach_add_(g, torch._foreach_mul(w32, wd))
+            elif wd:
                 torch._foreach_add_(g, w32, alpha=float(wd))
             if has_mom:
                 m32 = _f32_views(moms)
                 torch._foreach_mul_(m32, float(self.momentum))
-                torch._foreach_add_(m32, g, alpha=-float(lr))
+                _add_scaled(m32, g, lr)
                 torch._foreach_add_(w32, m32)
                 _write_back(moms, m32)
             else:
-                torch._foreach_add_(w32, g, alpha=-float(lr))
+                _add_scaled(w32, g, lr)
             _write_back(w32s, w32)
             if any(w is not m for w, m in zip(ws, w32s)):  # masters
                 torch._foreach_copy_(ws, w32s)
+
+
+def _add_scaled(ts, g, lr):
+    """``ts -= lr * g``: by ``alpha`` for a float ``lr``; for a tensor, one
+    multi-tensor product that reads it on the device."""
+    if isinstance(lr, torch.Tensor):
+        torch._foreach_sub_(ts, torch._foreach_mul(g, lr))
+    else:
+        torch._foreach_add_(ts, g, alpha=-float(lr))
+
+
+def fused_hyper_slots(lrs, wds):
+    """The layout of a device tensor of hyperparameters: the weights that
+    share (lr, wd) share a slot. Returns one slot per weight and the
+    tensor's values, [lr by slot, wd by slot]; `rescale_grad` follows
+    them."""
+    slots = {}
+    groups = tuple(slots.setdefault(key, len(slots))
+                   for key in zip(lrs, wds))
+    return groups, [lr for lr, _ in slots] + [wd for _, wd in slots]
+
+
+def fused_hyper_args(hyper, groups):
+    """`fused_update`'s (lrs, wds, rescale_grad) as 0-dim views of
+    ``hyper``, laid out by `fused_hyper_slots`."""
+    n = max(groups, default=-1) + 1
+    return [hyper[g] for g in groups], [hyper[n + g] for g in groups], \
+        hyper[-1]
+
+
+def _snapshot_counts(opt, indices):
+    """The update-count state that `_update_count` moves, so a step that
+    fails before it ran can put it back (`_restore_counts`)."""
+    return (opt.num_update, {i: opt._index_update_count.get(i)
+                             for i in indices})
+
+
+def _restore_counts(opt, snap):
+    opt.num_update, counts = snap
+    for i, c in counts.items():
+        if c is None:
+            opt._index_update_count.pop(i, None)
+        else:
+            opt._index_update_count[i] = c
 
 
 def _f32_copies(ts):

@@ -1,0 +1,33 @@
+"""mx.sym: declarative graphs over the port's op registry (parity
+`mxnet_tpu/symbol/__init__.py`). The op functions are generated from the
+same registry that makes `mx.nd`'s (one function for each op name), so
+the symbolic and imperative paths cannot drift."""
+from .. import ndarray as _nd  # noqa: F401  (registers every op)
+from ..ndarray.register import populate_op_namespaces as _populate
+from ..ops import registry as _reg
+from .executor import Executor
+from .symbol import (Group, Symbol, Variable, _apply_op, load, load_json,
+                     var)
+
+__all__ = ["Symbol", "var", "Variable", "Group", "load", "load_json",
+           "Executor", "zeros", "ones"]
+
+
+def _make_sym_func(op_name, func_name):
+    def fn(*args, **kwargs):
+        return _apply_op(op_name, *args, **kwargs)
+
+    fn.__name__ = func_name
+    fn.__doc__ = _reg.get_op(op_name).doc or f"Symbolic op `{op_name}`."
+    return fn
+
+
+_populate(root_module_name=__name__, make_func=_make_sym_func)
+
+
+def zeros(shape, dtype="float32", **kwargs):
+    return _apply_op("_zeros", shape=shape, dtype=dtype, **kwargs)
+
+
+def ones(shape, dtype="float32", **kwargs):
+    return _apply_op("_ones", shape=shape, dtype=dtype, **kwargs)

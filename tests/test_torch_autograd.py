@@ -326,5 +326,6 @@ def test_errors():
         y = x * 2
     with pytest.raises(MXNetError):
         mx.autograd.grad(y, _arr(mx, [1.0]))
-    with pytest.raises(NotImplementedError, match="item 5"):
+    # the JAX package raises here too (`mxnet_tpu/autograd.py:363-364`)
+    with pytest.raises(MXNetError, match="HybridBlock.export"):
         mx.autograd.get_symbol(y)

@@ -316,10 +316,10 @@ def test_layer_matches_jax(name):
     lambda p: p.gluon.nn.Conv2DTranspose(2, 3),
     lambda p: p.gluon.nn.Conv3DTranspose(2, 3),
     lambda p: p.gluon.loss.CTCLoss(),
-    lambda p: p.gluon.SymbolBlock(None, None),
+    lambda p: p.gluon.model_zoo.vision.get_model("alexnet"),
 ], ids=["LeakyReLU", "PReLU", "ELU", "SELU", "GELU", "InstanceNorm",
         "Conv1DTranspose", "Conv2DTranspose", "Conv3DTranspose", "CTCLoss",
-        "SymbolBlock"])
+        "alexnet"])
 def test_layers_waiting_for_their_ops_raise(make):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         make(mx)
@@ -408,8 +408,10 @@ def test_block_surface(tmp_path, capsys):
     net.cast("bfloat16")
     assert net._cached_op is None  # cast clears the cached op
     assert net[1].gamma.data()._data.dtype.is_floating_point
-    with pytest.raises(NotImplementedError, match="item 5"):
-        net.export(str(tmp_path / "m"))
+    sym = net.export(str(tmp_path / "m"))
+    assert (tmp_path / "m-symbol.json").exists()
+    assert (tmp_path / "m-0000.params").exists()
+    assert sym.list_arguments()[0] == "data"
 
 
 def test_save_load_parameters_cross_packages_bit_for_bit(tmp_path):
