@@ -115,6 +115,38 @@ Phases, each printed as one JSON line:
            captured once and eager twice, how far capture and how far
            the algorithms' run-to-run noise part the results; with the
            deterministic ones, captured and eager must agree;
+  serve    slice 9's path, after module: `serving_probe`
+           (`bench.py:1132-1302`'s `_measure_serving` loop, the same
+           function the CPU test runs on the JAX package) over the model
+           zoo's `resnet50_v1(classes=1000)` (Xavier from seed 0,
+           hybridized, exported, its BatchNorm moving stats drawn from seed
+           0: means on [-0.1, 0.1), variances on [0.5, 1.5)) served by
+           `Predictor.load` at the default ladder 1, 2, 4, 8, 16, 32 in
+           fp32 (TF32 off) with its 53 Convolution -> BatchNorm chains
+           folded (``TPU_FUSE``), each bucket's forward one CUDA graph: 4
+           closed-loop clients of 200 requests (1, 2, 3, 5, 8, 11 rows)
+           through a `DynamicBatcher(max_wait_ms=1.0)`, the same loop with
+           two live `swap_weights` (to Xavier weights after seed 99 at 30 %
+           of the completions, back at 65 %), and the same clients calling
+           `Predictor.predict` directly; then the same on `bench.py`'s own
+           64 -> 128 -> 8 MLP through `Module.as_predictor(buckets=(2, 4,
+           8, 16))`. Prints req/s, img/s, p50/p99, direct req/s, capture
+           seconds and counts, the fill ratio, the swap dip, each bucket's
+           graph time against its FLOP bound and beside the same
+           checkpoint's graph served unfused
+           (``MXNET_SUBGRAPH_BACKEND=NONE``), peak memory and the card
+           line. Checks, each raising: (a) warm-up captures one graph a
+           bucket, the three loops none; (b) every batcher response equals
+           the same request direct within rtol 1e-5 / atol 1e-6, and the
+           direct ones the unfused symbol's eager forward on the card
+           within 1e-4; (c) after each swap a fixed probe request is
+           bit-equal to a fresh Predictor's over that weight set, and
+           `weights_version` ends at 2; (d) the MLP and a small ResNet v1
+           (``TPU_FUSE``) served on the card and on the CPU agree within
+           1e-5 and 1e-4, the small ResNet's stats drawn as above; the
+           outputs of (b) and (d) must spread (standard deviation at least
+           1e-2); (e) four threads hitting an unwarmed predictor at once
+           make one capture a bucket; (f) no kernel launched;
   kernels  each kernel against its plain PyTorch version on the card, at the
            shapes the main path gives it and at extra cases (every head dim
            and dtype variant of K1 and K2), with times (`cuda_ms`: many calls
@@ -131,8 +163,9 @@ non-zero and prints no last line; so does a machine without a CUDA card.
 `--profile` also writes a torch.profiler breakdown of one more step of each
 training path (the nd and gluon paths at both dtypes, the module path
 fused and eager, taken before its small-model checks, too), of one call
-of each form of the fused update, with the host's launch calls, and of
-20 decode ticks over a full slab, by kernel, to
+of each form of the fused update, with the host's launch calls, of 20
+decode ticks over a full slab, and of a window of the serve phase's
+full-width batcher traffic (before its small checks), by kernel, to
 OUT.json; each profile must hold every launch of the port's kernels that
 its step made. A run not over after `--deadline` seconds (default 1100)
 dumps every thread's stack and exits 1.
@@ -417,11 +450,9 @@ def free_port():
 
 
 @contextlib.contextmanager
-def one_rank_group_env():
-    """The environment of a one-rank process group on a free localhost port,
-    restored on exit."""
-    env = {"MXNET_COORDINATOR": f"127.0.0.1:{free_port()}",
-           "MXNET_NUM_PROCESSES": "1", "MXNET_PROCESS_ID": "0"}
+def env_scope(env):
+    """The environment variables ``env`` (name -> value) set for the
+    block, restored on exit."""
     saved = {k: os.environ.get(k) for k in env}
     os.environ.update(env)
     try:
@@ -432,6 +463,13 @@ def one_rank_group_env():
                 os.environ.pop(k, None)
             else:
                 os.environ[k] = v
+
+
+def one_rank_group_env():
+    """The environment of a one-rank process group on a free localhost port,
+    restored on exit."""
+    return env_scope({"MXNET_COORDINATOR": f"127.0.0.1:{free_port()}",
+                      "MXNET_NUM_PROCESSES": "1", "MXNET_PROCESS_ID": "0"})
 
 
 def nonzero_code_share(packs, n_values):
@@ -1065,6 +1103,17 @@ _BN_INPUTS = [_u(2, 3, 4, 4), _u(3, lo=0.5, hi=1.5), _u(3), _u(3),
 
 
 _MULTI = {"lrs": (0.1, 0.05), "wds": (0.01, 0.0), "num_weights": 2}
+_FUSED_INPUTS = [_u(2, 3, 6, 6), _u(4, 3, 3, 3), _u(4), _u(4, lo=0.5, hi=1.5),
+                 _u(4), _u(4), _u(4, lo=0.5, hi=1.5)]
+# the region relu(x * w) as the opaque node's Symbol JSON
+_SUBGRAPH_JSON = json.dumps({
+    "nodes": [{"op": "null", "name": "x", "inputs": []},
+              {"op": "null", "name": "w", "inputs": []},
+              {"op": "broadcast_mul", "name": "m",
+               "inputs": [[0, 0, 0], [1, 0, 0]]},
+              {"op": "relu", "name": "r", "inputs": [[2, 0, 0]]}],
+    "arg_nodes": [0, 1], "node_row_ptr": [0, 1, 2, 3, 4],
+    "heads": [[3, 0, 0]], "attrs": {"mxnet_version": ["int", 10500]}})
 
 
 def _op_case_groups():
@@ -1251,6 +1300,15 @@ def _op_case_groups():
         ("Convolution:group", [_u(2, 4, 5, 5), _u(4, 2, 3, 3)],
          {"kernel": (3, 3), "dilate": (2, 2), "num_filter": 4,
           "num_group": 2, "no_bias": True}, True),
+        # the TPU_FUSE fold: data, weight, bias, gamma, beta, moving stats
+        ("_fused_conv_bn_relu", _FUSED_INPUTS,
+         {"kernel": (3, 3), "pad": (1, 1), "num_filter": 4, "eps": 1e-3,
+          "fix_gamma": False}, True),
+        ("_fused_conv_bn_relu:fix_gamma_no_relu", _FUSED_INPUTS,
+         {"kernel": (3, 3), "stride": (2, 2), "num_filter": 4,
+          "fix_gamma": True, "with_relu": False}, True),
+        ("_subgraph_exec", [_u(2, 3), _u(3)],
+         {"subgraph": _SUBGRAPH_JSON, "arg_names": "x,w", "n_out": 1}, True),
         ("Pooling Pooling_v1", [_u(2, 3, 7, 7)],
          {"kernel": (3, 3), "stride": (2, 2), "pad": (1, 1),
           "pool_type": "max"}, True),
@@ -1600,18 +1658,9 @@ GLUON_SMALL = {"layers": [1, 1], "channels": [8, 16, 32], "classes": 10,
 GLUON_UPDATE_TOL = {"rtol": 1e-6, "atol": 1e-6}
 
 
-@contextlib.contextmanager
 def fused_env(fused):
     """`MXNET_FUSED_STEP` set to ``fused`` for the block."""
-    prev = os.environ.get("MXNET_FUSED_STEP")
-    os.environ["MXNET_FUSED_STEP"] = "1" if fused else "0"
-    try:
-        yield
-    finally:
-        if prev is None:
-            os.environ.pop("MXNET_FUSED_STEP", None)
-        else:
-            os.environ["MXNET_FUSED_STEP"] = prev
+    return env_scope({"MXNET_FUSED_STEP": "1" if fused else "0"})
 
 
 def gluon_train(mx, net_fn, data, label, *, dtype, batch, epochs,
@@ -2142,30 +2191,35 @@ def module_spread(what, got, want, tol):
             "outside_tol": sum(not ok for *_, ok in errs)}
 
 
-def symbol_step_flop(sym, shapes):
-    """The FLOP of one train step of ``sym`` at the input ``shapes``: 3 x
-    its forward's convolutions and FullyConnected, from the shapes that
-    `infer_shape` gives every node."""
+def symbol_forward_flop(sym, shapes):
+    """The FLOP of one forward of ``sym`` at the input ``shapes``: its
+    convolutions (plain or folded with a BatchNorm by ``TPU_FUSE``) and
+    FullyConnected, from the shapes that `infer_shape` gives every node's
+    output (matched by node, not by name: an exported gluon graph names
+    many nodes alike)."""
     import numpy as np
 
-    graph = json.loads(sym.tojson())
     internals = sym.get_internals()
     _, out_shapes, _ = internals.infer_shape(**shapes)
-    out_of = dict(zip(internals.list_outputs(), out_shapes))
     arg_shapes, _, _ = sym.infer_shape(**shapes)
     arg_of = dict(zip(sym.list_arguments(), arg_shapes))
     flop = 0
-    for node in graph["nodes"]:
-        if node["op"] not in ("Convolution", "FullyConnected"):
+    for (node, index), out in zip(internals._outputs, out_shapes):
+        if index or node.op not in ("Convolution", "_fused_conv_bn_relu",
+                                    "FullyConnected"):
             continue
-        weight = graph["nodes"][node["inputs"][1][0]]["name"]
-        out = out_of[node["name"] + "_output"]
-        w = arg_of[weight]
-        if node["op"] == "Convolution":
-            flop += 2 * int(np.prod(out)) * int(np.prod(w[1:]))
-        else:
+        w = arg_of[node.inputs[1][0].name]
+        if node.op == "FullyConnected":
             flop += 2 * out[0] * int(np.prod(w))
-    return 3 * flop
+        else:
+            flop += 2 * int(np.prod(out)) * int(np.prod(w[1:]))
+    return flop
+
+
+def symbol_step_flop(sym, shapes):
+    """The FLOP of one train step of ``sym`` at the input ``shapes``: 3 x
+    its forward's (`symbol_forward_flop`)."""
+    return 3 * symbol_forward_flop(sym, shapes)
 
 
 def module_fixed_params(sym):
@@ -2481,6 +2535,562 @@ def module_phase(torch, smi, workdir, profile=False):
         if profile else {}
     return {"full_width": full, "kernel_launches": launches,
             **module_checks(mx, workdir)}, profiles
+
+
+# --- the serve phase (slice 9): Predictor, DynamicBatcher, rollout --------
+
+SERVE_CLIENTS = 4  # closed-loop clients, bench.py:1163
+SERVE_REQS = 200  # requests a client on an accelerator, bench.py:1164-1165
+SERVE_SIZES = (1, 2, 3, 5, 8, 11)  # rows a request, cycled, bench.py:1166
+SERVE_WAIT_MS = 1.0  # the batcher's flush deadline, bench.py:1196
+SERVE_SWAP_AT = (0.3, 0.65)  # shares of completions where the swaps fire
+SERVE_PROBE_ROWS = 3  # the fixed request read after each swap
+# bench.py's own probe: the 64 -> 128 -> 8 MLP Module bound at batch 8
+SERVE_MLP = {"dim": 64, "hidden": 128, "classes": 8, "batch": 8,
+             "buckets": (2, 4, 8, 16)}
+# the small ResNet v1 of checks (d) and (e) and of the CPU test: the gluon
+# phase's small model at 32 x 32, a two-wide ladder
+SERVE_SMALL = {"size": 32, "buckets": (2, 4)}
+# batcher against direct: the same request, maybe in another bucket
+SERVE_TOL = {"rtol": 1e-5, "atol": 1e-6}
+# the least standard deviation of a served model's outputs over the rows
+# and classes of the payloads: below it the output hardly depends on the
+# input, and no comparison of two such outputs can fail
+SERVE_MIN_STD = 1e-2
+
+
+def serve_mlp_symbol(mx):
+    """`bench.py:1152-1157`'s symbol."""
+    m = SERVE_MLP
+    with mx.name.NameManager():
+        data = mx.sym.Variable("data")
+        fc1 = mx.sym.FullyConnected(data, num_hidden=m["hidden"], name="fc1")
+        act = mx.sym.Activation(fc1, act_type="relu")
+        fc2 = mx.sym.FullyConnected(act, num_hidden=m["classes"], name="fc2")
+        return mx.sym.SoftmaxOutput(fc2, name="softmax")
+
+
+def serve_mlp_module(mx, ctx, seed=None, params=None):
+    """`bench.py:1158-1161`'s Module, bound for inference on ``ctx``, its
+    weights Xavier (after ``mx.random.seed(seed)`` when given) or
+    ``params`` (numpy arrays by name)."""
+    m = SERVE_MLP
+    with ctx:
+        mod = mx.mod.Module(serve_mlp_symbol(mx), context=ctx)
+        mod.bind([("data", (m["batch"], m["dim"]))],
+                 [("softmax_label", (m["batch"],))], for_training=False)
+        if params is None:
+            if seed is not None:
+                mx.random.seed(seed)
+            mod.init_params(mx.init.Xavier())
+        else:
+            mod.init_params(arg_params={k: mx.nd.array(v)
+                                        for k, v in params.items()})
+    return mod
+
+
+def numpy_params(pair):
+    """(arg_params, aux_params) of NDArrays as numpy arrays by name."""
+    return tuple({k: v.asnumpy() for k, v in d.items()} for d in pair)
+
+
+def serve_export(mx, net_fn, shape, prefix, seed, ctx):
+    """A gluon net from ``net_fn()`` with Xavier weights drawn after
+    ``mx.random.seed(seed)`` on ``ctx``, hybridized, called once on a
+    1-row batch of ``shape`` and exported to ``prefix`` (epoch 0); returns
+    the net."""
+    with ctx:
+        mx.random.seed(seed)
+        net = net_fn()
+        net.initialize(mx.init.Xavier(), ctx=ctx)
+        net.hybridize()
+        net(mx.nd.zeros((1,) + tuple(shape), ctx=ctx))
+        net.export(prefix, 0)
+    return net
+
+
+def draw_moving_stats(aux, seed):
+    """BatchNorm moving statistics for the aux arrays ``aux`` (numpy by
+    name), drawn in name order from `RandomState(seed)`: means uniform on
+    [-0.1, 0.1), variances on [0.5, 1.5). The fold's scale and shift are
+    then far from the identity while a deep net's activations stay alive:
+    means well above 0 before every ReLU cut a ResNet's output to a
+    constant."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    return {k: rng.uniform(*((0.5, 1.5) if k.endswith("var")
+                             else (-0.1, 0.1)),
+                           aux[k].shape).astype(np.float32)
+            for k in sorted(aux)}
+
+
+def serve_draw_stats(mx, path, seed):
+    """Rewrite the moving statistics in the params file ``path`` with
+    `draw_moving_stats(..., seed)`. Returns (arg_params, aux_params) as
+    numpy."""
+    with mx.cpu():
+        saved = {k: v.asnumpy() for k, v in mx.nd.load(path).items()}
+        arg = {k[4:]: v for k, v in saved.items() if k.startswith("arg:")}
+        aux = draw_moving_stats({k[4:]: v for k, v in saved.items()
+                                 if k.startswith("aux:")}, seed)
+        mx.nd.save(path, {**{"arg:" + k: mx.nd.array(v)
+                             for k, v in arg.items()},
+                          **{"aux:" + k: mx.nd.array(v)
+                             for k, v in aux.items()}})
+        mx.nd.load(path)  # the JAX package's writer is asynchronous
+    return arg, aux
+
+
+def serve_small_export(mx, prefix, seed=0):
+    """The small ResNet v1 exported on the CPU, its BatchNorm moving stats
+    then drawn by `serve_draw_stats` so that the fold uses them. Returns
+    (arg_params, aux_params) as numpy."""
+    size = SERVE_SMALL["size"]
+    with mx.cpu():
+        serve_export(mx, gluon_small_net(mx), (3, size, size), prefix,
+                     seed, mx.cpu())
+    return serve_draw_stats(mx, f"{prefix}-0000.params", seed)
+
+
+def output_std(outs):
+    """The standard deviation over the rows and classes of the outputs
+    ``outs`` (numpy arrays of one width); a served output that does not
+    depend on its input reads 0."""
+    import numpy as np
+
+    return float(np.concatenate(outs).std())
+
+
+def serve_payloads(trail):
+    """One payload a request size, uniform on [-1, 1) from
+    `RandomState(0)` in size order, as `bench.py:1167-1169` draws them."""
+    import numpy as np
+
+    rng = np.random.RandomState(0)
+    return {s: rng.uniform(-1, 1, (s,) + tuple(trail)).astype(np.float32)
+            for s in sorted(set(SERVE_SIZES))}
+
+
+def served_layout(pred, arg, aux):
+    """A checkpoint's (arg, aux) moved into the predictor's layout: under
+    ``TPU_FUSE`` BatchNorm's moving stats are arguments of the folded
+    node (`Predictor.swap_weights` moves them the same way)."""
+    arg, aux = dict(arg), dict(aux)
+    for n in list(aux):
+        if n in pred._arg_params and n not in arg:
+            arg[n] = aux.pop(n)
+    return arg, aux
+
+
+def fresh_predictor(mx, pred, arg, aux):
+    """A new Predictor over ``pred``'s symbol, inputs, ladder and context,
+    with the weights ``arg`` / ``aux`` (``pred``'s layout)."""
+    import importlib
+
+    serving = importlib.import_module(mx.__name__ + ".serving")
+    data = [(d.name, d.shape) for d in pred._data_descs]
+    labels = [(n, (1,) + t) for n, t in pred._label_trails.items()]
+    return serving.Predictor(pred._symbol, arg, aux, data_shapes=data,
+                             label_shapes=labels, buckets=pred.buckets,
+                             ctx=pred._ctx)
+
+
+def serving_probe(mx, pred, weights_b, per_client=SERVE_REQS):
+    """`bench.py:1132-1302`'s `_measure_serving` loop over ``pred``, written
+    only against the package `mx` it is given (`mxnet_tpu` or
+    `mxnet_tpu_torch`): `serving.warmup`, then `SERVE_CLIENTS` closed-loop
+    clients of ``per_client`` requests each (sizes cycling `SERVE_SIZES`,
+    payloads from `serve_payloads`) through a
+    `DynamicBatcher(max_wait_ms=1.0)` after one warm-in request of each
+    size; the same loop with two live `swap_weights`, to ``weights_b``
+    (a checkpoint's numpy (arg, aux)) at 30 % of the completions and back
+    to the weights ``pred`` started with at 65 %; and the same clients
+    calling `Predictor.predict` directly.
+
+    Checks, each raising: no build after warm-up, across all three loops;
+    every batcher response equal to the same request through
+    `Predictor.predict` within `SERVE_TOL`; after each swap, a fixed
+    probe request bit-equal to a fresh Predictor's over that weight set;
+    ``weights_version`` 2 at the end. Returns the numbers and the largest
+    differences."""
+    import importlib
+    import threading
+
+    import numpy as np
+
+    serving = importlib.import_module(mx.__name__ + ".serving")
+    trail = tuple(pred._data_descs[0].shape[1:])
+    payloads = serve_payloads(trail)
+    weights_a = numpy_params((pred._arg_params, pred._aux_params))
+    weights_b = served_layout(pred, *weights_b)
+    warm = serving.warmup(pred)
+    misses_warm = pred.cache.misses
+    refs = {s: pred.predict(p).asnumpy() for s, p in payloads.items()}
+    total = SERVE_CLIENTS * per_client
+    rows = sum(SERVE_SIZES[(k + i) % len(SERVE_SIZES)]
+               for k in range(SERVE_CLIENTS) for i in range(per_client))
+    lat = [[] for _ in range(SERVE_CLIENTS)]
+    responses = {s: [] for s in payloads}
+    fill = {"rows": 0, "slots": 0}
+
+    def closed_loop(fn, record):
+        errors = []
+
+        def client(k):
+            try:
+                for i in range(per_client):
+                    s = SERVE_SIZES[(k + i) % len(SERVE_SIZES)]
+                    t = time.perf_counter()
+                    out = fn(payloads[s])
+                    if record:
+                        lat[k].append(time.perf_counter() - t)
+                        responses[s].append(out)
+            except Exception as e:  # noqa: BLE001 — raised below
+                errors.append(e)
+
+        threads = [threading.Thread(target=client, args=(k,))
+                   for k in range(SERVE_CLIENTS)]
+        t0 = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        if errors:
+            raise errors[0]
+        return time.perf_counter() - t0
+
+    dispatch = pred._run_dispatch
+
+    def counted_dispatch(bucket, arrays):
+        # the fill ratio: real rows over padded slots of each flush
+        fill["rows"] += int(arrays[0].shape[0])
+        fill["slots"] += bucket
+        return dispatch(bucket, arrays)
+
+    probe = payloads[SERVE_PROBE_ROWS]
+    probes = []
+    with serving.DynamicBatcher(pred, max_wait_ms=SERVE_WAIT_MS) as srv:
+        for s in SERVE_SIZES:  # warm-in, untimed
+            srv.predict(payloads[s])
+        pred._run_dispatch = counted_dispatch
+        try:
+            wall = closed_loop(srv.predict, record=True)
+        finally:
+            del pred._run_dispatch
+        stamps = []
+        stamp_lock = threading.Lock()
+        misses_preswap = pred.cache.misses
+
+        def stamped_predict(x):
+            srv.predict(x)
+            with stamp_lock:
+                stamps.append(time.perf_counter())
+
+        def swapper():
+            deadline = time.perf_counter() + 600
+            for frac, weights in zip(SERVE_SWAP_AT, (weights_b, weights_a)):
+                while time.perf_counter() < deadline:
+                    with stamp_lock:
+                        if len(stamps) >= total * frac:
+                            break
+                    time.sleep(0.002)
+                t0 = time.perf_counter()
+                pred.swap_weights(*weights)
+                swap_s.append(time.perf_counter() - t0)
+                probes.append(pred.predict(probe).asnumpy())
+
+        swap_s = []
+        sw = threading.Thread(target=swapper, daemon=True)
+        sw.start()
+        swap_wall = closed_loop(stamped_predict, record=False)
+        sw.join()
+        swap_misses = pred.cache.misses - misses_preswap
+        win = max(0.1, swap_wall / 12.0)
+        counts = {}
+        for t in stamps:
+            i = int((t - stamps[0]) / win)
+            counts[i] = counts.get(i, 0) + 1
+        n_win = max(max(counts), 1)
+        per_win = [counts.get(i, 0) / win for i in range(n_win)]
+        base = sorted(per_win)[len(per_win) // 2]
+        dip_depth = max(0.0, 1.0 - min(per_win) / base) if base > 0 else 0.0
+        dip_ms = (sum(win for r in per_win if r < 0.9 * base) * 1e3
+                  if base > 0 else 0.0)
+    misses_predirect = pred.cache.misses
+    direct_wall = closed_loop(pred.predict, record=False)
+    direct_misses = pred.cache.misses - misses_predirect
+    steady = misses_preswap - misses_warm
+    check(warm["compiles"] == len(pred.buckets),
+          f"serve: warm-up built {warm['compiles']} programs for "
+          f"{len(pred.buckets)} buckets")
+    check(steady == 0 and swap_misses == 0 and direct_misses == 0,
+          f"serve: builds after warm-up: {steady} in the timed loop, "
+          f"{swap_misses} across the swaps, {direct_misses} direct")
+    check(pred.weights_version == 2,
+          f"serve: weights_version {pred.weights_version} after two swaps")
+    # (b): every batcher response against the same request, direct
+    errs = []
+    for s, outs in responses.items():
+        for out in outs:
+            got = out.asnumpy()
+            errs.append(float(np.abs(got - refs[s]).max()))
+            check(np.allclose(got, refs[s], **SERVE_TOL),
+                  f"serve: a batcher response of {s} rows differs from "
+                  f"direct by {errs[-1]}")
+    # (c): the probe after each swap against a fresh predictor's
+    swap_errs = []
+    for weights, got in zip((weights_b, weights_a), probes):
+        want = fresh_predictor(mx, pred, *weights).predict(probe).asnumpy()
+        swap_errs.append(float(np.abs(got - want).max()))
+        check(np.array_equal(got, want),
+              f"serve: the probe after a swap differs from a fresh "
+              f"predictor's by {swap_errs[-1]}")
+    all_lat = sorted(x for per in lat for x in per)
+    return {"requests": total, "rows": rows, "clients": SERVE_CLIENTS,
+            "buckets": list(pred.buckets),
+            "req_per_s": total / wall, "img_per_s": rows / wall,
+            "p50_ms": percentile_ms(all_lat, 50),
+            "p99_ms": percentile_ms(all_lat, 99),
+            "direct_req_per_s": total / direct_wall,
+            "direct_img_per_s": rows / direct_wall,
+            "cold_capture_s": warm["seconds"],
+            "warmup_captures": warm["compiles"],
+            "steady_state_captures": steady,
+            "fill_ratio": fill["rows"] / max(fill["slots"], 1),
+            "swap_req_per_s": total / swap_wall,
+            "swap_dip_depth": dip_depth, "swap_dip_ms": dip_ms,
+            "swap_s": swap_s, "swap_captures": swap_misses,
+            "direct_captures": direct_misses,
+            "weights_version": pred.weights_version,
+            "batcher_vs_direct_max_abs_err": max(errs),
+            "swap_probe_max_abs_err": max(swap_errs)}
+
+
+def serve_graph(pred, bucket):
+    """The captured forward of one bucket of ``pred``."""
+    exec_ = pred._execs[bucket]
+    return next(v for k, v in pred.cache._entries.items() if k[1] is exec_)
+
+
+def serve_full_width(torch, mx, smi, workdir):
+    """The measurement: the model zoo's `resnet50_v1(classes=1000)`, Xavier
+    from seed 0, hybridized, exported, its moving stats drawn by
+    `serve_draw_stats`, served by `Predictor.load` at the default ladder
+    with ``TPU_FUSE`` through `serving_probe`; weights B are Xavier after
+    ``mx.random.seed(99)`` with stats drawn from seed 99. Then each
+    bucket's graph time against its FLOP bound and beside the graph of the
+    same checkpoint served unfused (``MXNET_SUBGRAPH_BACKEND=NONE``), and
+    check (b)'s second half: the direct responses against the unfused
+    symbol's eager forward on the card, over outputs whose spread is at
+    least `SERVE_MIN_STD`. Returns the line and the predictor."""
+    import numpy as np
+
+    vision = mx.gluon.model_zoo.vision
+    prefix = os.path.join(workdir, "resnet50_v1")
+    card = mx.gpu(0)
+    shape = (3, ND_SIZE, ND_SIZE)
+    data_shapes = [("data", (1,) + shape)]
+    net = serve_export(mx, lambda: vision.resnet50_v1(classes=ND_CLASSES),
+                       shape, prefix, 0, card)
+    serve_draw_stats(mx, f"{prefix}-0000.params", 0)
+    mx.random.seed(99)
+    net.initialize(mx.init.Xavier(), ctx=card, force_reinit=True)
+    sym = mx.sym.load(prefix + "-symbol.json")
+    aux_names = set(sym.list_auxiliary_states())
+    params = {k: v.data().asnumpy() for k, v in net.collect_params().items()}
+    weights_b = ({k: v for k, v in params.items() if k not in aux_names},
+                 draw_moving_stats({k: v for k, v in params.items()
+                                    if k in aux_names}, 99))
+    del net
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    pred = mx.serving.Predictor.load(prefix, 0, data_shapes=data_shapes)
+    fused = sum(n.op == "_fused_conv_bn_relu" for n in pred._symbol._nodes())
+    convs = sum(n.op == "Convolution" for n in sym._nodes())
+    check(fused == convs == 53,
+          f"serve: {fused} folded nodes for {convs} convolutions")
+    line = serving_probe(mx, pred, weights_b)
+    peak = torch.cuda.max_memory_allocated()
+    with env_scope({"MXNET_SUBGRAPH_BACKEND": "NONE"}):
+        plain = mx.serving.Predictor.load(prefix, 0, data_shapes=data_shapes)
+    check("BatchNorm" in [n.op for n in plain._symbol._nodes()],
+          "serve: NONE folded the BatchNorms")
+    plain.warmup()
+    per_bucket = []
+    for b in pred.buckets:
+        ms = cuda_ms(serve_graph(pred, b).graph.replay)
+        unfused_ms = cuda_ms(serve_graph(plain, b).graph.replay)
+        flop = symbol_forward_flop(sym, {"data": (b,) + shape})
+        bound = flop / PEAK_FLOPS["float32"] * 1e3
+        per_bucket.append({"bucket": b, "cuda_ms": ms,
+                           "unfused_cuda_ms": unfused_ms,
+                           "fused_over_unfused": ms / unfused_ms,
+                           "flop": flop, "bound_ms": bound,
+                           "bound_by": "operations",
+                           "bound_share": bound / ms,
+                           "img_per_s": b / ms * 1e3})
+    del plain
+    # (b), second half: direct responses against the unfused eager forward
+    _, arg, aux = mx.model.load_checkpoint(prefix, 0)
+    eager_errs, outs = [], []
+    for s, x in serve_payloads(shape).items():
+        args = {k: v.as_in_context(card) for k, v in arg.items()}
+        args["data"] = mx.nd.array(x, ctx=card)
+        ex = sym.bind(card, args=args, aux_states={
+            k: v.as_in_context(card) for k, v in aux.items()},
+            grad_req={"data": "write"})  # not all "null": the eager path
+        want = ex.forward(is_train=False)[0].asnumpy()
+        outs.append(pred.predict(x).asnumpy())
+        err = float(np.abs(outs[-1] - want).max())
+        eager_errs.append(err)
+        check(err <= 1e-4, f"serve: {s} rows differ from the unfused "
+              f"eager forward by {err}")
+    std = output_std(outs)
+    check(std >= SERVE_MIN_STD, f"serve: the outputs' spread is {std}")
+    return {"model": "resnet50_v1", "classes": ND_CLASSES, "image": ND_SIZE,
+            "dtype": "float32", "fused_nodes": fused, **line,
+            "per_bucket": per_bucket,
+            "fused_vs_eager_max_abs_err": max(eager_errs),
+            "out_std": std, "peak_mem_gb": peak / 1e9,
+            "held_before_gb": held / 1e9, "card": smi}, pred
+
+
+def serve_traffic_window(mx, pred, per_client=10):
+    """A function that serves a short window of batcher traffic (the
+    profiled one): `SERVE_CLIENTS` closed-loop clients of ``per_client``
+    requests through a new `DynamicBatcher`, closed at the end, so no
+    worker replays a graph while the profiler starts or stops."""
+    import threading
+
+    payloads = serve_payloads(tuple(pred._data_descs[0].shape[1:]))
+
+    def window():
+        with mx.serving.DynamicBatcher(pred,
+                                       max_wait_ms=SERVE_WAIT_MS) as srv:
+            def client(k):
+                for i in range(per_client):
+                    srv.predict(payloads[SERVE_SIZES[(k + i)
+                                                     % len(SERVE_SIZES)]])
+
+            threads = [threading.Thread(target=client, args=(k,))
+                       for k in range(SERVE_CLIENTS)]
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join()
+
+    return window
+
+
+def serve_mlp(mx):
+    """`bench.py`'s own probe at its own size on the card: the MLP Module
+    through ``as_predictor(buckets=(2, 4, 8, 16))`` and `serving_probe`;
+    weights B Xavier after ``mx.random.seed(99)``."""
+    card = mx.gpu(0)
+    mod = serve_mlp_module(mx, card, seed=0)
+    pred = mod.as_predictor(buckets=SERVE_MLP["buckets"])
+    weights_b = numpy_params(serve_mlp_module(mx, card, seed=99)
+                             .get_params())
+    return {"model": "mlp", **SERVE_MLP, **serving_probe(mx, pred,
+                                                         weights_b)}
+
+
+def serve_card_vs_cpu(mx, workdir):
+    """Check (d): the MLP and the small ResNet v1 (``TPU_FUSE``) served on
+    the card and on the CPU from the same weights give the same outputs,
+    within 1e-5 and 1e-4, and outputs whose spread is at least
+    `SERVE_MIN_STD`."""
+    import numpy as np
+
+    params = numpy_params(serve_mlp_module(mx, mx.cpu(), seed=0)
+                          .get_params())[0]
+    preds = [serve_mlp_module(mx, ctx, params=params)
+             .as_predictor(buckets=SERVE_MLP["buckets"])
+             for ctx in (mx.gpu(0), mx.cpu())]
+    prefix = os.path.join(workdir, "serve_small")
+    serve_small_export(mx, prefix)
+    size = SERVE_SMALL["size"]
+    small = [mx.serving.Predictor.load(
+        prefix, 0, data_shapes=[("data", (1, 3, size, size))],
+        buckets=SERVE_SMALL["buckets"], ctx=ctx)
+        for ctx in (mx.gpu(0), mx.cpu())]
+    out = {}
+    for what, pair, tol, trail in (
+            ("mlp", preds, 1e-5, (SERVE_MLP["dim"],)),
+            ("small_resnet", small, 1e-4, (3, size, size))):
+        errs, outs = [], []
+        for x in serve_payloads(trail).values():
+            card_out, cpu_out = (p.predict(x).asnumpy() for p in pair)
+            outs.append(card_out)
+            errs.append(float(np.abs(card_out - cpu_out).max()))
+            check(errs[-1] <= tol, f"serve {what}: card vs CPU {errs[-1]}")
+        std = output_std(outs)
+        check(std >= SERVE_MIN_STD,
+              f"serve {what}: the outputs' spread is {std}")
+        out[what] = {"max_abs_err": max(errs), "tol": tol, "out_std": std}
+    return out, prefix
+
+
+def serve_cold_bucket(mx, prefix):
+    """Check (e): four threads hitting every bucket of an unwarmed
+    predictor at once make one capture a bucket."""
+    import threading
+
+    import numpy as np
+
+    size = SERVE_SMALL["size"]
+    pred = mx.serving.Predictor.load(
+        prefix, 0, data_shapes=[("data", (1, 3, size, size))],
+        buckets=SERVE_SMALL["buckets"], ctx=mx.gpu(0))
+    start = threading.Barrier(4)
+    errors = []
+
+    def client(k):
+        try:
+            start.wait(timeout=60)
+            for b in pred.buckets[k % 2:] + pred.buckets[:k % 2]:
+                pred.predict(np.ones((b, 3, size, size), np.float32))
+        except Exception as e:  # noqa: BLE001 — raised below
+            errors.append(e)
+
+    threads = [threading.Thread(target=client, args=(k,)) for k in range(4)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    if errors:
+        raise errors[0]
+    captures = sum(p.captures for p in pred.cache.values())
+    check(pred.cache.misses == captures == len(pred.buckets),
+          f"serve cold bucket: {pred.cache.misses} builds, {captures} "
+          f"captures for {len(pred.buckets)} buckets")
+    return {"threads": 4, "builds": pred.cache.misses, "captures": captures}
+
+
+def serve_phase(torch, smi, workdir, profile=False):
+    """Slice 9's path: `serve_full_width` and `serve_mlp`, checks (a)-(c)
+    inside `serving_probe`; then check (d) (`serve_card_vs_cpu`), (e)
+    (`serve_cold_bucket`) and (f): no kernel launches. Returns the line
+    and, when ``profile``, the profile of a window of full-width batcher
+    traffic, taken before the small checks."""
+    import mxnet_tpu_torch as mx
+
+    reset_launches()
+    full, pred = serve_full_width(torch, mx, smi, workdir)
+    mlp = serve_mlp(mx)
+    launches = read_launches()
+    check(not any(launches.values()),
+          f"the serve path launched kernels: {launches}")
+    profiles = {"serve_batcher": profile_step(
+        torch, serve_traffic_window(mx, pred), must_run=("convolution",))} \
+        if profile else {}
+    del pred
+    card_vs_cpu, prefix = serve_card_vs_cpu(mx, workdir)
+    return {"full_width": full, "mlp": mlp, "kernel_launches": launches,
+            "card_vs_cpu": card_vs_cpu,
+            "cold_bucket": serve_cold_bucket(mx, prefix)}, profiles
 
 
 def attention_case(torch, fa, F, *, b, l, h, d, dtype, causal, tol, timed):
@@ -2952,7 +3562,10 @@ def main(argv=None):
         progress("gluon")
         module, module_profiles = module_phase(torch, smi, workdir,
                                                profile=bool(args.profile))
-    progress("module")
+        progress("module")
+        serve, serve_profiles = serve_phase(torch, smi, workdir,
+                                            profile=bool(args.profile))
+    progress("serve")
     kernels = kernels_phase(torch, fa, gcm, {
         "train": train["kernel_launches"],
         "ring": ring["kernel_launches"],
@@ -2960,7 +3573,8 @@ def main(argv=None):
         "generate": generate["kernel_launches"],
         "nd": nd["kernel_launches"],
         "gluon": gluon["kernel_launches"],
-        "module": module["kernel_launches"]})
+        "module": module["kernel_launches"],
+        "serve": serve["kernel_launches"]})
     emit(kernels=kernels)
     emit(train=train, small_reference=small)
     emit(ring=ring, small_reference=small_ring)
@@ -2969,6 +3583,7 @@ def main(argv=None):
     emit(nd=nd)
     emit(gluon=gluon)
     emit(module=module)
+    emit(serve=serve)
     if args.profile:
         def one_more_step(state_of_path):
             _, step, state, tokens, targets = state_of_path
@@ -2987,7 +3602,7 @@ def main(argv=None):
                                              name.startswith("update") else (
                 "convolution", "batchnorm"))
                for name, step in gluon_steps.items()},
-            **module_profiles}
+            **module_profiles, **serve_profiles}
         with open(args.profile, "w") as f:
             json.dump(profiles, f, indent=1)
         emit(profile={"path": args.profile, **{

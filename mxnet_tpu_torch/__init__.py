@@ -38,7 +38,11 @@ path (`mx.sym`: Symbol, its op namespace, shape inference, JSON and the
 captured CUDA graph a signature on a card; checkpoints in `model`;
 `callback`, `monitor`, `AttrScope`; the symbolic ResNet of
 `models.resnet`; `gluon.HybridBlock.export` and `gluon.SymbolBlock`),
-which runs no TPU kernel's port either.
+which runs no TPU kernel's port either; and the serving stack of that path
+(`serving.Predictor`, one captured CUDA graph a batch-size bucket, with
+the ``TPU_FUSE`` conv+BN folding of `symbol.subgraph` / `symbol.fusion`;
+`serving.DynamicBatcher`; `serving.rollout` with live weight swaps;
+`health` probes; `resilience`), which runs no TPU kernel's port either.
 """
 from . import autograd, ndarray, random
 from . import ndarray as nd
@@ -46,6 +50,7 @@ from . import initializer
 from . import initializer as init
 from . import name, lr_scheduler, optimizer, metric, io, gluon
 from . import attribute, symbol, module, model, callback, monitor
+from . import resilience, health, serving
 from . import symbol as sym
 from . import module as mod
 from .attribute import AttrScope
@@ -57,6 +62,7 @@ from .symbol import Symbol
 __all__ = ["nd", "ndarray", "autograd", "random", "initializer", "init",
            "name", "lr_scheduler", "optimizer", "metric", "io", "gluon",
            "attribute", "symbol", "sym", "Symbol", "module", "mod", "model",
-           "callback", "monitor", "AttrScope",
+           "callback", "monitor", "AttrScope", "resilience", "health",
+           "serving",
            "cpu", "gpu", "tpu", "num_gpus", "Context", "current_context",
            "MXNetError", "resolve_device"]

@@ -45,7 +45,8 @@ import torch
 from . import autograd
 from . import random as _random
 from .base import MXNetError
-from .compile_cache import WARMUP_CALLS, CompileCache, collector_held
+from .compile_cache import (WARMUP_CALLS, CompileCache, capture_on,
+                            capture_stream)
 
 __all__ = ["CachedOp"]
 
@@ -127,15 +128,10 @@ class _GraphProgram:
             .requires_grad_(t.requires_grad) for i, t in enumerate(tensors)]
         self.pool = torch.cuda.graph_pool_handle()
         self.gen = _random.generator(self.device)
-        stream = torch.cuda.Stream(self.device)
-        stream.wait_stream(torch.cuda.current_stream(self.device))
-        with collector_held(), torch.cuda.stream(stream):
+        with capture_stream(self.device) as stream:
             self.mutated = self._warm_up()
-            self.fwd_graph = self._graph()
-            with torch.cuda.graph(self.fwd_graph, pool=self.pool,
-                                  stream=stream,
-                                  capture_error_mode="thread_local"):
-                self.static_outs = self._run()
+            self.fwd_graph, self.static_outs = capture_on(
+                stream, self._run, self.pool, self.gen)
             self.diff_outs = [i for i, o in enumerate(self.static_outs)
                               if o.requires_grad]
             self.diff_ins = [i for i, t in enumerate(self.static_ins)
@@ -144,23 +140,15 @@ class _GraphProgram:
             if recording and self.diff_outs and self.diff_ins:
                 self.static_cts = [torch.empty_like(self.static_outs[i])
                                    for i in self.diff_outs]
-                self.bwd_graph = self._graph()
-                with torch.cuda.graph(self.bwd_graph, pool=self.pool,
-                                      stream=stream,
-                                      capture_error_mode="thread_local"):
-                    grads = torch.autograd.grad(
+                self.bwd_graph, grads = capture_on(
+                    stream, lambda: torch.autograd.grad(
                         [self.static_outs[i] for i in self.diff_outs],
                         [self.static_ins[i] for i in self.diff_ins],
-                        self.static_cts, allow_unused=True)
+                        self.static_cts, allow_unused=True),
+                    self.pool, self.gen)
                 self.static_grads = dict(zip(self.diff_ins, grads))
         # the capture's autograd graph has served: keep the buffers only
         self.static_outs = tuple(o.detach() for o in self.static_outs)
-        torch.cuda.current_stream(self.device).wait_stream(stream)
-
-    def _graph(self):
-        graph = torch.cuda.CUDAGraph()
-        graph.register_generator_state(self.gen)
-        return graph
 
     def _run(self):
         """``fn`` on the static inputs, with autograd in the caller's state;

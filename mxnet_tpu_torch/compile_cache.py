@@ -10,9 +10,11 @@ the eager function. Either way `misses` counts builds exactly, and a
 steady state that builds nothing shows as a zero miss delta in
 `named_stats`.
 
-Every CUDA graph of the port is captured under `collector_held` after
-`WARMUP_CALLS` eager calls: `GraphProgram` here, `CachedOp`
-(`_cached_op.py`) and the Module's training step (`symbol/executor.py`).
+Every CUDA graph of the port is captured through `capture` (or, for two
+graphs of one function, `capture_stream` and `capture_on`): on a side
+stream, under `collector_held`, after `WARMUP_CALLS` eager calls.
+`GraphProgram` here, `CachedOp` (`_cached_op.py`), and the Module's
+training step and the inference forward (`symbol/executor.py`) use it.
 """
 from __future__ import annotations
 
@@ -24,7 +26,7 @@ import numpy as np
 import torch
 
 __all__ = ["CompileCache", "GraphProgram", "named_stats", "collector_held",
-           "WARMUP_CALLS"]
+           "capture", "capture_stream", "capture_on", "WARMUP_CALLS"]
 
 # eager calls on a side stream before a capture: the lazy set-up (cuDNN's
 # algorithm choice, workspaces, autograd's stream state) that a capture
@@ -47,6 +49,51 @@ def collector_held():
     finally:
         if enabled:
             gc.enable()
+
+
+@contextlib.contextmanager
+def capture_stream(device):
+    """The side stream a capture runs on, current inside the block: it
+    waits for the current stream first, Python's collector is held
+    (`collector_held`) inside, and the current stream waits for it at the
+    end, even when the block raises. Eager warm-up calls run inside, before
+    `capture_on`."""
+    device = torch.device(device)
+    stream = torch.cuda.Stream(device)
+    stream.wait_stream(torch.cuda.current_stream(device))
+    try:
+        with collector_held(), torch.cuda.stream(stream):
+            yield stream
+    finally:
+        torch.cuda.current_stream(device).wait_stream(stream)
+
+
+def capture_on(stream, fn, pool=None, generator=None):
+    """``fn()`` captured on ``stream`` (from `capture_stream`) as one CUDA
+    graph in the memory pool ``pool`` (None: a private one), with
+    ``generator``'s state registered when given. Returns ``(graph, what
+    fn returned)``. A capture that fails raises."""
+    graph = torch.cuda.CUDAGraph()
+    if generator is not None:
+        graph.register_generator_state(generator)
+    with torch.cuda.graph(graph, pool=pool, stream=stream,
+                          capture_error_mode="thread_local"):
+        out = fn()
+    return graph, out
+
+
+def capture(fn, device, pool=None, generator=None, warm_up=None):
+    """``fn()`` captured as one CUDA graph on ``device``: `WARMUP_CALLS`
+    eager calls of ``fn`` (or one call of ``warm_up`` in their place) and
+    the capture, all on a side stream (`capture_stream`). Returns
+    ``(graph, what fn returned)``, as `capture_on`."""
+    with capture_stream(device) as stream:
+        if warm_up is None:
+            for _ in range(WARMUP_CALLS):
+                fn()
+        else:
+            warm_up()
+        return capture_on(stream, fn, pool, generator)
 
 
 # `named_stats(name)` must answer "did steady state build anything?" with
@@ -156,16 +203,7 @@ class GraphProgram:
         return self.outputs[0].cpu().numpy()
 
     def _capture(self):
-        stream = torch.cuda.Stream(self.device)
-        stream.wait_stream(torch.cuda.current_stream(self.device))
-        graph = torch.cuda.CUDAGraph()
-        with collector_held(), torch.inference_mode():
-            with torch.cuda.stream(stream):
-                for _ in range(WARMUP_CALLS):
-                    self.fn(*self._inputs)
-            with torch.cuda.graph(graph, pool=self._pool, stream=stream,
-                                  capture_error_mode="thread_local"):
-                outputs = self.fn(*self._inputs)
-        torch.cuda.current_stream(self.device).wait_stream(stream)
-        self.graph, self.outputs = graph, outputs
+        with torch.inference_mode():
+            self.graph, self.outputs = capture(
+                lambda: self.fn(*self._inputs), self.device, self._pool)
         self.captures += 1

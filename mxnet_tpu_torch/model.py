@@ -140,7 +140,9 @@ def save_checkpoint(prefix, epoch, symbol, arg_params, aux_params,
     """Write ``prefix-symbol.json`` and ``prefix-####.params`` (parity
     model.py:394). ``keep`` (or `MXNET_CHECKPOINT_KEEP`) bounds retention:
     after a save that reads back whole, only the newest ``keep`` epoch
-    files stay."""
+    files stay. With ``MXNET_ROLLOUT_DIR`` set, the epoch is also published
+    there as rollout version ``epoch`` (`serving.rollout`); a publish
+    failure is logged, never raised."""
     if symbol is not None:
         symbol.save(f"{prefix}-symbol.json", remove_amp_cast=remove_amp_cast)
     save_dict = {f"arg:{k}": v.as_in_context(_cpu())
@@ -157,6 +159,12 @@ def save_checkpoint(prefix, epoch, symbol, arg_params, aux_params,
                    if old not in survivors]
         if victims:
             _evict_old_epochs(victims, cur_path)
+    if str(getenv("MXNET_ROLLOUT_DIR") or "").strip():
+        # train -> serve streaming: every checkpoint also becomes a rollout
+        # version; a publish failure never reaches the training loop
+        from .serving import rollout
+
+        rollout.publish_checkpoint(prefix, epoch, arg_params, aux_params)
 
 
 def _evict_old_epochs(old_paths, new_path):

@@ -16,9 +16,9 @@ returns copies.
 
 Not ported yet (ROADMAP.md queue A, item 5): the bucketed gradient sync
 (the kvstore branch here syncs key by key), the fused step's ZeRO-1,
-pipeline and SPMD variants, the `MXNET_OVERLAP` staging lane
-(`stage_batch`, `retire_staged`), and `as_predictor`, which raises until
-`serving.Predictor` is ported (item 7).
+pipeline and SPMD variants, and the `MXNET_OVERLAP` staging lane
+(`stage_batch`, `retire_staged`). `as_predictor` serves the module's
+weights through `serving.Predictor`.
 """
 from __future__ import annotations
 
@@ -438,9 +438,16 @@ class Module(BaseModule):
             self._updater.set_states(f.read())
 
     def as_predictor(self, buckets=None, **kwargs):
-        raise NotImplementedError(
-            "Module.as_predictor needs serving.Predictor, which is not "
-            "ported yet (ROADMAP.md queue A, item 7)")
+        """This module's trained weights behind a thread-safe
+        `serving.Predictor` on the module's context: one bucket executor
+        per batch size (one captured graph each on a card), `warmup()`,
+        and dynamic batching when wrapped in a `serving.DynamicBatcher`.
+        The Predictor takes COPIES of the current parameters
+        (`get_params`), so training this module further never changes a
+        live server."""
+        from ..serving import Predictor
+
+        return Predictor.from_module(self, buckets=buckets, **kwargs)
 
     def install_monitor(self, mon):
         assert self.binded

@@ -20,6 +20,7 @@ import numpy as _np
 
 from ..base import MXNetError, _DTYPE_MX_TO_NP, _DTYPE_NP_TO_MX, getenv, \
     register_env
+from ..resilience import CorruptCheckpointError
 
 __all__ = ["save", "load", "CorruptCheckpointError"]
 
@@ -28,11 +29,6 @@ _VERSION = 1  # 0 = reference layout, 1 = + per-array CRC footers
 
 register_env("MXNET_CHECKPOINT_VERIFY", True,
              "verify per-array CRC32 footers on load")
-
-
-class CorruptCheckpointError(MXNetError):
-    """A saved array file failed integrity verification (bad CRC, short
-    read, or torn payload)."""
 
 
 def _as_numpy(arr):

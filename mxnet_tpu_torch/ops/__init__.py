@@ -16,6 +16,7 @@ from . import linalg         # noqa: F401
 from . import init_ops       # noqa: F401
 from . import nn             # noqa: F401
 from . import optimizer_ops  # noqa: F401
+from . import subgraph_ops   # noqa: F401
 
 # legacy v1 op names (reference `convolution_v1.cc` / `pooling_v1.cc`)
 registry.alias("Convolution_v1", "Convolution")

@@ -1,13 +1,16 @@
 """Admission control: a bounded request queue with backpressure.
 
-The port of `mxnet_tpu/serving/admission.py`, cut to what the generation
-engine uses: the serving errors, `Request` and the FIFO `AdmissionQueue`
-with its synchronous `QueueFullError` bound (`MXNET_SERVING_MAX_QUEUE`),
-the per-tick deadline sweep (`expire`) and the graceful drain (`close`:
-`ServerClosedError` for new work, queued work still handed out). Not
-ported: the QoS ordering and quotas, the blocking batch flush of the
-request-level batcher (`get_batch`, request splitting), telemetry and the
-health journal.
+The port of `mxnet_tpu/serving/admission.py`: the serving errors,
+`Request` and the FIFO `AdmissionQueue` with its synchronous
+`QueueFullError` bound (`MXNET_SERVING_MAX_QUEUE`), the flush policy of
+the request-level batcher (`get_batch`: a full largest bucket, or the
+oldest request's wait; the boundary request split so a full flush is
+exactly full), the non-blocking pop of an assisting caller and of the
+generation engine (`get_batch_nowait`), the per-tick deadline sweep
+(`expire`) and the graceful drain (`close`: `ServerClosedError` for new
+work, queued work still handed out). Not ported yet (ROADMAP.md queue A,
+items 6.3 and 9): the QoS ordering and quotas, telemetry and the health
+journal.
 """
 from __future__ import annotations
 
@@ -46,23 +49,46 @@ class ServerClosedError(ServingError):
 class Request:
     """One admitted request: its input arrays, its row count and the future
     that delivers its result. ``deadline`` is an absolute
-    ``time.monotonic()`` instant or None; ``payload`` is the owner's (a
-    generation session)."""
+    ``time.monotonic()`` instant or None; ``enqueued_at`` is stamped at
+    construction and drives the flush timer; ``payload`` is the owner's (a
+    generation session).
 
-    __slots__ = ("arrays", "rows", "future", "deadline", "payload")
+    A request may be SPLIT at a batch boundary (`AdmissionQueue._split`)
+    so that every max-batch flush is exactly full: the popped head piece
+    points back at the original through ``parent`` and ``offset``, and the
+    original is cut down to its tail rows in place (keeping its queue
+    position, future and enqueue time). The batcher reassembles the pieces
+    by offset before it resolves the future. ``tenant`` is accepted and
+    ignored until the QoS lanes are ported (ROADMAP.md queue A, item 6.3).
+    """
 
-    def __init__(self, arrays, rows, future, deadline=None, payload=None):
+    __slots__ = ("arrays", "rows", "future", "deadline", "enqueued_at",
+                 "parent", "offset", "total_rows", "parts", "payload",
+                 "tenant")
+
+    def __init__(self, arrays, rows, future, deadline=None, payload=None,
+                 tenant=None):
         self.arrays = arrays
         self.rows = int(rows)
         self.future = future
         self.deadline = deadline
         self.payload = payload
+        self.tenant = tenant
+        self.enqueued_at = time.monotonic()
+        self.parent = None          # set on split-off head pieces
+        self.offset = 0             # row offset within the original request
+        self.total_rows = self.rows  # original size (pieces keep parent's)
+        self.parts = None           # on the original: delivered pieces
+
+    @property
+    def origin(self):
+        """The request whose future this piece resolves (itself, unless
+        split off)."""
+        return self.parent if self.parent is not None else self
 
 
 class AdmissionQueue:
-    """Bounded FIFO of :class:`Request`. Requests are handed out whole, in
-    the order they came; one whose future already resolved is dropped
-    unrun."""
+    """Bounded FIFO of :class:`Request` with the batch-flush wait logic."""
 
     def __init__(self, max_depth=None):
         self._max_depth = int(getenv("MXNET_SERVING_MAX_QUEUE")
@@ -71,8 +97,15 @@ class AdmissionQueue:
             raise MXNetError("serving queue depth must be >= 1, got "
                              f"{self._max_depth}")
         self._q = collections.deque()
+        self._rows = 0
         self._cond = threading.Condition()
         self._closed = False
+        # set (by the batcher, under its assist lock) while a blocking
+        # caller drains inline: put() then skips the worker wake-up, since
+        # the assistant pops the request anyway and a woken worker would
+        # only convoy with it on the interpreter lock. The assistant kick()s
+        # the worker for anything it leaves behind.
+        self.assist_active = False
 
     def __len__(self):
         with self._cond:
@@ -99,36 +132,80 @@ class AdmissionQueue:
                     f"{self._max_depth} requests); shed load or raise "
                     "MXNET_SERVING_MAX_QUEUE")
             self._q.append(req)
-            self._cond.notify()
+            self._rows += req.rows
+            if not self.assist_active:
+                self._cond.notify()
 
     def kick(self):
-        """Wake every waiter on the queue."""
+        """Wake the worker (an exiting assistant calls this so requests it
+        left queued are not stranded behind a skipped notify)."""
         with self._cond:
             self._cond.notify_all()
 
-    def get_batch_nowait(self, max_rows):
-        """Pop whole requests, oldest first, while their rows fit in
-        `max_rows` (the first whatever its size: the port never splits a
-        request), without blocking. Returns ``(requests, reason)``,
-        reason ``"inline"`` (``"drain"`` once closed), or ``(None, None)``
-        when nothing is queued."""
+    def get_batch(self, max_rows, max_wait_s):
+        """Block until a flushable batch is ready and pop it.
+
+        Returns ``(requests, reason)``, reason ``"full"`` (queued rows
+        reached ``max_rows``), ``"timeout"`` (the oldest request waited
+        ``max_wait_s``) or ``"drain"`` (queue closed, handing out the
+        rest), or ``(None, None)`` once closed AND empty: the worker's exit
+        signal. The pop is FIFO in row order (`_pop`)."""
         with self._cond:
-            out, rows = [], 0
-            while self._q:
-                req = self._q[0]
-                if req.future.done():
-                    self._q.popleft()
-                    continue
-                if out and rows + req.rows > max_rows:
-                    break
-                self._q.popleft()
-                out.append(req)
-                rows += req.rows
-                if rows >= max_rows:
-                    break
+            while True:
+                while not self._q and not self._closed:
+                    self._cond.wait()
+                if not self._q:
+                    return None, None  # closed and drained
+                if self._closed:
+                    reason = "drain"
+                elif self._rows >= max_rows:
+                    reason = "full"
+                else:
+                    remaining = (self._q[0].enqueued_at + max_wait_s
+                                 - time.monotonic())
+                    if remaining > 0:
+                        self._cond.wait(timeout=remaining)
+                        continue
+                    reason = "timeout"
+                out = self._pop(max_rows)
+                if out:
+                    return out, reason
+                # everything queued was already-failed pieces: wait again
+
+    def get_batch_nowait(self, max_rows):
+        """Non-blocking pop for an assisting caller or the generation
+        engine: whatever is queued right now, reason ``"inline"``
+        (``"drain"`` once closed), or ``(None, None)`` when the queue is
+        empty."""
+        with self._cond:
+            out = self._pop(max_rows)
             if not out:
                 return None, None
             return out, ("drain" if self._closed else "inline")
+
+    def _pop(self, max_rows):
+        """FIFO row-order pop under the held condition: whole requests
+        while they fit, the boundary request split at ``max_rows``; pieces
+        of a request whose future already resolved (an earlier piece
+        failed) are dropped unrun."""
+        out, rows = [], 0
+        while self._q and rows < max_rows:
+            req = self._q[0]
+            if req.origin.future.done():
+                self._q.popleft()
+                self._rows -= req.rows
+                continue
+            if rows + req.rows <= max_rows:
+                self._q.popleft()
+                self._rows -= req.rows
+                rows += req.rows
+                out.append(req)
+            else:
+                k = max_rows - rows
+                out.append(self._split(req, k))
+                self._rows -= k
+                rows += k
+        return out
 
     def expire(self, now=None):
         """Remove and return every queued request whose deadline has passed
@@ -139,10 +216,27 @@ class AdmissionQueue:
         with self._cond:
             expired = [r for r in self._q
                        if r.deadline is not None and now >= r.deadline
-                       and not r.future.done()]
+                       and not r.origin.future.done()]
             for r in expired:
                 self._q.remove(r)
+                self._rows -= r.rows
         return expired
+
+    @staticmethod
+    def _split(req, k):
+        """Carve the first ``k`` rows of ``req`` into a piece pointing back
+        at the original; ``req`` keeps the tail in place (same future,
+        deadline and enqueue time)."""
+        head = Request([a[0:k] for a in req.arrays], k, req.future,
+                       deadline=req.deadline, tenant=req.tenant)
+        head.enqueued_at = req.enqueued_at
+        head.parent = req.origin
+        head.offset = req.offset
+        head.total_rows = req.total_rows
+        req.arrays = [a[k:] for a in req.arrays]
+        req.rows -= k
+        req.offset += k
+        return head
 
     def close(self):
         """Stop admitting; wake every waiter so the worker can drain."""

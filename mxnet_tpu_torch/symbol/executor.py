@@ -13,6 +13,13 @@ optimizer states, and the optimizer's static key) and replayed at every
 later step: one host launch where the JAX package runs one jitted XLA
 program (`executor.py:336`). On the CPU it runs eagerly.
 
+An inference forward (``forward(is_train=False)`` of an executor whose
+every ``grad_req`` is ``"null"``, as `Module.bind(for_training=False)` and
+the serving `Predictor` bind it) is built once for each signature through
+the executor's ``_cache``: on a card one CUDA graph over the bound argument
+and aux tensors, replayed at every later forward, where the JAX package
+jits one XLA program (`executor.py:223`); on the CPU the eager function.
+
 The arrays stay where they are: `set_args` copies a batch into the bound
 tensors, the fused update writes the weights, momenta and moving stats in
 place, and an array rebound to another tensor since a capture is copied
@@ -25,7 +32,7 @@ import torch
 
 from .. import random as _random
 from ..base import MXNetError
-from ..compile_cache import WARMUP_CALLS, CompileCache, collector_held
+from ..compile_cache import WARMUP_CALLS, CompileCache, capture
 from ..context import Context, current_context
 from ..ndarray.register import _op_attr_params
 from ..ops import registry as _reg
@@ -150,9 +157,15 @@ class Executor:
         self._vjp = None
         self._monitor_callback = None
         self._fns = {}
-        # the training steps, one for each signature (captured graphs on a
-        # card): a miss after warm-up is a capture the run did not expect
+        # the training steps and the inference forwards, one for each
+        # signature (captured graphs on a card): a miss after warm-up is a
+        # capture the run did not expect. A serving Predictor points
+        # ``_cache`` at its own "serving" cache, and ``_graph_pool`` (the
+        # memory pool of the inference graphs; None: a private one each)
+        # at one pool for all its buckets
         self._steps = CompileCache("executor")
+        self._cache = CompileCache("executor")
+        self._graph_pool = None
 
     # -- helpers -------------------------------------------------------------
 
@@ -223,6 +236,16 @@ class Executor:
         self._vjp = None  # the last forward's graph can go
         self.set_args(**kwargs)
         train = bool(is_train)
+        if not train and all(r == "null" for r in self._grad_req.values()):
+            sig = tuple((n, a.shape, a._data.dtype) for n, a in
+                        (*self.arg_dict.items(), *self.aux_dict.items()))
+            # the executor is part of the key: a shared cache's program
+            # replays over the tensors of the executor that built it
+            fwd = self._cache.get_or_build(("fwd", self, sig),
+                                           lambda: _Inference(self))
+            self.outputs = [NDArray(o) for o in fwd()]
+            self._monitor(self.outputs)
+            return self.outputs
         diff = [n for n in self._arg_names
                 if self._grad_req.get(n, "null") != "null"] if train else []
         leaves = {n: self.arg_dict[n]._data.detach().requires_grad_()
@@ -241,10 +264,13 @@ class Executor:
         if diff:
             self._vjp = (outputs, diff, [leaves[n] for n in diff])
         self.outputs = [NDArray(o.detach()) for o in outputs]
-        if self._monitor_callback is not None:
-            for name, out in zip(self._symbol.list_outputs(), self.outputs):
-                self._monitor_callback(name, out)
+        self._monitor(self.outputs)
         return self.outputs
+
+    def _monitor(self, outputs):
+        if self._monitor_callback is not None:
+            for name, out in zip(self._symbol.list_outputs(), outputs):
+                self._monitor_callback(name, out)
 
     def backward(self, out_grads=None, is_train=True):
         """The gradients of the last training forward's outputs (ones by
@@ -511,27 +537,23 @@ class _FusedStep:
                                  device=self.device)
         written = list(params) + list(auxs) + \
             [t for s in states for t in _leaves(s)]
-        stream = torch.cuda.Stream(self.device)
-        stream.wait_stream(torch.cuda.current_stream(self.device))
-        graph = torch.cuda.CUDAGraph()
-        graph.register_generator_state(_random.generator(self.device))
-        with collector_held(), torch.cuda.stream(stream):
+
+        def run():
+            return self.step(params, others, auxs, states, self.hyper)
+
+        def warm_up():
             saved = [t.detach().clone() for t in written]
             try:
                 for _ in range(WARMUP_CALLS):
-                    self.step(params, others, auxs, states, self.hyper)
+                    run()
             finally:
                 with torch.no_grad():
                     for t, s in zip(written, saved):
                         t.copy_(s)
-            del saved
-            with torch.cuda.graph(graph, pool=torch.cuda.graph_pool_handle(),
-                                  stream=stream,
-                                  capture_error_mode="thread_local"):
-                self.outputs = self.step(params, others, auxs, states,
-                                         self.hyper)
-        torch.cuda.current_stream(self.device).wait_stream(stream)
-        self.graph = graph
+
+        self.graph, self.outputs = capture(
+            run, self.device, generator=_random.generator(self.device),
+            warm_up=warm_up)
         self.captures += 1
 
     def __call__(self, bound, hyper):
@@ -545,3 +567,49 @@ class _FusedStep:
                          .pin_memory(), non_blocking=True)
         self.graph.replay()
         return [o.clone() for o in self.outputs]
+
+
+class _Inference:
+    """One signature's inference forward: the eager graph function on the
+    CPU; on a card, that function captured as ONE CUDA graph over the bound
+    argument and aux tensors after `WARMUP_CALLS` eager runs on a side
+    stream (it writes nothing, so nothing is undone), in the memory pool
+    ``ex._graph_pool``. A replay reads the
+    bound tensors where they lie: `set_args` and `Predictor.swap_weights`
+    write into them, and an array rebound since the capture is copied into
+    the captured tensor first and bound to it again. Each call returns
+    copies of the outputs, enqueued right after the replay, so the next
+    replay cannot overwrite what a caller holds. A capture that fails
+    raises; nothing falls back to eager calls."""
+
+    def __init__(self, ex):
+        fn = ex._fn(False)
+        self.arrays = ([ex.arg_dict[n] for n in ex._arg_names],
+                       [ex.aux_dict[n] for n in ex._aux_names])
+        self.static = tuple([a._data for a in g] for g in self.arrays)
+        self.device = ex._device
+        self.pool = ex._graph_pool
+        self.run = lambda: fn(*self.static)[0]
+        self.graph = None
+        self.captures = 0
+        if self.device.type == "cuda":
+            self._capture()
+
+    def _capture(self):
+        with torch.no_grad():
+            self.graph, self.outputs = capture(
+                self.run, self.device, self.pool,
+                _random.generator(self.device))
+        self.captures += 1
+
+    def __call__(self):
+        with torch.no_grad():
+            if self.graph is None:
+                return list(self.run())
+            for group, s_group in zip(self.arrays, self.static):
+                for arr, s in zip(group, s_group):
+                    if arr._data is not s:
+                        s.copy_(arr._data)
+                        arr._data = s
+            self.graph.replay()
+            return [o.clone() for o in self.outputs]

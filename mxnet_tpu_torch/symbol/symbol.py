@@ -16,7 +16,6 @@ from __future__ import annotations
 import ast
 import inspect
 import json
-import os
 
 import numpy as _np
 
@@ -370,13 +369,42 @@ class Symbol:
 
     # -- binding -------------------------------------------------------------
 
+    def get_backend_symbol(self, backend):
+        """This symbol rewritten by a registered subgraph backend (reference
+        symbol.py get_backend_symbol -> MXGenBackendSubgraph)."""
+        from .subgraph import build_subgraph
+
+        return build_subgraph(self, backend)
+
     def bind(self, ctx=None, args=None, args_grad=None, grad_req="write",
              aux_states=None, group2ctx=None, shared_exec=None):
         from .executor import Executor
+        from .subgraph import apply_env_backend
 
-        return Executor(apply_env_backend(self), ctx, args=args,
-                        args_grad=args_grad, grad_req=grad_req,
-                        aux_states=aux_states)
+        new_sym = apply_env_backend(self)
+        if new_sym is not self:
+            # a rewrite may move values between the arg and aux roles
+            # (TPU_FUSE makes BatchNorm's moving stats arguments of the
+            # folded node): split the caller's values again by the new
+            # symbol's lists
+            pool = {}
+            for given, names in ((args, self.list_arguments()),
+                                 (aux_states,
+                                  self.list_auxiliary_states())):
+                if isinstance(given, dict):
+                    pool.update(given)
+                elif isinstance(given, (list, tuple)):
+                    pool.update(zip(names, given))
+            if pool:
+                args = {n: pool[n] for n in new_sym.list_arguments()
+                        if n in pool}
+                aux_states = {n: pool[n]
+                              for n in new_sym.list_auxiliary_states()
+                              if n in pool}
+            if isinstance(args_grad, (list, tuple)):
+                args_grad = dict(zip(self.list_arguments(), args_grad))
+        return Executor(new_sym, ctx, args=args, args_grad=args_grad,
+                        grad_req=grad_req, aux_states=aux_states)
 
     def simple_bind(self, ctx=None, grad_req="write", type_dict=None,
                     stype_dict=None, group2ctx=None, shared_arg_names=None,
@@ -386,6 +414,7 @@ class Symbol:
         bind (reference symbol.py:1376)."""
         from ..ndarray import zeros
         from .executor import Executor
+        from .subgraph import apply_env_backend
 
         sym = apply_env_backend(self)
         arg_shapes, _, aux_shapes = sym.infer_shape(**kwargs)
@@ -415,18 +444,6 @@ class Symbol:
             ins = ", ".join(f"{c.name}[{oi}]" for c, oi in n.inputs)
             lines.append(f"{kind} {n.name} <- [{ins}]")
         return "\n".join(lines)
-
-
-def apply_env_backend(symbol):
-    """The bind-time hook of `MXNET_SUBGRAPH_BACKEND`. The port has no
-    subgraph backend yet (ROADMAP.md queue A, item 5), so a variable that
-    names one raises instead of binding the graph unrewritten."""
-    backend = os.environ.get("MXNET_SUBGRAPH_BACKEND")
-    if not backend or backend in ("NONE", "0"):
-        return symbol
-    raise NotImplementedError(
-        f"MXNET_SUBGRAPH_BACKEND={backend!r}: the port has no subgraph "
-        "backend yet (ROADMAP.md queue A, item 5); unset it or set NONE")
 
 
 def _attr_to_str(v):
@@ -692,6 +709,14 @@ def _embed_rule(node, dsh):
     return {1: (int(node.attrs["input_dim"]), int(node.attrs["output_dim"]))}
 
 
+def _fused_conv_rule(node, dsh):
+    per = {1: _conv_rule(node, dsh)[1]}
+    nf = int(node.attrs.get("num_filter"))
+    for i in range(2, 7):  # bias, gamma, beta, moving_mean, moving_var
+        per[i] = (nf,)
+    return per
+
+
 def _prelu_rule(node, dsh):
     if node.attrs.get("act_type", "leaky") == "prelu":
         return {1: (dsh[1] if len(dsh) > 1 else 1,)}
@@ -717,6 +742,7 @@ _PARAM_SHAPE_RULES = {
     "InstanceNorm": _rule(_in_rule),
     "Embedding": _rule(_embed_rule),
     "LeakyReLU": _rule(_prelu_rule),
+    "_fused_conv_bn_relu": _rule(_fused_conv_rule),
 }
 
 

@@ -1,7 +1,8 @@
 """Every CUDA-graph capture of the port runs with Python's cyclic collector
-held off (`compile_cache.collector_held`): `GraphProgram` (the generation
-engine's programs), `CachedOp` (hybridize) and the Module's training step
-(`symbol/executor.py`). A collection during a capture can destroy a dead
+held off (`compile_cache.capture`, under `collector_held`): `GraphProgram`
+(the generation engine's programs), `CachedOp` (hybridize), the Module's
+training step and the inference forward of a ``grad_req="null"``
+executor, each serving bucket's (`symbol/executor.py`). A collection during a capture can destroy a dead
 program's graph, which invalidates the capture (`PERF.md` §6).
 
 There is no card here, so `torch.cuda`'s stream and graph calls are
@@ -158,3 +159,68 @@ def test_module_step_binds_rebound_arrays_to_the_captured_ones(captures):
     np.testing.assert_array_equal(weight.asnumpy(), 2.0)
     for i, s in zip(indices, states):
         assert updater.states[i] is s[0]
+
+
+def test_inference_forward_captures_with_the_collector_off(captures):
+    """The inference forward of a ``grad_req="null"`` executor (each
+    serving bucket's): captured with the collector held off over the bound
+    tensors; an array rebound since the capture is copied into the
+    captured tensor and bound to it again before the replay; each call
+    returns copies of the static outputs."""
+    with mx.name.NameManager():
+        fc = mx.sym.FullyConnected(mx.sym.Variable("data"), num_hidden=3,
+                                   name="fc")
+    ex = fc.simple_bind(CPU, grad_req="null", data=(2, 4))
+    ex.copy_params_from({"fc_weight": np.ones((3, 4), np.float32)})
+    fwd = executor_mod._Inference(ex)
+    assert fwd.graph is None  # on the CPU it runs eagerly
+    fwd._capture()
+    assert captures == [False] and fwd.captures == 1
+    assert fwd.graph.generators
+    weight = ex.arg_dict["fc_weight"]
+    captured = weight._data
+    weight._data = torch.full((3, 4), 2.0)  # a rebind
+    ex.arg_dict["data"]._data.copy_(torch.ones(2, 4))
+    fwd.outputs = [fwd.run()[0] * 0 + 7]  # what a replay leaves behind
+    out = fwd()
+    assert weight._data is captured
+    np.testing.assert_array_equal(captured.numpy(), 2.0)
+    assert out[0] is not fwd.outputs[0]
+    np.testing.assert_array_equal(out[0].numpy(), 7.0)
+
+
+def test_inference_forward_captures_into_the_executor_pool(captures,
+                                                           monkeypatch):
+    """A Predictor gives all its bucket executors one memory pool
+    (``_graph_pool``); the inference capture passes it to the graph."""
+    pools = []
+    graph = torch.cuda.graph
+
+    def recording(g, pool=None, stream=None, capture_error_mode=None):
+        pools.append(pool)
+        return graph(g, pool, stream, capture_error_mode)
+
+    monkeypatch.setattr(torch.cuda, "graph", recording)
+    with mx.name.NameManager():
+        fc = mx.sym.FullyConnected(mx.sym.Variable("data"), num_hidden=3,
+                                   name="fc")
+    shared = object()
+    for rows in (2, 4):
+        ex = fc.simple_bind(CPU, grad_req="null", data=(rows, 4))
+        ex._graph_pool = shared
+        executor_mod._Inference(ex)._capture()
+    assert pools == [shared, shared] and captures == [False, False]
+
+
+def test_capture_stream_waits_back_when_the_block_raises(captures,
+                                                         monkeypatch):
+    """The current stream waits for the side stream, and the collector is
+    back on, even when a warm-up call inside raises."""
+    waits = []
+    monkeypatch.setattr(_Stream, "wait_stream",
+                        lambda self, other: waits.append(other))
+    with pytest.raises(RuntimeError, match="warm-up"):
+        with compile_cache.capture_stream("cpu"):
+            assert not gc.isenabled()
+            raise RuntimeError("warm-up")
+    assert len(waits) == 2  # the side stream on the current, and back

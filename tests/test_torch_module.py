@@ -335,8 +335,10 @@ def test_fused_step_gate_declines_like_jax(monkeypatch):
     with pytest.raises(NotImplementedError, match="zero1"):
         m._exec.fused_step(m._optimizer, m._updater, m._param_names,
                            zero1=object())
-    with pytest.raises(NotImplementedError, match="item 7"):
-        m.as_predictor()
+    # as_predictor serves the module's weights (it raised before the
+    # serving stack was ported)
+    out = m.as_predictor(buckets=(8,)).predict(np.zeros((2, 8), np.float32))
+    assert out.shape == (2, 4)
 
 
 def test_fused_step_leaves_counts_after_a_failure():

@@ -277,12 +277,23 @@ def test_without_a_card_binding_needs_the_cpu():
 
 
 def test_subgraph_backend_variable_raises(monkeypatch):
-    sym = _build(mx, _mlp)
-    monkeypatch.setenv("MXNET_SUBGRAPH_BACKEND", "TPU_FUSE")
-    with pytest.raises(NotImplementedError, match="subgraph backend"):
-        sym.simple_bind(CPU, data=(8, 10), softmax_label=(8,))
-    monkeypatch.setenv("MXNET_SUBGRAPH_BACKEND", "NONE")
-    sym.simple_bind(CPU, data=(8, 10), softmax_label=(8,))
+    """`MXNET_SUBGRAPH_BACKEND` no longer raises: a registered backend
+    rewrites the graph at bind time, an unknown one (or NONE) leaves it as
+    it is, as in the JAX package (`subgraph.py:323-331`)."""
+    with mx.name.NameManager():
+        conv = mx.sym.Convolution(mx.sym.var("data"), kernel=(3, 3),
+                                  num_filter=4, name="conv")
+        sym = mx.sym.BatchNorm(conv, name="bn")
+
+    def ops(backend):
+        monkeypatch.setenv("MXNET_SUBGRAPH_BACKEND", backend)
+        ex = sym.simple_bind(CPU, data=(2, 3, 6, 6))
+        return {n.op for n in ex._symbol._nodes() if n.op}
+
+    assert "_fused_conv_bn_relu" in ops("TPU_FUSE")
+    assert "BatchNorm" not in ops("TPU_FUSE")
+    assert "BatchNorm" in ops("NO_SUCH_BACKEND")
+    assert "BatchNorm" in ops("NONE")
 
 
 def test_unknown_argument_and_grouped_input_raise():
