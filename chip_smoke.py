@@ -43,6 +43,33 @@ Phases, each printed as one JSON line:
            time against its bound (the slab and the weights read once a
            tick), each prefill bucket's graph time, peak memory, and the
            card's name and power limit;
+  generate_spec, generate_prefix, generate_swap, generate_router
+           slice 10's lanes, right after the generate phase, over its model
+           and a 32 x 2048 slab each (`generate_lanes`). spec: the burst
+           through `spec_k=4` with `NgramDraft` (bench.py's), then with a
+           `CheckpointDraft` that is the target itself (max_len 2056),
+           saved by `save_draft` and loaded through
+           ``MXNET_GENERATION_DRAFT``; both runs' streams must equal the
+           plain burst's; prints tokens/s, accepted tokens a verify
+           slot-tick, the share of slot-ticks that commit all k + 1, the
+           verify graph against 5 x the decode graph, the draft step, the
+           wall against the plain burst's. prefix: 64 sessions sharing a
+           1024-token system prompt (tails of 16-256 tokens), submitted one
+           at a time, then as a burst; fork + suffix prefill against the
+           full prefill at three splits (logits within 2e-2, equal argmax),
+           a hit ratio of at least 63/64; prints the TTFT of hits against
+           the cold one, the fork graph against its byte bound, each suffix
+           bucket's graph, the burst's tokens/s. swap: the burst's prompts
+           from 16 closed-loop clients, `swap_weights` to seed-99 weights
+           and back at 30 % and 65 % of the completions; every stream must
+           equal its prompt's under the version it was admitted under, some
+           tick must replay two cohorts, the old version's prefix entries
+           must be gone; prints each swap's ms under the tick lock. router:
+           two 16-slot engines behind a `GenerationRouter`, two 1024-token
+           system prompts; each prompt's later sessions must land on the
+           engine caching it, 16 unrelated prompts split evenly. Every lane:
+           no capture after warm-up, no kernel launched; check (d) also
+           runs the lanes on the small model, card against CPU;
   nd       slice 6's path, after the trainer: `resnet50_v1_nd`, a ResNet-50
            v1 train step written only with `mx.nd` ops and `mx.autograd`
            (the same function the CPU test runs on the JAX package), at full
@@ -669,8 +696,9 @@ def profile_ticks(torch, eng, prompts):
 
 def generate_phase(torch, card, profile=False):
     """Slice 5's path: `GenerationEngine` over the default model with a
-    32 x 2048 slab, served by its worker thread. Returns the result and,
-    when `profile`, a profile of 20 decode ticks (else None)."""
+    32 x 2048 slab, served by its worker thread. Returns the result, when
+    `profile` a profile of 20 decode ticks (else None), and the model, the
+    burst's prompts and its streams, which the lanes of slice 10 reuse."""
     import numpy as np
 
     from mxnet_tpu_torch.models import TransformerLM, TransformerLMConfig
@@ -789,14 +817,107 @@ def generate_phase(torch, card, profile=False):
         "first third",
         "peak_mem_gb": peak, "held_before_gb": held,
         "kernel_launches": launches,
-    }, profiled
+    }, profiled, {"lm": lm, "prompts": prompts, "outs": outs,
+                  "decode_graph_ms": decode_ms, "wall_s": wall}
+
+
+def explain_mismatch(torch, cpu, prompts, card_streams, cpu_streams, what):
+    """Raise on the first session whose card and CPU streams differ,
+    with the CPU model's top-2 logit gap where they part (a near tie is
+    rounding, not a fault)."""
+    for i, (a, b) in enumerate(zip(card_streams, cpu_streams)):
+        if a != b:
+            k = next(j for j, (x, y) in enumerate(zip(a, b)) if x != y)
+            seq = torch.tensor([list(prompts[i]) + b[:k]])
+            with torch.no_grad():
+                top = cpu(seq)[0, -1].float().topk(2).values
+            check(False, f"{what} session {i}: card and CPU streams differ "
+                  f"at token {k} ({a[k]} vs {b[k]}); CPU top-2 logit gap "
+                  f"{float(top[0] - top[1])}")
+
+
+def small_lanes(torch, gpu, cpu, kw):
+    """Check (d) of slice 10: the small model's speculative (n-gram, k =
+    3), prefix-cache and weight-swap lanes on the card and on the CPU give
+    equal streams; the verify step's and the suffix prefill's logits
+    agree within 1e-4."""
+    import numpy as np
+
+    from mxnet_tpu_torch.models import TransformerLM
+    from mxnet_tpu_torch.serving.generation import (GenerationEngine,
+                                                    NgramDraft)
+
+    cfg = cpu.cfg
+    rng = np.random.RandomState(3)
+    system = rng.randint(0, cfg.vocab_size, 24)
+    shared = [np.concatenate([system, rng.randint(0, cfg.vocab_size, n)])
+              for n in rng.randint(1, 20, 6)]
+    plain = [rng.randint(0, cfg.vocab_size, n)
+             for n in rng.randint(2, 60, 6)]
+    other = TransformerLM(cfg, device="cpu", generator=torch.Generator()
+                          .manual_seed(2)).state_dict()
+    streams = {}
+    for name, model in (("card", gpu), ("cpu", cpu)):
+        out = streams[name] = {}
+        with GenerationEngine(model, spec_k=3, draft=NgramDraft(),
+                              **kw) as eng:
+            out["spec"] = [eng.generate(p, max_new_tokens=16) for p in plain]
+        with GenerationEngine(model, prefix_cache=True, prefix_min_tokens=4,
+                              **kw) as eng:
+            out["prefix"] = [eng.generate(p, max_new_tokens=16)
+                             for p in shared]
+            out["prefix_hits"] = eng.prefix_hits
+        eng = GenerationEngine(model, start=False, **kw)
+        first = eng.submit(plain[0], max_new_tokens=16)
+        for _ in range(4):
+            eng._tick_once()
+        eng.swap_weights(other)
+        second = eng.submit(plain[1], max_new_tokens=16)
+        while not (first.done and second.done):
+            eng._tick_once()
+        out["swap"] = [first.result(), second.result()]
+        eng.close()
+    for lane, prompts in (("spec", plain), ("prefix", shared),
+                          ("swap", plain[:2])):
+        explain_mismatch(torch, cpu, prompts, streams["card"][lane],
+                         streams["cpu"][lane], f"small {lane}")
+    check(streams["card"]["prefix_hits"] == len(shared) - 1,
+          f"small prefix lane: {streams['card']['prefix_hits']} hits")
+
+    tol = 1e-4  # fp32 on both, sums in another order: a few ulp per layer
+    toks = rng.randint(0, cfg.vocab_size, 64)
+    block = rng.randint(0, cfg.vocab_size, (4, 4))
+    logits = {}
+    for name, model in (("card", gpu), ("cpu", cpu)):
+        dev = model.device
+        ck, cv = model.init_cache(4, cfg.max_len)
+        model.prefill(ck, cv, torch.from_numpy(toks[:32]).to(dev), 24, 0)
+        for t in (ck, cv):
+            t[1].copy_(t[0])
+        sfx, _, _ = model.prefill_at(ck, cv, torch.from_numpy(
+            toks[24:40]).to(dev), 16, 1, 24)
+        ver, _, _ = model.verify_step(
+            ck, cv, torch.from_numpy(block).to(dev),
+            torch.tensor([24, 40, 0, 0], device=dev))
+        logits[name] = (sfx.cpu(), ver.cpu())
+    errs = [float((a - b).abs().max())
+            for a, b in zip(logits["card"], logits["cpu"])]
+    check(max(errs) <= tol, f"small fp32 suffix prefill / verify logits "
+          f"card vs CPU: max err {errs} > {tol}")
+    return {"lanes": ["spec k=3 n-gram", "prefix cache", "swap"],
+            "streams_equal": True,
+            "tokens": sum(len(x) for lane in ("spec", "prefix", "swap")
+                          for x in streams["card"][lane]),
+            "prefix_hits": streams["card"]["prefix_hits"],
+            "suffix_prefill_verify_logits_max_abs_err": errs, "tol": tol}
 
 
 def small_generate_phase(torch):
     """Check (d): the small fp32 model of `small_reference_phase` with the
     same weights served on the card (through captured graphs) and on the
     CPU (eager): equal greedy streams over 8 ragged sessions, and prefill
-    and decode logits within 1e-4."""
+    and decode logits within 1e-4; then the same for the lanes of slice 10
+    (`small_lanes`)."""
     import numpy as np
 
     from mxnet_tpu_torch.models import TransformerLM, TransformerLMConfig
@@ -822,15 +943,8 @@ def small_generate_phase(torch):
                               for p, n in zip(prompts, news)]]
             if name == "card":
                 captures = eng.captures
-    for i, (a, b) in enumerate(zip(streams["card"], streams["cpu"])):
-        if a != b:
-            k = next(j for j, (x, y) in enumerate(zip(a, b)) if x != y)
-            seq = torch.tensor([list(prompts[i]) + b[:k]])
-            with torch.no_grad():
-                top = cpu(seq)[0, -1].float().topk(2).values
-            check(False, f"session {i}: card and CPU streams differ at "
-                  f"token {k} ({a[k]} vs {b[k]}); CPU top-2 logit gap "
-                  f"{float(top[0] - top[1])}")
+    explain_mismatch(torch, cpu, prompts, streams["card"], streams["cpu"],
+                     "small plain")
 
     tol = 1e-4  # fp32 on both, sums in another order: a few ulp per layer
     toks = np.zeros(64, np.int64)
@@ -861,7 +975,503 @@ def small_generate_phase(torch):
             "sessions": len(prompts), "streams_equal": True,
             "tokens": sum(len(s) for s in streams["card"]),
             "card_captures": captures,
-            "prefill_decode_logits_max_abs_err": errs, "tol": tol}
+            "prefill_decode_logits_max_abs_err": errs, "tol": tol,
+            "lanes": small_lanes(torch, gpu, cpu, kw)}
+
+
+# --- the generation lanes (slice 10): prefix cache, speculative, swap -----
+
+SPEC_K = 4                          # bench.py:1418-1424, with NgramDraft
+PREFIX_SYSTEM, PREFIX_TAILS = 1024, (16, 256)   # uniform, RandomState(1)
+PREFIX_MIN = 8                      # bench.py:1464
+# split points of the fork check: each suffix's bucket fits past its split
+PREFIX_SPLITS = (256, 768, PREFIX_SYSTEM)
+ROUTER_SLOTS, ROUTER_SESSIONS, ROUTER_SPREAD = 16, 24, 16
+SWAP_CLIENTS = 16                   # closed-loop clients of the swap lane
+
+
+class HeldTimer:
+    """A lock that records how long each thread last held it: the tick
+    lock of an engine, wrapped before its first tick, so a swap's time
+    under the lock can be read."""
+
+    def __init__(self, lock):
+        import threading
+
+        self._lock = lock
+        self._since = {}
+        self.held_s = {}
+        self._ident = threading.get_ident
+
+    def acquire(self, blocking=True, timeout=-1):
+        ok = self._lock.acquire(blocking, timeout)
+        if ok:
+            self._since[self._ident()] = time.perf_counter()
+        return ok
+
+    def release(self):
+        me = self._ident()
+        self.held_s[me] = time.perf_counter() - self._since.pop(me)
+        self._lock.release()
+
+    def __enter__(self):
+        self.acquire()
+        return self
+
+    def __exit__(self, *exc):
+        self.release()
+
+
+def lane_engine(lm, **kw):
+    """An engine over `lm` at the generate phase's slab (32 x 2048),
+    warmed twice: the first warm-up's captures, and none in the second.
+    Returns the engine and the first warm-up's report."""
+    from mxnet_tpu_torch.serving import warmup
+    from mxnet_tpu_torch.serving.generation import GenerationEngine
+
+    eng = GenerationEngine(lm, **{"max_slots": GEN_SLOTS,
+                                  "max_len": GEN_MAX_LEN, **kw})
+    warm = [warmup(eng), warmup(eng)]
+    check(warm[0]["compiles"] == warm[0]["captures"] > 0,
+          f"lane warm-up {warm[0]}: every build must be one capture")
+    check(warm[1]["compiles"] == warm[1]["captures"] == 0,
+          f"lane second warm-up {warm[1]}: want no capture")
+    return eng, warm[0]
+
+
+def burst(eng, prompts):
+    """Every prompt submitted at once for `GEN_NEW` tokens; (streams'
+    tokens, the streams, wall seconds)."""
+    t0 = time.perf_counter()
+    streams = [eng.submit(p, max_new_tokens=GEN_NEW) for p in prompts]
+    outs = [s.result(timeout=600) for s in streams]
+    return outs, streams, time.perf_counter() - t0
+
+
+def self_draft_file(torch, lm, path):
+    """`save_draft` of a draft that is the target itself: the target's
+    config with max_len 2048 + 2k, its weights, positional rows 0-2047
+    copied (the rest from seed 1, never read at these lengths)."""
+    import dataclasses
+
+    from mxnet_tpu_torch.models import TransformerLM
+    from mxnet_tpu_torch.serving.generation import save_draft
+
+    cfg = dataclasses.replace(lm.cfg, max_len=GEN_MAX_LEN + 2 * SPEC_K)
+    draft = TransformerLM(cfg, device=lm.device, generator=torch.Generator(
+        device=lm.device).manual_seed(1))
+    params = dict(draft.named_parameters())
+    with torch.no_grad():
+        for name, p in lm.named_parameters():
+            params[name][:p.shape[0]].copy_(p)
+    save_draft(path, draft)
+    return cfg
+
+
+def generate_spec(torch, card, state):
+    """The speculative lane: the generate phase's burst through `spec_k=4`
+    with the n-gram draft (bench.py's), then with a `CheckpointDraft`
+    that is the target itself, loaded through ``MXNET_GENERATION_DRAFT``
+    (every proposal right but for rounding: the accept-all commit path).
+    Checks: both runs' streams equal the plain burst's; no capture after
+    warm-up; no kernel launched."""
+    from mxnet_tpu_torch.serving.generation import (CheckpointDraft,
+                                                    NgramDraft)
+
+    lm, prompts, outs = state["lm"], state["prompts"], state["outs"]
+    reset_launches()
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "draft.npz")
+        draft_cfg = self_draft_file(torch, lm, path)
+        for name in ("ngram", "self_draft"):
+            env = {"MXNET_GENERATION_DRAFT": path} if name != "ngram" else {}
+            with env_scope(env):
+                eng, warm = lane_engine(
+                    lm, spec_k=SPEC_K,
+                    draft=NgramDraft() if name == "ngram" else None)
+            try:
+                check(isinstance(eng.draft, CheckpointDraft) == (
+                    name != "ngram"), f"spec {name}: draft {eng.draft}")
+                full = []
+                if name != "ngram":
+                    real = eng.draft.on_commit
+
+                    def on_commit(slot, committed, real=real):
+                        full.append(len(committed) == SPEC_K + 1)
+                        real(slot, committed)
+
+                    eng.draft.on_commit = on_commit
+                captures0 = eng.captures
+                got, _, wall = burst(eng, prompts)
+                bad = [i for i, (a, b) in enumerate(zip(got, outs)) if a != b]
+                check(not bad, f"spec {name}: sessions {bad} differ from "
+                      "the plain burst")
+                check(eng.captures == captures0,
+                      f"spec {name}: captured after warm-up")
+                with eng._tick_lock:
+                    check(eng.live_slots == 0, "spec engine not idle")
+                    verify_ms = cuda_ms(eng._verify_fn().graph.replay)
+                    step_ms = (cuda_ms(eng.draft._step_fn(SPEC_K)
+                                       .graph.replay)
+                               if name != "ngram" else None)
+                n_tokens = sum(len(o) for o in got)
+                runs[name] = {
+                    "warm_captures": warm["captures"],
+                    "buckets": list(eng.prefill_buckets),
+                    "max_len": eng.max_len, "tokens": n_tokens,
+                    "wall_s": wall, "tokens_per_s": n_tokens / wall,
+                    "spec_to_plain_wall": wall / state["wall_s"],
+                    "verified_slot_ticks": eng.spec_verified_slots,
+                    "committed": eng.spec_committed,
+                    "accepted_tokens_per_slot_tick":
+                        eng.spec_committed / eng.spec_verified_slots,
+                    "verify_graph_ms": verify_ms,
+                    "decode_graph_ms_x5": 5 * state["decode_graph_ms"],
+                    "draft_step_ms": step_ms,
+                    "streams_equal_plain": True}
+                if full:
+                    runs[name]["full_commit_share"] = sum(full) / len(full)
+            finally:
+                eng.close(timeout=60)
+    launches = read_launches()
+    check(not any(launches.values()),
+          f"the spec lane launched kernels: {launches}")
+    check(runs["self_draft"]["full_commit_share"] > 0.5,
+          f"the self-draft committed k + 1 tokens on "
+          f"{runs['self_draft']['full_commit_share']} of its slot-ticks")
+    return {"card": card, "spec_k": SPEC_K, "draft_config":
+            f"the target's with max_len {draft_cfg.max_len}", **runs,
+            "kernel_launches": launches}
+
+
+def prefix_prompts(vocab):
+    """One `PREFIX_SYSTEM`-token system prompt shared by `GEN_BURST`
+    sessions, each with a tail of `PREFIX_TAILS` tokens."""
+    import numpy as np
+
+    rng = np.random.RandomState(1)
+    system = rng.randint(0, vocab, PREFIX_SYSTEM)
+    tails = rng.randint(PREFIX_TAILS[0], PREFIX_TAILS[1] + 1, GEN_BURST)
+    return [np.concatenate([system, rng.randint(0, vocab, n)])
+            for n in tails]
+
+
+def fork_vs_full(eng, prompt):
+    """Fork + suffix prefill against the full prefill, through the
+    engine's graphs on free slots, at each of `PREFIX_SPLITS`: the logits
+    within `GEN_LOGIT_TOL`, the same argmax."""
+    import numpy as np
+
+    a, b, c = eng._free_slots()[:3]
+    n = len(prompt)
+
+    def prefill(tokens, slot):
+        prog = eng._prefill_fn(eng.bucket_for(len(tokens)))
+        padded = np.zeros(eng.bucket_for(len(tokens)), np.int64)
+        padded[:len(tokens)] = tokens
+        prog(padded, len(tokens), slot)
+        return prog.outputs[1].float().cpu()
+
+    full = prefill(prompt, a)
+    errs = {}
+    for split in PREFIX_SPLITS:
+        prefill(prompt[:split], b)
+        eng._fork_fn()(b, c)
+        bucket = eng.bucket_for(n - split)
+        check(split + bucket <= eng._slab_len,
+              f"prefix split {split}: bucket {bucket} overhangs the slab")
+        padded = np.zeros(bucket, np.int64)
+        padded[:n - split] = prompt[split:]
+        prog = eng._suffix_prefill_fn(bucket)
+        prog(padded, n - split, c, split)
+        got = prog.outputs[1].float().cpu()
+        errs[split] = float((got - full).abs().max())
+        check(int(got.argmax()) == int(full.argmax()),
+              f"prefix split {split}: fork + suffix argmax differs")
+        check(errs[split] <= GEN_LOGIT_TOL, f"prefix split {split}: fork + "
+              f"suffix logits {errs[split]} from the full prefill's")
+    return {"splits": list(PREFIX_SPLITS), "max_abs_logit_diff": errs,
+            "tol": GEN_LOGIT_TOL, "argmax_equal": True}
+
+
+def fork_bound(eng):
+    """(ms, bytes): one slot row of K and V read and written."""
+    row = (eng._ck.nbytes + eng._cv.nbytes) // eng.max_slots
+    return 2 * row / PEAK_BYTES_PER_S * 1e3, 2 * row
+
+
+def generate_prefix(torch, card, state):
+    """The prefix lane: 64 sessions sharing one 1024-token system prompt
+    (tails of 16-256 tokens, 128 new tokens each) through an engine with
+    the prefix cache, submitted one at a time as bench.py does (the first
+    token of each read before the next is submitted), then as one burst.
+    Checks: fork + suffix against the full prefill (`fork_vs_full`); a
+    hit ratio of at least 63/64 in the sequential pass; no capture after
+    warm-up; no kernel launched."""
+    lm = state["lm"]
+    prompts = prefix_prompts(lm.cfg.vocab_size)
+    reset_launches()
+    eng, warm = lane_engine(lm, prefix_cache=True,
+                            prefix_min_tokens=PREFIX_MIN)
+    try:
+        with eng._tick_lock:
+            logits = fork_vs_full(eng, prompts[0])
+        captures0 = eng.captures
+        ttft = []
+        for p in prompts:
+            t0 = time.perf_counter()
+            stream = eng.submit(p, max_new_tokens=GEN_NEW)
+            next(stream)
+            ttft.append(time.perf_counter() - t0)
+            stream.result(timeout=600)
+        hits, misses = eng.prefix_hits, eng.prefix_misses
+        check(hits / (hits + misses) >= (GEN_BURST - 1) / GEN_BURST,
+              f"prefix sequential pass: {hits} hits, {misses} misses")
+        got, streams, wall = burst(eng, prompts)
+        check(all(len(o) == GEN_NEW for o in got),
+              "a prefix burst session ended early")
+        check(eng.captures == captures0, "prefix lane captured after "
+              "warm-up")
+        with eng._tick_lock:
+            check(eng.live_slots == 0, "prefix engine not idle")
+            fork_ms = cuda_ms(eng._fork_fn().graph.replay)
+            suffix_ms = {b: cuda_ms(eng._suffix_prefill_fn(b).graph.replay)
+                         for b in eng.prefill_buckets}
+        bound_ms, nbytes = fork_bound(eng)
+        burst_hits = sum(s.cached_prefix_len > 0 for s in streams)
+        n_tokens = sum(len(o) for o in got)
+        out = {"card": card, "system_prompt": PREFIX_SYSTEM,
+               "tails": f"uniform {PREFIX_TAILS[0]}-{PREFIX_TAILS[1]}, "
+               "RandomState(1)", "sessions": GEN_BURST,
+               "max_new_tokens": GEN_NEW, "prefix_min_tokens": PREFIX_MIN,
+               "warm_captures": warm["captures"],
+               "sequential": {"hits": hits, "misses": misses,
+                              "hit_ratio": hits / (hits + misses),
+                              "ttft_ms_cold": ttft[0] * 1e3,
+                              "ttft_ms_hits_p50": percentile_ms(ttft[1:],
+                                                                50),
+                              "ttft_ms_hits_p99": percentile_ms(ttft[1:],
+                                                                99)},
+               "burst": {"tokens": n_tokens, "wall_s": wall,
+                         "tokens_per_s": n_tokens / wall,
+                         "hits": burst_hits,
+                         "ttft_ms_p50": percentile_ms(
+                             [s.first_token_at - s.submitted_at
+                              for s in streams], 50)},
+               "fork_vs_full": logits, "fork_graph_ms": fork_ms,
+               "fork_bound_ms": bound_ms, "fork_bytes": nbytes,
+               "fork_bound_by": "bytes", "suffix_graph_ms": suffix_ms}
+    finally:
+        eng.close(timeout=60)
+    launches = read_launches()
+    check(not any(launches.values()),
+          f"the prefix lane launched kernels: {launches}")
+    return {**out, "kernel_launches": launches}
+
+
+def swap_new_tokens(i):
+    """Session i's length in the swap lane: 128, 112, 96 or 80 tokens, so
+    that the clients' sessions end at different ticks and a swap finds
+    sessions of the old weights still live beside new ones."""
+    return GEN_NEW - GEN_NEW // 8 * (i % 4)
+
+
+def generate_swap(torch, card, state):
+    """The swap lane: the burst's 64 prompts from 16 closed-loop clients
+    (each submits its next prompt when its last stream ends;
+    `swap_new_tokens`) through an engine with the prefix cache; at 30 %
+    and 65 % of the completions (`SERVE_SWAP_AT`) `swap_weights` flips to
+    weights from seed 99 and back to the first weights. Checks: every
+    session's stream equals its prompt's under the version it was
+    admitted under (the head of the plain burst's stream for the first
+    weights, which check (b) holds to sessions run alone; a run alone on
+    an engine over the seed-99 model for those); some tick replayed two
+    cohorts; the prompts cached before a swap no longer match after it;
+    no capture after warm-up; no kernel launched."""
+    import threading
+
+    from mxnet_tpu_torch.models import TransformerLM
+    from mxnet_tpu_torch.serving.generation import GenerationEngine
+
+    lm, prompts, outs = state["lm"], state["prompts"], state["outs"]
+    other = TransformerLM(lm.cfg, device=lm.device,
+                          generator=torch.Generator(
+                              device=lm.device).manual_seed(99))
+    weights = {"seed 99": dict(other.named_parameters()),
+               "seed 0": {k: v.detach().clone()
+                          for k, v in lm.named_parameters()}}
+    reset_launches()
+    eng, warm = lane_engine(lm, prefix_cache=True,
+                            prefix_min_tokens=PREFIX_MIN)
+    lock = eng._tick_lock = HeldTimer(eng._tick_lock)
+    cohorts, mixed = eng._cohorts, []
+
+    def counted():
+        out = cohorts()
+        mixed.append(len(out) > 1)
+        return out
+
+    eng._cohorts = counted
+    captures0 = eng.captures
+    streams = [None] * len(prompts)
+    errors = []
+
+    def client(k):
+        try:
+            for i in range(k, len(prompts), SWAP_CLIENTS):
+                streams[i] = eng.submit(prompts[i],
+                                        max_new_tokens=swap_new_tokens(i))
+                streams[i].result(timeout=600)
+        except Exception as e:  # noqa: BLE001 - raised below
+            errors.append(e)
+
+    swaps = []
+    try:
+        threads = [threading.Thread(target=client, args=(k,))
+                   for k in range(SWAP_CLIENTS)]
+        for th in threads:
+            th.start()
+        for share, name in zip(SERVE_SWAP_AT, weights):
+            while sum(s is not None and s.done for s in streams) < \
+                    share * len(prompts) and not errors:
+                time.sleep(0.001)
+            cached = [i for i, s in enumerate(streams)
+                      if s is not None and s.done
+                      and eng.prefix_match_len(prompts[i])]
+            t0 = time.perf_counter()
+            version = eng.swap_weights(weights[name])
+            call_s = time.perf_counter() - t0
+            stale = [i for i in cached if eng.prefix_match_len(prompts[i])]
+            check(not stale, f"swap to {name}: prompts {stale} still match "
+                  "entries of the old weights")
+            swaps.append({"to": name, "version": version,
+                          "at_completed": sum(s is not None and s.done
+                                              for s in streams),
+                          "ms_under_tick_lock":
+                              lock.held_s[threading.get_ident()] * 1e3,
+                          "call_ms": call_s * 1e3,
+                          "old_entries_evicted": len(cached)})
+        for th in threads:
+            th.join(timeout=600)
+        if errors:
+            raise errors[0]
+        check(eng.captures == captures0, "swap lane captured after warm-up")
+        versions = [s.weights_version for s in streams]
+    finally:
+        eng.close(timeout=60)
+    check(any(mixed), "no tick replayed two weight cohorts")
+    check(set(versions) == {0, 1, 2}, f"sessions' versions {versions}")
+    on_99 = [i for i, v in enumerate(versions) if v == 1]
+    with GenerationEngine(other, max_slots=GEN_SLOTS,
+                          max_len=GEN_MAX_LEN) as alone:
+        want = {i: alone.generate(prompts[i],
+                                  max_new_tokens=swap_new_tokens(i))
+                for i in on_99}
+    bad = [i for i, s in enumerate(streams) if s.result() != want.get(
+        i, outs[i][:swap_new_tokens(i)])]
+    check(not bad, f"swap: sessions {bad} differ from their version's "
+          "stream")
+    launches = read_launches()
+    check(not any(launches.values()),
+          f"the swap lane launched kernels: {launches}")
+    return {"card": card, "clients": SWAP_CLIENTS, "sessions": len(prompts),
+            "swaps": swaps, "warm_captures": warm["captures"],
+            "sessions_by_version": {v: versions.count(v) for v in (0, 1, 2)},
+            "mixed_ticks": sum(mixed), "ticks": len(mixed),
+            "streams_equal_their_version": True,
+            "kernel_launches": launches}
+
+
+def generate_router(torch, card, state):
+    """The router lane: two 16-slot engines over the one model, both with
+    prefix caches, behind a `GenerationRouter`. Two 1024-token system
+    prompts: one session of each first (their caches fill), then 24 of
+    them interleaved, then 16 prompts no cache holds, all at once. Checks:
+    the two first sessions go to different engines; every later session
+    of a system prompt forks it (lands on the engine that caches it); the
+    unrelated ones split evenly; no capture after warm-up; no kernel
+    launched."""
+    import numpy as np
+
+    from mxnet_tpu_torch.serving import warmup
+    from mxnet_tpu_torch.serving.generation import (GenerationEngine,
+                                                    GenerationRouter)
+
+    lm = state["lm"]
+    vocab = lm.cfg.vocab_size
+    rng = np.random.RandomState(2)
+    systems = [rng.randint(0, vocab, PREFIX_SYSTEM) for _ in range(2)]
+
+    def prompt(k):
+        tail = rng.randint(PREFIX_TAILS[0], PREFIX_TAILS[1] + 1)
+        return np.concatenate([systems[k], rng.randint(0, vocab, tail)])
+
+    reset_launches()
+    engines = [GenerationEngine(lm, max_slots=ROUTER_SLOTS,
+                                max_len=GEN_MAX_LEN, prefix_cache=True,
+                                prefix_min_tokens=PREFIX_MIN)
+               for _ in range(2)]
+    with GenerationRouter(engines) as router:
+        warm = warmup(router)
+        captures0 = sum(e.captures for e in engines)
+        firsts = [router.submit(prompt(k), max_new_tokens=GEN_NEW)
+                  for k in (0, 1)]
+        for s in firsts:
+            next(s)
+        check([e.sessions_submitted for e in engines] == [1, 1],
+              "the two first sessions went to one engine")
+        before = [e.sessions_submitted for e in engines]
+        t0 = time.perf_counter()
+        later = [(k % 2, router.submit(prompt(k % 2),
+                                       max_new_tokens=GEN_NEW))
+                 for k in range(ROUTER_SESSIONS)]
+        got = [s.result(timeout=600) for _, s in later]
+        wall = time.perf_counter() - t0
+        missed = [i for i, (_, s) in enumerate(later)
+                  if s.cached_prefix_len < PREFIX_SYSTEM]
+        check(not missed, f"router: sessions {missed} did not land on the "
+              "engine caching their system prompt")
+        placed = [b - a for a, b in zip(
+            before, [e.sessions_submitted for e in engines])]
+        check(placed == [ROUTER_SESSIONS // 2] * 2,
+              f"router affinity split {placed}")
+        before = [e.sessions_submitted for e in engines]
+        spread = [router.submit(rng.randint(0, vocab, PREFIX_TAILS[1]),
+                                max_new_tokens=GEN_NEW)
+                  for _ in range(ROUTER_SPREAD)]
+        for s in spread + firsts:
+            s.result(timeout=600)
+        split = [b - a for a, b in zip(
+            before, [e.sessions_submitted for e in engines])]
+        check(max(split) - min(split) <= 2, f"router load split {split}")
+        check(sum(e.captures for e in engines) == captures0,
+              "router lane captured after warm-up")
+        stats = router.stats()
+    launches = read_launches()
+    check(not any(launches.values()),
+          f"the router lane launched kernels: {launches}")
+    n_tokens = sum(len(o) for o in got)
+    return {"card": card, "engines": 2, "slots": ROUTER_SLOTS,
+            "warm_captures": warm["captures"],
+            "affinity_sessions": ROUTER_SESSIONS,
+            "affinity_split": placed, "affinity_tokens_per_s":
+                n_tokens / wall, "load_split": split,
+            "prefix_hits": [e["prefix_hits"] for e in stats["engines"]],
+            "kernel_launches": launches}
+
+
+def generate_lanes(torch, card, state):
+    """Slice 10's lanes after the generate phase, each on its own engines,
+    closed before the next lane."""
+    out = {}
+    for name, lane in (("generate_spec", generate_spec),
+                       ("generate_prefix", generate_prefix),
+                       ("generate_swap", generate_swap),
+                       ("generate_router", generate_router)):
+        out[name] = lane(torch, card, state)
+        progress(name)
+    return out
 
 
 # --- the nd phase (slice 6): mx.nd, autograd and the op registry ----------
@@ -3550,9 +4160,11 @@ def main(argv=None):
     progress("ring")
     # before any profiler: the engines' worker threads replay graphs
     small_generate = small_generate_phase(torch)
-    generate, generate_profile = generate_phase(torch, smi,
-                                                profile=bool(args.profile))
+    generate, generate_profile, generated = generate_phase(
+        torch, smi, profile=bool(args.profile))
     progress("generate")
+    lanes = generate_lanes(torch, smi, generated)
+    del generated
     trainer, trainer_profile = trainer_phase(torch, profile=bool(args.profile))
     progress("trainer")
     nd, nd_steps = nd_phase(torch, smi)
@@ -3571,6 +4183,7 @@ def main(argv=None):
         "ring": ring["kernel_launches"],
         "trainer": trainer["kernel_launches"],
         "generate": generate["kernel_launches"],
+        **{name: line["kernel_launches"] for name, line in lanes.items()},
         "nd": nd["kernel_launches"],
         "gluon": gluon["kernel_launches"],
         "module": module["kernel_launches"],
@@ -3580,6 +4193,8 @@ def main(argv=None):
     emit(ring=ring, small_reference=small_ring)
     emit(trainer=trainer)
     emit(generate=generate, small_reference=small_generate)
+    for name, line in lanes.items():
+        emit(**{name: line})
     emit(nd=nd)
     emit(gluon=gluon)
     emit(module=module)

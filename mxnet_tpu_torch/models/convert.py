@@ -21,7 +21,7 @@ import torch
 from ..context import resolve_device
 
 __all__ = ["params_from_jax", "params_to_jax", "port_name", "jax_name",
-           "gluon_params_from_numpy"]
+           "to_tensor", "state_like", "gluon_params_from_numpy"]
 
 _JAX_LAYER = re.compile(r"^l(\d+)\.(\w+)$")
 _PORT_LAYER = re.compile(r"^layers\.(\d+)\.(\w+)$")
@@ -39,9 +39,14 @@ def jax_name(name: str) -> str:
     return f"l{m.group(1)}.{m.group(2)}" if m else name
 
 
-def _to_tensor(arr) -> torch.Tensor:
+def to_tensor(arr) -> torch.Tensor:
+    """A CPU tensor holding a copy of `arr` (anything `np.asarray` takes).
+    A bf16 array, as the JAX package hands it out (``ml_dtypes``), or as
+    ``np.load`` reads one that it saved (2-byte void elements), becomes a
+    bf16 tensor of the same bits."""
     arr = np.asarray(arr)
-    if arr.dtype.name == "bfloat16":  # numpy has no bf16: move the bits
+    if arr.dtype.name == "bfloat16" or (arr.dtype.kind == "V"
+                                        and arr.dtype.itemsize == 2):
         bits = np.ascontiguousarray(arr).view(np.int16)
         return torch.from_numpy(bits.copy()).view(torch.bfloat16)
     return torch.from_numpy(np.array(arr))
@@ -56,8 +61,35 @@ def params_from_jax(np_params, device=None, dtype=None):
     dev = resolve_device(device)
     out = {}
     for name, arr in np_params.items():
-        t = _to_tensor(arr)
+        t = to_tensor(arr)
         out[port_name(name)] = t.to(device=dev, dtype=dtype or t.dtype)
+    return out
+
+
+def state_like(module, params, what):
+    """``params`` (arrays or tensors, under the port's names or the JAX
+    package's) as new tensors on the devices and in the dtypes of
+    `module`'s parameters, which they must cover exactly, shape for shape;
+    otherwise MXNetError, naming `what`. A weight swap copies these into
+    the parameters that captured graphs read in place."""
+    from ..base import MXNetError
+
+    cur = dict(module.named_parameters())
+    new = {port_name(str(k)): v for k, v in dict(params).items()}
+    if set(new) != set(cur):
+        raise MXNetError(
+            f"{what}: parameter names differ from the bound set (missing "
+            f"{sorted(set(cur) - set(new))}, unexpected "
+            f"{sorted(set(new) - set(cur))})")
+    out = {}
+    for name, v in new.items():
+        t = v.detach() if isinstance(v, torch.Tensor) else to_tensor(v)
+        if tuple(t.shape) != tuple(cur[name].shape):
+            raise MXNetError(f"{what}: parameter {name!r} has shape "
+                             f"{tuple(t.shape)}, the bound one "
+                             f"{tuple(cur[name].shape)}")
+        out[name] = t.to(device=cur[name].device, dtype=cur[name].dtype,
+                         copy=True)
     return out
 
 

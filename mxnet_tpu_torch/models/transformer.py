@@ -13,13 +13,15 @@ tensor), as the JAX model's `_attention` takes it.
 
 The incremental-decoding methods serve the generation engine
 (`serving.generation`): `init_cache` allocates the KV slot slab,
-`prefill` fills one slot from a prompt and `decode_step` extends every
-slot by one token. Their attention is plain products over the slab, as in
-the JAX package (no Pallas kernel there, so no kernel here). They write the
-slab in place, since a captured CUDA graph keeps its pointers, and take
-their slot, length, token and position operands as device tensors, so one
-graph serves every slot and position. Not ported: the other mesh axes and
-the sharding constraints, the MoE FFN, `prefill_at` and `verify_step`.
+`prefill` fills one slot from a prompt, `prefill_at` fills a slot's rows
+past a forked prefix from the prompt's tail, `decode_step` extends every
+slot by one token and `verify_step` by k + 1 (speculative decoding).
+Their attention is plain products over the slab, as in the JAX package
+(no Pallas kernel there, so no kernel here). They write the slab in
+place, since a captured CUDA graph keeps its pointers, and take their
+slot, length, offset, token and position operands as device tensors, so
+one graph serves every slot and position. Not ported: the other mesh axes
+and the sharding constraints, and the MoE FFN.
 """
 from __future__ import annotations
 
@@ -270,6 +272,62 @@ class TransformerLM(nn.Module):
         return self._head_logits(last)[0], cache_k, cache_v
 
     @torch.inference_mode()
+    def prefill_at(self, cache_k, cache_v, tokens, length, slot, offset):
+        """Suffix prefill: the prompt's tail after a prefix-cache fork.
+        Rows ``[0, offset)`` of slot `slot` already hold the K/V of the
+        prompt's first `offset` tokens; this forward consumes the `length`
+        remaining tokens, writes their K/V into rows
+        ``[offset, offset + Lb)`` in place and returns the logits at the
+        last real suffix token. Each layer scores the suffix queries
+        against the slot's whole slab row, masked to ``j <= offset + i``.
+
+        tokens : int [Lb]  the suffix padded to its bucket
+        length : the real suffix length, 1 <= length <= Lb
+        slot   : the slab slot
+        offset : the forked prefix's length
+
+        The rows written must lie in the slab (``offset + Lb`` at most its
+        length): unlike JAX's clamping update, a row out of range is a
+        device fault here, so the engine falls back to a full prefill
+        where the suffix's bucket would overhang. Positions past the
+        model's range read its last positional row, as JAX's clipping
+        gather does (garbage the mask hides). `length`, `slot` and
+        `offset` may be ints or one-element int64 tensors on the model's
+        device. Returns ``(logits [V] fp32, cache_k, cache_v)``."""
+        c = self.cfg
+        lb, n_rows = tokens.shape[0], cache_k.shape[3]
+        hd = c.d_model // c.n_heads
+        scale = 1.0 / math.sqrt(hd)
+        slot = _index(slot, self.device)
+        length = _index(length, self.device)
+        pos = _index(offset, self.device) + torch.arange(lb,
+                                                         device=self.device)
+        h = (F.embedding(tokens, self.embed)
+             + self.pos_embed[pos.clamp(max=c.max_len - 1)])
+        mask = torch.where(torch.arange(n_rows, device=self.device)[None, :]
+                           <= pos[:, None], 0.0, _MASKED)          # [Lb, L]
+        slots = slot.expand(lb)
+        for i, layer in enumerate(self.layers):
+            ln1 = self._ln(h, layer.ln1_scale, layer.ln1_bias)
+            # [H, Lb, hd] each
+            q, k, v = ((ln1 @ layer.wqkv).view(lb, 3, c.n_heads, hd)
+                       .permute(1, 2, 0, 3).unbind(0))
+            # rows pos of the slot: an index write, as a captured graph
+            # cannot slice at a device-tensor offset ([S, L, H, hd] views)
+            cache_k[:, i].transpose(1, 2).index_put_(
+                (slots, pos), k.transpose(0, 1))
+            cache_v[:, i].transpose(1, 2).index_put_(
+                (slots, pos), v.transpose(0, 1))
+            ck = cache_k[:, i].index_select(0, slot)[0]           # [H,L,hd]
+            cv = cache_v[:, i].index_select(0, slot)[0]
+            s = _scores(q, ck.transpose(1, 2)) * scale            # [H,Lb,L]
+            p = torch.softmax(s + mask, dim=-1).to(h.dtype)
+            attn = torch.bmm(p, cv).transpose(0, 1).reshape(lb, c.d_model)
+            h = self._ffn(h + attn @ layer.wo, layer)
+        last = h.index_select(0, length - 1)                      # [1, D]
+        return self._head_logits(last)[0], cache_k, cache_v
+
+    @torch.inference_mode()
     def decode_step(self, cache_k, cache_v, tokens, positions):
         """One step over the WHOLE slab: slot s consumes ``tokens[s]``,
         writes its K/V at row ``positions[s]``, in place, and attends over
@@ -310,6 +368,25 @@ class TransformerLM(nn.Module):
             h = self._ffn(h + attn.view(n_slots, c.d_model) @ layer.wo,
                           layer)
         return self._head_logits(h), cache_k, cache_v
+
+    @torch.inference_mode()
+    def verify_step(self, cache_k, cache_v, tokens, positions):
+        """Speculative-decoding verify: every slot consumes a block of
+        ``K = k + 1`` tokens (its last committed token, then the draft's
+        k proposals) starting at row ``positions[s]``; logits row ``i`` is
+        the next-token distribution after ``tokens[:, :i + 1]``.
+
+        The structure is K unrolled `decode_step` calls chained through
+        the slab, not one K-query attention block: the per-token
+        arithmetic is then that of the plain decode step, which keeps
+        speculative greedy output bit-exact with the plain lane. Every
+        row ``positions[s] + K - 1`` must lie in the slab (the engine's
+        speculative scratch rows). Returns ``(logits [S, K, V] fp32,
+        cache_k, cache_v)``."""
+        steps = [self.decode_step(cache_k, cache_v, tokens[:, i],
+                                  positions + i)[0]
+                 for i in range(tokens.shape[1])]
+        return torch.stack(steps, dim=1), cache_k, cache_v
 
     # -- training -----------------------------------------------------------
 

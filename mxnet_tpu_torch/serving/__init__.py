@@ -22,9 +22,11 @@ generation:
 * `rollout`: versioned CRC-verified `WeightSet` publishes over a watched
   directory (``MXNET_ROLLOUT_DIR``, also fed by `model.save_checkpoint`)
   and live `Predictor.swap_weights` with nothing captured again;
-* `health`: liveness and readiness probes of predictors and batchers;
+* `health`: liveness and readiness probes of predictors, batchers and
+  generation engines;
 * `generation`: continuous-batching autoregressive serving over a KV slot
-  slab (`GenerationEngine`, `GenerationStream`).
+  slab (`GenerationEngine` with its prefix-cache, speculative and
+  weight-swap lanes, `GenerationRouter`, `GenerationStream`).
 
 Quick start::
 
@@ -35,15 +37,16 @@ Quick start::
         probs = fut.result()
 
 Not ported yet (ROADMAP.md queue A, items 6 and 9): the generation
-engine's prefix-cache, speculative and QoS lanes, `GenerationRouter`,
-`TenantRegistry` and the serving telemetry.
+engine's QoS lane, `TenantRegistry`, `GenerationRouter.rolling_swap` and
+the serving telemetry.
 """
 from . import generation
 from . import rollout
 from .admission import (AdmissionQueue, DeadlineExceededError, QueueFullError,
                         Request, ServerClosedError, ServingError)
 from .batcher import DynamicBatcher
-from .generation import GenerationEngine, GenerationStream
+from .generation import (GenerationEngine, GenerationRouter,
+                         GenerationStream)
 from .predictor import Predictor, bucket_ladder
 from .rollout import (RolloutSubscriber, RolloutWatcher, WeightSet, publish,
                       publish_checkpoint)
@@ -52,6 +55,7 @@ from .warmup import warmup
 __all__ = ["Predictor", "DynamicBatcher", "AdmissionQueue", "Request",
            "ServingError", "QueueFullError", "DeadlineExceededError",
            "ServerClosedError", "bucket_ladder", "warmup", "generation",
-           "GenerationEngine", "GenerationStream", "rollout", "WeightSet",
+           "GenerationEngine", "GenerationRouter", "GenerationStream",
+           "rollout", "WeightSet",
            "RolloutSubscriber", "RolloutWatcher", "publish",
            "publish_checkpoint"]

@@ -1,12 +1,17 @@
 """mxnet_tpu_torch.serving.generation: continuous-batching autoregressive
-serving, the port of `mxnet_tpu.serving.generation` (plain lane).
+serving, the port of `mxnet_tpu.serving.generation`.
 
 * `GenerationEngine`: a slot-based KV-cache session store (one
   preallocated slab, fixed shapes, admission and eviction a slot-index
   write) driven by a token-level scheduler: each tick runs ONE decode step
   over every live session, evicts finished, EOS and expired sequences and
   admits queued prefills into the freed slots mid-stream. On the card every
-  program is a CUDA graph captured once and replayed;
+  program is a CUDA graph captured once and replayed. Its lanes: the
+  prefix cache (`RadixPrefixCache`, fork + suffix prefill), speculative
+  decoding (`NgramDraft`, `CheckpointDraft`, one verify program) and live
+  weight swaps with version cohorts (`swap_weights`);
+* `GenerationRouter`: places sessions over engine replicas by prefix
+  affinity, then load;
 * `GenerationStream`: ``submit() -> iterator of tokens`` with caller-runs
   assist, plus ``result()`` for collectors; failures raise in band.
 
@@ -18,7 +23,14 @@ Quick start::
     for tok in eng.submit(prompt_ids, max_new_tokens=64, timeout=2.0):
         ...
 """
+from . import speculative
 from .engine import GenerationEngine, prefill_ladder
+from .prefix_cache import RadixPrefixCache
+from .router import GenerationRouter
 from .session import GenerationStream
+from .speculative import (CheckpointDraft, NgramDraft, load_draft,
+                          save_draft)
 
-__all__ = ["GenerationEngine", "GenerationStream", "prefill_ladder"]
+__all__ = ["GenerationEngine", "GenerationRouter", "GenerationStream",
+           "RadixPrefixCache", "NgramDraft", "CheckpointDraft",
+           "save_draft", "load_draft", "prefill_ladder", "speculative"]

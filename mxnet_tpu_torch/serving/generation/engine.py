@@ -12,30 +12,60 @@ The port of `mxnet_tpu/serving/generation/engine.py`, its plain lane:
   runs ONE decode step over the whole slab, so every live session advances
   one greedy token together; finished, EOS and expired sessions leave
   mid-stream and queued ones take their slots;
+* **prefix cache with in-slab forking** (``MXNET_GENERATION_PREFIX_CACHE``):
+  a refcounted radix trie (`prefix_cache.py`) maps prompt prefixes to
+  slab slots holding their K/V. A prompt whose prefix is cached is
+  admitted by ONE fork program (the source slot's rows copied onto the
+  session's) and a suffix prefill of the unmatched tail
+  (`TransformerLM.prefill_at`); sessions outrank cached entries for slots
+  (LRU eviction of unpinned entries above a retention floor of one);
+* **speculative decoding** (``MXNET_GENERATION_SPEC_K``): a draft
+  (`speculative.py`) proposes k tokens a live slot and ONE verify program
+  (`TransformerLM.verify_step`, k + 1 unrolled decode steps) checks them
+  all; the engine commits the longest agreeing prefix plus the target's
+  own next token, so greedy output is bit-exact with the plain lane. The
+  slab carries k scratch rows for the verify's writes;
+* **live weight swaps** (`swap_weights`): new admissions run the new
+  weights while every live session finishes on the version it was
+  admitted under. The programs read the model's parameters in place, so
+  the engine keeps a copy of every pinned version and, on a tick where
+  more than one version is live, writes each cohort's copy into the
+  parameters before its replay and the current one back after;
 * **build once**: the engine's ``CompileCache("generation")`` holds one
-  program per prefill bucket and exactly one decode program. On the card
-  each is captured once as a CUDA graph over the slab and static input
-  buffers, and every later call refills the inputs and replays it: the
-  counterpart of the JAX engine's compile-once executables. `warm` builds
-  them all ahead of traffic; steady state builds nothing.
+  program per prefill bucket and exactly one decode (or verify) program,
+  plus, per lane, one suffix prefill a bucket and THE fork program, and a
+  checkpoint draft's own prefills and step. On the card each is captured
+  once as a CUDA graph over the slab and static input buffers, and every
+  later call refills the inputs and replays it: the counterpart of the
+  JAX engine's compile-once executables. `warm` builds them all ahead of
+  traffic; steady state, swaps included, builds nothing.
 
-Not ported yet: the prefix cache, the speculative lane, QoS park and
-resume, weight swaps, the overlap tick order, telemetry, tracing and the
-health probes.
+The JAX package publishes the lanes' counts through its telemetry; here
+they are plain integer attributes (``prefix_hits``, ``prefix_misses``,
+``spec_committed``, ``spec_verified_slots``). Not ported yet (ROADMAP.md
+queue A, items 6 and 9): QoS park and resume, the overlap tick order,
+telemetry, tracing, the tick beacon and the memory census.
 """
 from __future__ import annotations
 
+import contextlib
 import logging
 import threading
 import time
+import weakref
 
 import numpy as np
 import torch
 
+from ... import health
 from ...base import MXNetError, getenv, register_env
 from ...compile_cache import CompileCache, GraphProgram
+from ...models.convert import state_like
 from ..admission import AdmissionQueue, DeadlineExceededError, Request
+from ..health import attach_engine, queue_ready
 from ..predictor import bucket_ladder
+from . import speculative
+from .prefix_cache import RadixPrefixCache
 from .session import GenerationStream
 
 __all__ = ["GenerationEngine", "prefill_ladder"]
@@ -56,6 +86,15 @@ register_env("MXNET_GENERATION_TICK_BUDGET_MS", 10.0,
              "max milliseconds one scheduler tick spends admitting queued "
              "prefills before the fused decode runs again (>= 1 admission "
              "per tick when slots are free, so queues always drain)")
+register_env("MXNET_GENERATION_PREFIX_CACHE", False,
+             "cache prompt-prefix KV in free slab slots (refcounted radix "
+             "trie): admission of a prompt with a cached prefix runs one "
+             "slot-to-slot fork + a suffix-only prefill instead of "
+             "a full-prompt prefill")
+register_env("MXNET_GENERATION_PREFIX_MIN_TOKENS", 8,
+             "shortest prompt prefix worth forking from (or inserting "
+             "into) the prefix cache — below this a full prefill is "
+             "cheaper than the fork dispatch")
 
 _logger = logging.getLogger(__name__)
 
@@ -80,7 +119,7 @@ class _Session:
     """Engine-side state of one admitted (or queued) generation."""
 
     __slots__ = ("prompt", "max_new_tokens", "eos_id", "deadline", "stream",
-                 "slot", "generated")
+                 "slot", "generated", "prefix_len", "version")
 
     def __init__(self, prompt, max_new_tokens, eos_id, deadline, stream):
         self.prompt = prompt            # np.int32 [n]
@@ -90,6 +129,15 @@ class _Session:
         self.stream = stream
         self.slot = None
         self.generated = 0
+        self.prefix_len = 0             # cached tokens forked at admission
+        self.version = 0                # weights version pinned at admission
+
+
+def _host_copy(t):
+    """A parameter as a numpy array (bf16 as float32, which holds it
+    exactly)."""
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy().copy()
 
 
 class GenerationEngine:
@@ -103,10 +151,12 @@ class GenerationEngine:
     params : dict, optional
         None serves the model's own parameters. A state dict in the port's
         names (as `models.params_from_jax` returns it) is loaded into the
-        model first.
+        model first. Engines over one model share its parameters, so
+        `swap_weights` refuses while another open engine serves the same
+        model.
     max_slots / max_len / buckets / tick_budget_ms :
         Overrides of the ``MXNET_GENERATION_*`` knobs; `max_len` is capped
-        at the model's positional range.
+        at the model's positional range less `spec_k`.
     max_queue : int, optional
         Intake bound (default ``MXNET_SERVING_MAX_QUEUE``).
     eos_id : int, optional
@@ -114,11 +164,24 @@ class GenerationEngine:
     start : bool
         Start the scheduler's worker thread; with False the caller drives
         ticks (``_tick_once``) and blocking stream iterators assist.
+    prefix_cache / prefix_min_tokens :
+        Overrides of ``MXNET_GENERATION_PREFIX_CACHE`` /
+        ``_PREFIX_MIN_TOKENS``: cache prompt-prefix KV in free slab slots
+        and admit matching prompts by fork + suffix prefill.
+    spec_k : int, optional
+        Override of ``MXNET_GENERATION_SPEC_K``: the draft length of the
+        speculative lane (0 = plain one-token decode). The slab grows
+        `spec_k` scratch rows so that a near-capacity slot's verify writes
+        stay in range, which costs `spec_k` positions of the model's range.
+    draft : speculative.Draft, optional
+        The speculative lane's draft (default: a `CheckpointDraft` from
+        ``MXNET_GENERATION_DRAFT``, else the `NgramDraft`).
     """
 
     def __init__(self, model, params=None, max_slots=None, max_len=None,
                  buckets=None, max_queue=None, tick_budget_ms=None,
-                 eos_id=None, start=True):
+                 eos_id=None, start=True, prefix_cache=None,
+                 prefix_min_tokens=None, spec_k=None, draft=None):
         if params is not None:
             model.load_state_dict(params)
         self._model = model
@@ -126,12 +189,21 @@ class GenerationEngine:
                           if max_slots is None else max_slots)
         if self._slots < 1:
             raise MXNetError(f"need >= 1 slot, got {self._slots}")
+        self._spec_k = int(getenv("MXNET_GENERATION_SPEC_K")
+                           if spec_k is None else spec_k)
+        if self._spec_k < 0:
+            raise MXNetError(f"spec_k must be >= 0, got {self._spec_k}")
         self._max_len = min(int(getenv("MXNET_GENERATION_MAX_LEN")
                                 if max_len is None else max_len),
-                            model.cfg.max_len)
+                            model.cfg.max_len - self._spec_k)
         if self._max_len < 2:
-            raise MXNetError(f"max_len must be >= 2, got {self._max_len}")
-        self._slab_len = self._max_len
+            raise MXNetError(
+                f"max_len {self._max_len} after reserving {self._spec_k} "
+                f"speculative scratch rows from the model's positional "
+                f"range {model.cfg.max_len}: lower MXNET_GENERATION_SPEC_K")
+        # spec_k scratch rows past session capacity: a verify block that
+        # starts at the last legal position writes k rows past it
+        self._slab_len = self._max_len + self._spec_k
         self._buckets = prefill_ladder(buckets, self._max_len)
         budget_ms = (getenv("MXNET_GENERATION_TICK_BUDGET_MS")
                      if tick_budget_ms is None else tick_budget_ms)
@@ -154,8 +226,37 @@ class GenerationEngine:
         self._queue = AdmissionQueue(max_queue)
         self._tick_lock = threading.Lock()
         self._work = threading.Condition()
+        self._waiting = 0     # callers queued for the tick lock (_exclusive)
         self._closed = False
+        self._warmed = False
         self.sessions_submitted = 0
+        # the lanes' counts (the JAX package's prefix.* / spec.* counters)
+        self.prefix_hits = self.prefix_misses = 0
+        self.spec_committed = self.spec_verified_slots = 0
+
+        # weight rollout: {version: (copy of its parameters or None, the
+        # WeightSet that published it or None)} for every version a live
+        # session may still decode under. None: the model's parameters
+        # hold it and no copy was needed yet. _bound_version is the
+        # version the parameters hold; between ticks it is the current one
+        self._weights_version = self._bound_version = 0
+        self._param_sets = {0: (None, None)}
+        model.__dict__.setdefault("_generation_engines",
+                                  weakref.WeakSet()).add(self)
+
+        self.health_name = attach_engine(self)
+        use_prefix = (bool(getenv("MXNET_GENERATION_PREFIX_CACHE"))
+                      if prefix_cache is None else bool(prefix_cache))
+        self._prefix_min = int(
+            getenv("MXNET_GENERATION_PREFIX_MIN_TOKENS")
+            if prefix_min_tokens is None else prefix_min_tokens)
+        self._prefix = (RadixPrefixCache(owner=self.health_name)
+                        if use_prefix else None)
+        self._draft = None
+        if self._spec_k:
+            self._draft = (speculative.default_draft(model.device)
+                           if draft is None else draft)
+            self._draft.attach(self)
 
         self._worker = None
         if start:
@@ -171,12 +272,57 @@ class GenerationEngine:
         return self._slots
 
     @property
+    def device(self):
+        return self._model.device
+
+    @property
     def max_len(self):
         return self._max_len
 
     @property
     def prefill_buckets(self):
         return self._buckets
+
+    @property
+    def spec_k(self):
+        """Draft length of the speculative lane (0 = plain decode)."""
+        return self._spec_k
+
+    @property
+    def draft(self):
+        return self._draft
+
+    @property
+    def prefix_cache(self):
+        """The engine's `RadixPrefixCache` (None when disabled)."""
+        return self._prefix
+
+    @property
+    def weights_version(self):
+        """Version of the CURRENT weight set (new admissions use it; live
+        sessions keep the version they were admitted under)."""
+        return self._weights_version
+
+    @property
+    def live_weight_versions(self):
+        """Sorted versions some live session still decodes under, plus
+        the current one: more than one only while an old version drains
+        after a swap."""
+        versions = {s.version for s in self._sessions if s is not None}
+        versions.add(self._weights_version)
+        return sorted(versions)
+
+    def prefix_match_len(self, prompt):
+        """Longest USABLE cached prefix of ``prompt`` on this engine (0
+        below the fork threshold or with the cache off): the router's
+        affinity probe, a host trie walk. Only current-version entries
+        count, as for admission."""
+        if self._prefix is None:
+            return 0
+        m = self._prefix.match_len(
+            np.asarray(prompt, dtype=np.int32).reshape(-1),
+            version=self._weights_version)
+        return m if m >= self._prefix_min else 0
 
     @property
     def cache(self):
@@ -198,8 +344,35 @@ class GenerationEngine:
         return len(self._queue)
 
     @property
+    def load(self):
+        """Occupancy the router balances on: (live + queued) / slots."""
+        return (self._live + len(self._queue)) / float(self._slots)
+
+    @property
     def closed(self):
         return self._closed
+
+    # -- health --------------------------------------------------------------
+
+    def healthy(self):
+        """Liveness: (ok, detail). False only when the scheduler worker
+        died while the engine still owes work (a closed engine's joined
+        worker is fine, and an engine ticked by hand has none)."""
+        if (self._worker is not None and not self._worker.is_alive()
+                and not self._closed):
+            return False, "scheduler worker thread died"
+        return True, "ok"
+
+    def ready(self):
+        """Readiness: (ok, reason), the router's placement gate. Not ready
+        while draining (closed), before any program exists (`warm` not
+        run and no traffic built one), or with the intake queue above its
+        watermark."""
+        if self._closed:
+            return False, "closed (draining)"
+        if not self._warmed and not len(self._cache):
+            return False, "warmup not run"
+        return queue_ready(self._queue)
 
     def kv_slab_bytes(self):
         """Device bytes the KV slab pins, keys and values."""
@@ -257,18 +430,21 @@ class GenerationEngine:
         return list(self.submit(prompt, **kwargs))
 
     def warm(self, buckets=None):
-        """Build every program ahead of traffic, counted exactly: one
-        prefill per bucket and THE decode program; on the card each build
-        is one capture. The prefill warms write garbage into a FREE slot
-        (skipped, with a log, when the slab is full); the decode warm runs
-        only while no session is live and writes to the slab's last row
-        (`_tick_positions`), so warming never perturbs a session. Returns
+        """Build every program the enabled lanes will run, counted
+        exactly: one prefill per bucket, plus (prefix cache on) one suffix
+        prefill per bucket and THE fork program, plus THE decode program
+        (plain) or THE verify program and the draft's own programs
+        (speculative); on the card each build is one capture. The prefill
+        warms write garbage into a FREE slot (skipped, with a log, when
+        the slab is full); the decode or verify warm runs only while no
+        session is live and writes to the safe rows (`_tick_positions`),
+        so warming never perturbs a session or a cached prefix. Returns
         ``{"buckets", "compiles", "captures", "seconds",
         "cache_entries"}``."""
         buckets = (self._buckets if buckets is None
                    else tuple(sorted({int(b) for b in buckets})))
         t0 = time.perf_counter()
-        with self._tick_lock:
+        with self._exclusive():
             misses0, captures0 = self._cache.misses, self.captures
             free_list = self._free_slots()
             free = free_list[0] if free_list else None
@@ -281,25 +457,170 @@ class GenerationEngine:
                                     "prefill warm for bucket %d", b)
                     continue
                 self._prefill_fn(b)(np.zeros(b, np.int64), 1, free)
-            if self._live == 0:
+                if self._prefix is not None:
+                    self._suffix_prefill_fn(b)(np.zeros(b, np.int64), 1,
+                                               free, 0)
+            if self._prefix is not None and free is not None:
+                self._fork_fn()(free, free)   # a self-copy disturbs nothing
+            idle = self._live == 0
+            if self._spec_k:
+                if idle:
+                    self._verify_fn()(
+                        np.zeros((self._slots, self._spec_k + 1), np.int64),
+                        self._tick_positions())
+                    self._draft.warm()
+                else:
+                    _logger.warning("generation warmup: engine busy, "
+                                    "skipping verify and draft warm")
+            elif idle:
                 self._decode_fn()(self._last_tok, self._tick_positions())
             compiles = self._cache.misses - misses0
             captures = self.captures - captures0
+        self._warmed = True
         return {"buckets": list(buckets), "compiles": compiles,
                 "captures": captures,
                 "seconds": time.perf_counter() - t0,
                 "cache_entries": len(self._cache)}
 
+    # -- weight rollout ------------------------------------------------------
+
+    def _bind_version(self, version):
+        """Write `version`'s copy into the model's parameters (tick lock
+        held), unless they hold it already."""
+        if version == self._bound_version:
+            return
+        params = self._param_sets[version][0]
+        with torch.no_grad():
+            for name, p in self._model.named_parameters():
+                p.copy_(params[name])
+        self._bound_version = version
+
+    def swap_weights(self, weights, draft_params=None, version=None):
+        """Flip to new weights BETWEEN ticks (takes the tick lock): new
+        admissions prefill and decode under them; sessions already live
+        keep decoding, bit-exact, under the version they were admitted
+        with until they finish (the tick replays the decode or verify
+        program once per live version, other cohorts' positions steered
+        to the safe rows). The slab, the prefix cache's structure and the
+        draft's slab survive; prefix entries of other versions are
+        evicted (their K/V would splice old-weight rows under new-weight
+        logits), and a checkpoint draft's parameters flip at once
+        (stale draft rows only cost acceptance; the verify decides).
+
+        ``weights`` is a `rollout.WeightSet` or a plain dict of arrays or
+        tensors. Returns the new version, or None when ``version`` is the
+        current one (an idempotent double publish). Rolling back to a
+        version still pinned by draining sessions reuses its copy. Raises
+        MXNetError, changing nothing, on other names or shapes, or while
+        another open engine serves the same model (its graphs read the
+        same parameters)."""
+        ws = None
+        if hasattr(weights, "arg_params") and hasattr(weights, "version"):
+            ws = weights
+            version = ws.version if version is None else version
+            new = dict(ws.arg_params)
+            new.update(ws.aux_params)
+            if draft_params is None and ws.draft_params:
+                draft_params = ws.draft_params
+        else:
+            new = dict(weights)
+        with self._exclusive():
+            others = [e for e in self._model._generation_engines
+                      if e is not self and not e.closed]
+            if others:
+                raise MXNetError(
+                    f"swap_weights: {len(others)} other open engine(s) "
+                    "serve this model's parameters")
+            if version is None:
+                version = self._weights_version + 1
+            version = int(version)
+            if version == self._weights_version:
+                return None
+            held = self._param_sets.get(version)
+            if held is None:
+                # the same names and shapes, cast to the bound dtypes: the
+                # swap is a copy into the tensors every graph reads
+                placed = state_like(self._model, new, "swap_weights")
+                cur, cur_ws = self._param_sets[self._weights_version]
+                if cur is None:
+                    # the outgoing version's only copy is the parameters
+                    self._param_sets[self._weights_version] = (
+                        {n: p.detach().clone()
+                         for n, p in self._model.named_parameters()}, cur_ws)
+                self._param_sets[version] = (
+                    placed, ws.acquire() if ws is not None else None)
+            self._weights_version = version
+            self._bind_version(version)
+            if draft_params and self._draft is not None:
+                self._draft.swap_params(draft_params)
+            if self._prefix is not None:
+                self._prefix.evict_other_versions(version)
+            self._gc_param_sets()
+        if health._enabled:
+            health.event("rollout_swap", engine=self.health_name,
+                         version=version,
+                         draining=len(self._param_sets) - 1)
+        _logger.info("weights swapped to version %d (%d older version(s) "
+                     "still draining)", version, len(self._param_sets) - 1)
+        return version
+
+    def weights_snapshot(self):
+        """Host copies of the CURRENT weights (and a checkpoint draft's)
+        in the port's names, bf16 as float32, with their version:
+        ``(version, params, draft or None)``."""
+        with self._exclusive():
+            params = {k: _host_copy(v)
+                      for k, v in self._model.named_parameters()}
+            draft = None
+            if hasattr(self._draft, "model"):
+                draft = {k: _host_copy(v)
+                         for k, v in self._draft.model.named_parameters()}
+            return self._weights_version, params, draft
+
+    def _cohorts(self):
+        """Live slots grouped by pinned weights version: one group in
+        steady state, more only while old versions drain after swaps."""
+        out = {}
+        for slot, sess in enumerate(self._sessions):
+            if sess is not None:
+                out.setdefault(sess.version, []).append(slot)
+        return out
+
+    def _gc_param_sets(self):
+        """Release weight versions no live session pins (tick lock held).
+        The current version always stays; a released WeightSet drops this
+        engine's reference, and the drain is journaled."""
+        if len(self._param_sets) <= 1:
+            return
+        pinned = {s.version for s in self._sessions if s is not None}
+        pinned.add(self._weights_version)
+        for v in [v for v in self._param_sets if v not in pinned]:
+            _, ws = self._param_sets.pop(v)
+            if ws is not None:
+                ws.release()
+            if health._enabled:
+                health.event("rollout_drained", engine=self.health_name,
+                             version=v, current=self._weights_version)
+
     def close(self, timeout=None):
         """Graceful drain: stop admission (`ServerClosedError` for new
         submits), keep ticking until every admitted AND queued session
-        completes, join the worker. Idempotent."""
+        completes, join the worker. Idempotent. Deregisters the health
+        probes and drops every WeightSet reference."""
         self._queue.close()
         self._closed = True
         with self._work:
             self._work.notify_all()
         if self._worker is not None and self._worker.is_alive():
             self._worker.join(timeout)
+        health.unregister(self.health_name)
+        with self._exclusive():
+            for _, ws in self._param_sets.values():
+                if ws is not None:
+                    ws.release()
+            self._param_sets = {
+                self._weights_version:
+                    (self._param_sets[self._weights_version][0], None)}
 
     def __enter__(self):
         return self
@@ -309,12 +630,23 @@ class GenerationEngine:
         return False
 
     def stats(self):
-        return {"cache": self._cache.snapshot(), "captures": self.captures,
-                "buckets": list(self._buckets), "slots": self._slots,
-                "live": self._live, "queued": len(self._queue),
-                "sessions": self.sessions_submitted,
-                "max_len": self._max_len,
-                "kv_slab_bytes": self.kv_slab_bytes()}
+        out = {"cache": self._cache.snapshot(), "captures": self.captures,
+               "buckets": list(self._buckets), "slots": self._slots,
+               "live": self._live, "queued": len(self._queue),
+               "sessions": self.sessions_submitted,
+               "max_len": self._max_len, "spec_k": self._spec_k,
+               "kv_slab_bytes": self.kv_slab_bytes(),
+               "weights_version": self._weights_version,
+               "weight_versions_live": self.live_weight_versions,
+               "prefix_hits": self.prefix_hits,
+               "prefix_misses": self.prefix_misses,
+               "spec_committed": self.spec_committed,
+               "spec_verified_slots": self.spec_verified_slots}
+        if self._prefix is not None:
+            out["prefix"] = self._prefix.stats()
+        if hasattr(self._draft, "slab_bytes"):
+            out["draft_slab_bytes"] = self._draft.slab_bytes()
+        return out
 
     # -- built programs ------------------------------------------------------
 
@@ -351,15 +683,86 @@ class GenerationEngine:
         return self._cache.get_or_build(
             ("decode", self._slots, self._slab_len), build)
 
+    def _fork_fn(self):
+        """THE fork program: (src, dst) -> copy slot `src`'s slab rows,
+        K and V, every layer, onto slot `dst`. One program serves every
+        (cached entry, session slot) pair."""
+        model, ck, cv = self._model, self._ck, self._cv
+
+        def fn(src, dst):
+            ck.index_copy_(0, dst, ck.index_select(0, src))
+            cv.index_copy_(0, dst, cv.index_select(0, src))
+            return (dst,)
+
+        def build():
+            return GraphProgram(fn, [(1,), (1,)], model.device, self._pool)
+
+        return self._cache.get_or_build(
+            ("fork", self._slots, self._slab_len), build)
+
+    def _suffix_prefill_fn(self, bucket):
+        """The bucket's suffix-prefill program: (padded suffix, length,
+        slot, offset) -> the greedy next token, writing the slot's rows
+        ``[offset, offset + bucket)`` and attending the forked prefix."""
+        model, ck, cv = self._model, self._ck, self._cv
+
+        def fn(tokens, length, slot, offset):
+            logits, _, _ = model.prefill_at(ck, cv, tokens, length, slot,
+                                            offset)
+            return logits.argmax().reshape(1), logits
+
+        def build():
+            return GraphProgram(fn, [(bucket,), (1,), (1,), (1,)],
+                                model.device, self._pool)
+
+        return self._cache.get_or_build(
+            ("suffix_prefill", bucket, self._slots, self._slab_len), build)
+
+    def _verify_fn(self):
+        """THE verify program: k + 1 unrolled decode steps over the whole
+        slab, (tokens [S, k+1], positions) -> the greedy token after each
+        prefix of every slot's block. Its key never changes."""
+        model, ck, cv = self._model, self._ck, self._cv
+        k1 = self._spec_k + 1
+
+        def fn(tokens, positions):
+            logits, _, _ = model.verify_step(ck, cv, tokens, positions)
+            return logits.argmax(-1), logits
+
+        def build():
+            return GraphProgram(fn, [(self._slots, k1), (self._slots,)],
+                                model.device, self._pool)
+
+        return self._cache.get_or_build(
+            ("verify", self._spec_k, self._slots, self._slab_len), build)
+
     # -- scheduler -----------------------------------------------------------
 
     def _has_work(self):
         return self._live > 0 or len(self._queue) > 0
 
+    @contextlib.contextmanager
+    def _exclusive(self):
+        """The tick lock for a caller outside the scheduler (`warm`,
+        `swap_weights`, `weights_snapshot`, `close`): while one waits, the
+        worker and assisting iterators leave the lock to it between ticks.
+        A plain wait could starve: the worker retakes the lock at once
+        after each tick."""
+        with self._work:
+            self._waiting += 1
+        try:
+            with self._tick_lock:
+                yield
+        finally:
+            with self._work:
+                self._waiting -= 1
+                self._work.notify_all()
+
     def _loop(self):
         while True:
             with self._work:
-                while not self._closed and not self._has_work():
+                while not self._closed and (self._waiting
+                                            or not self._has_work()):
                     self._work.wait()
                 if self._closed and not self._has_work():
                     return
@@ -369,8 +772,8 @@ class GenerationEngine:
         """Caller-runs assist (stream iterators call this while waiting):
         run one tick inline if the tick lock is free. Returns True when a
         tick ran (or there was nothing to do), False when another thread
-        holds the lock."""
-        if not self._tick_lock.acquire(blocking=False):
+        holds the lock or an `_exclusive` caller waits for it."""
+        if self._waiting or not self._tick_lock.acquire(blocking=False):
             return False
         try:
             if self._has_work():
@@ -402,6 +805,10 @@ class GenerationEngine:
                         f"generated token(s)"))
             self._admit()
             self._decode()
+            if len(self._param_sets) > 1:
+                # a swap is draining: release versions whose last session
+                # just finished
+                self._gc_param_sets()
         except Exception as e:  # noqa: BLE001 - never strand a session
             _logger.exception("generation tick failed")
             for slot, sess in enumerate(self._sessions):
@@ -409,6 +816,12 @@ class GenerationEngine:
                     self._evict(slot, "error", e)
             self._ck.zero_()
             self._cv.zero_()
+            if self._prefix is not None:
+                self._prefix.clear("slab_reset")   # its rows were zeroed
+            if self._draft is not None:
+                self._draft.reset()
+            self._gc_param_sets()
+            self._bind_version(self._weights_version)
         if self._has_work():
             # an assist tick pops the queue before the session is live; a
             # worker that re-checked _has_work() in that window went back
@@ -417,36 +830,62 @@ class GenerationEngine:
                 self._work.notify_all()
 
     def _free_slots(self):
-        return [i for i in range(self._slots) if self._sessions[i] is None]
+        """Slots holding neither a live session nor a cached prefix."""
+        held = self._prefix.slots() if self._prefix is not None else ()
+        return [i for i in range(self._slots)
+                if self._sessions[i] is None and i not in held]
 
-    def _tick_positions(self):
-        """Write positions for the decode program: a live slot's length,
-        and the slab's LAST row for every other slot. Dead slots still get
-        a K/V row written every tick (the fixed shape computes all slots),
-        so their garbage goes to row ``slab_len - 1``, which no session
-        reads before its own write (a session ends before its length
-        reaches the slab's). Every position must be in range, since the
-        card faults where JAX clamps: checked here."""
+    def _tick_positions(self, active=None):
+        """Write positions for the decode and verify programs: a live
+        slot's length, and the safe row ``max_len - 1`` for every other
+        slot. Dead and cache-held slots still get K/V rows written every
+        tick (the fixed shape computes all slots), rows ``[safe, safe +
+        spec_k]``: the slab's last ``spec_k + 1`` rows, which no cached
+        entry owns (a cached prompt has at most ``max_len - 1`` tokens)
+        and which a live session writes before it reads them.
+
+        ``active`` (slot indices) also steers every LIVE slot outside it
+        to the safe row: the per-version cohort replay during a weight
+        swap, where each replay must advance only its own slots. Every
+        write must be in range, since the card faults where JAX clamps:
+        checked here."""
         pos = self._lengths.copy()
-        safe = self._slab_len - 1
+        safe = self._max_len - 1
+        act = None if active is None else set(active)
         for i, s in enumerate(self._sessions):
-            if s is None:
+            if s is None or (act is not None and i not in act):
                 pos[i] = safe
         if pos.min() < 0 or pos.max() > safe:
-            raise MXNetError(f"decode positions {pos} outside the slab's "
-                             f"rows [0, {safe}]")
+            raise MXNetError(f"decode positions {pos} outside the rows "
+                             f"[0, {safe}] of a slab of {self._slab_len}")
         return pos
 
+    def _prefix_claimable(self):
+        """Cache entries session pressure may evict: all above the
+        retention floor (one entry, none on a one-slot engine), which
+        keeps the hottest prefix through full occupancy."""
+        if self._prefix is None:
+            return 0
+        keep = min(1, max(self._slots - 1, 0))
+        return max(len(self._prefix) - keep, 0)
+
     def _claim_slot(self, free):
-        """Pop a free slot for a session, or None when the slab is full."""
-        return free.pop(0) if free else None
+        """Pop a slot for a session: from the free list, else by evicting
+        the LRU unpinned prefix entry above the retention floor (live
+        sessions outrank cached prefixes). None when the slab is full."""
+        if free:
+            return free.pop(0)
+        if self._prefix_claimable() and len(self._queue):
+            return self._prefix.evict_lru("slot_pressure")
+        return None
 
     def _admit(self):
         """Move queued sessions into free slots (prefill), oldest first,
         until the slab is full, the queue is empty or the tick budget is
-        spent: at least one admission per tick when a slot is free."""
+        spent: at least one admission per tick when a slot is free or
+        freeable by evicting a cached prefix."""
         free = self._free_slots()
-        if free:
+        if free or (self._prefix_claimable() and len(self._queue)):
             self._admit_into(free, time.perf_counter())
 
     def _admit_into(self, free, t0):
@@ -465,17 +904,35 @@ class GenerationEngine:
                 free.append(slot)
                 continue
             n = int(sess.prompt.size)
-            bucket = self.bucket_for(n)
+            # prefix-cache lane: fork the longest usable cached prefix,
+            # then prefill only the unmatched suffix
+            node = None
+            if self._prefix is not None:
+                node, m = self._prefix.match(sess.prompt,
+                                             version=self._weights_version)
+                if node is None or m < self._prefix_min:
+                    node = None
+                elif m + self.bucket_for(n - m) > self._slab_len:
+                    # the suffix's BUCKET must fit past the split point:
+                    # its rows would overhang the slab (a fault on the
+                    # card). Near-capacity prompts take the full prefill
+                    node = None
             try:
-                # submit() keeps these in range; the card would fault
-                if not (bucket is not None and bucket <= self._slab_len
-                        and 0 <= slot < self._slots):
-                    raise MXNetError(f"prompt of {n} tokens in bucket "
-                                     f"{bucket} at slot {slot} does not fit "
-                                     f"the slab")
-                padded = np.zeros(bucket, np.int64)
-                padded[:n] = sess.prompt
-                tok = int(self._prefill_fn(bucket)(padded, n, slot)[0])
+                if node is not None:
+                    tok = self._fork_admit(sess, slot, node, m)
+                else:
+                    bucket = self.bucket_for(n)
+                    # submit() keeps these in range; the card would fault
+                    if not (bucket is not None and bucket <= self._slab_len
+                            and 0 <= slot < self._slots):
+                        raise MXNetError(f"prompt of {n} tokens in bucket "
+                                         f"{bucket} at slot {slot} does not "
+                                         f"fit the slab")
+                    padded = np.zeros(bucket, np.int64)
+                    padded[:n] = sess.prompt
+                    tok = int(self._prefill_fn(bucket)(padded, n, slot)[0])
+                    if self._prefix is not None:
+                        self.prefix_misses += 1
             except Exception as e:
                 # the popped session is in neither the queue nor a slot:
                 # fail its stream here, or it is stranded; re-raise so the
@@ -483,11 +940,25 @@ class GenerationEngine:
                 sess.stream._fail(e)
                 raise
             sess.slot = slot
+            # pinned for the session's whole life: after a swap the tick
+            # keeps decoding it under these weights
+            sess.version = sess.stream.weights_version = self._weights_version
             self._sessions[slot] = sess
             self._lengths[slot] = n
             self._last_tok[slot] = tok
             self._live += 1
+            if self._draft is not None:
+                self._draft.on_admit(slot, sess.prompt, tok)
             self._deliver(sess, tok)
+            # cache the prompt's K/V while a free slot exists (an insert
+            # never evicts): the slot's rows [0, n) are exactly that K/V
+            # right after its prefill, so one fork snapshots them
+            if self._prefix is not None and n >= self._prefix_min and free:
+                cslot = free[0]
+                if self._prefix.insert(sess.prompt, cslot,
+                                       version=sess.version) is not None:
+                    free.pop(0)
+                    self._fork_fn()(slot, cslot)
             # the first token may already end the session; its slot goes
             # straight back on the free list
             self._maybe_finish(slot)
@@ -496,38 +967,134 @@ class GenerationEngine:
             if time.perf_counter() - t0 > self._tick_budget_s:
                 return
 
+    def _fork_admit(self, sess, slot, node, m):
+        """Cache-hit admission: pin the entry, fork its slot onto the
+        session's, suffix-prefill the unmatched tail at offset ``m``.
+        Returns the first sampled token."""
+        suffix = sess.prompt[m:]
+        ns = int(suffix.size)
+        bucket = self.bucket_for(ns)
+        padded = np.zeros(bucket, np.int64)
+        padded[:ns] = suffix
+        self._prefix.acquire(node)
+        try:
+            self._fork_fn()(node.slot, slot)
+            tok = int(self._suffix_prefill_fn(bucket)(padded, ns, slot,
+                                                      m)[0])
+        finally:
+            self._prefix.release(node)
+        sess.prefix_len = m
+        sess.stream.cached_prefix_len = m
+        self.prefix_hits += 1
+        return tok
+
     def _decode(self):
         """ONE step over the whole slab: every live session advances one
-        token; dead slots ride along as masked garbage."""
+        token (plain) or up to ``spec_k + 1`` (speculative verify); dead
+        slots ride along as masked garbage."""
         pending = self._decode_dispatch()
         if pending is not None:
             self._decode_commit(pending)
 
+    def _cohort_dispatch(self, run):
+        """``run(positions)`` once per live weights version, that
+        version's weights bound and the other cohorts' slots steered to
+        the safe row, the current weights bound again after. Returns
+        ``[(slots, their sessions, run's tokens)]``."""
+        cohorts = self._cohorts()
+        mixed = len(cohorts) > 1
+        pending = []
+        try:
+            for version in sorted(cohorts):
+                slots = cohorts[version]
+                self._bind_version(version)
+                toks = run(self._tick_positions(slots) if mixed
+                           else self._tick_positions())
+                # a slot evicted or re-admitted before the commit fails
+                # the identity check there and its token is dropped
+                pending.append((slots, [self._sessions[s] for s in slots],
+                                toks))
+        finally:
+            self._bind_version(self._weights_version)
+        return pending
+
     def _decode_dispatch(self):
-        """Run the decode program on the slab's current tokens and
-        positions. Returns ``(slots, their sessions, tokens)`` for
-        `_decode_commit`, or None when no slot is live."""
+        """Run the decode (or verify) program once per version cohort.
+        Returns the state for `_decode_commit`, or None when no slot is
+        live."""
         if self._live == 0:
             return None
-        toks = self._decode_fn()(self._last_tok, self._tick_positions())
-        slots = [s for s, sess in enumerate(self._sessions)
-                 if sess is not None]
-        return slots, [self._sessions[s] for s in slots], toks
+        if self._spec_k:
+            return self._spec_dispatch()
+        prog = self._decode_fn()
+        return "plain", self._cohort_dispatch(
+            lambda pos: prog(self._last_tok, pos))
 
-    def _decode_commit(self, pending):
+    def _decode_commit(self, state):
         """Deliver one token per still-live slot, advance its length and
         evict the sessions that ended."""
-        slots, snap, toks = pending
-        for slot, dispatched in zip(slots, snap):
-            sess = self._sessions[slot]
-            if sess is None or sess is not dispatched:
-                continue
-            # the token we fed now occupies position lengths[slot]
-            self._lengths[slot] += 1
-            tok = int(toks[slot])
-            self._last_tok[slot] = tok
-            self._deliver(sess, tok)
-            self._maybe_finish(slot)
+        kind, pending = state
+        if kind == "spec":
+            self._spec_commit(pending)
+            return
+        for slots, snap, toks in pending:
+            for slot, dispatched in zip(slots, snap):
+                sess = self._sessions[slot]
+                if sess is None or sess is not dispatched:
+                    continue
+                # the token we fed now occupies position lengths[slot]
+                self._lengths[slot] += 1
+                tok = int(toks[slot])
+                self._last_tok[slot] = tok
+                self._deliver(sess, tok)
+                self._maybe_finish(slot)
+
+    def _spec_dispatch(self):
+        """The draft proposes k tokens a slot, once, with its current
+        parameters (proposals may be wrong for an old cohort; its verify
+        corrects them), then the verify program runs per cohort."""
+        k = self._spec_k
+        props = np.asarray(self._draft.propose(k, self._sessions),
+                           np.int64)                            # [S, k]
+        tokens = np.concatenate([self._last_tok[:, None].astype(np.int64),
+                                 props], axis=1)
+        prog = self._verify_fn()
+        return "spec", (props, self._cohort_dispatch(
+            lambda pos: prog(tokens, pos)))
+
+    def _spec_commit(self, state):
+        """Each still-live slot takes the longest agreeing draft prefix
+        plus the target's next token (1..k+1 tokens), rolling the rest
+        back by NOT advancing its position: the rejected rows beyond the
+        new frontier are never attended and are overwritten in order
+        before they could be."""
+        props, pending = state
+        k = self._spec_k
+        for slots, snap, toks in pending:
+            for slot, dispatched in zip(slots, snap):
+                sess = self._sessions[slot]
+                if sess is None or sess is not dispatched:
+                    continue
+                t, d = toks[slot], props[slot]
+                a = 0
+                while a < k and d[a] == t[a]:
+                    a += 1
+                committed = []
+                for j in range(a + 1):
+                    # as one plain decode step: the token fed at position
+                    # lengths[slot] is now in the slab, t[j] is the next
+                    self._lengths[slot] += 1
+                    tok = int(t[j])
+                    self._last_tok[slot] = tok
+                    committed.append(tok)
+                    self._deliver(sess, tok)
+                    self._maybe_finish(slot)
+                    if self._sessions[slot] is None:
+                        break
+                if self._sessions[slot] is not None:
+                    self._draft.on_commit(slot, committed)
+                self.spec_verified_slots += 1
+                self.spec_committed += len(committed)
 
     # -- delivery / eviction -------------------------------------------------
 
@@ -554,6 +1121,8 @@ class GenerationEngine:
         self._lengths[slot] = 0
         self._last_tok[slot] = 0
         self._live -= 1
+        if self._draft is not None:
+            self._draft.on_evict(slot)
         if reason not in ("eos", "finished"):
             _logger.info("generation slot %d evicted (%s) after %d token(s)",
                          slot, reason, sess.generated)

@@ -1,0 +1,262 @@
+"""GenerationRouter: spread sessions across engine replicas by prefix
+affinity and occupancy.
+
+The port of `mxnet_tpu/serving/generation/router.py`. One
+`GenerationEngine` is one model replica with one KV slab; scale-out is N of
+them behind this router. Placement is decided in two tiers:
+
+* **prefix affinity**: each replica's `GenerationEngine.prefix_match_len`
+  reports how many of the prompt's tokens its radix prefix cache could
+  fork (a host trie walk, no device work); the session goes to the replica
+  with the LONGEST usable match. Without this a fleet cold-misses a
+  shared system prompt N - 1 times. Affinity placements are journaled
+  (``router_affinity`` health events);
+* **load**: with no usable match anywhere, the replica with the lowest
+  ``(live slots + queued sessions) / max_slots`` wins (queued sessions
+  count, so a burst does not pile onto one replica before its prefills
+  land), with a rotating tie-break so an idle fleet still shares evenly.
+
+A replica that rejects with `QueueFullError` (or `ServerClosedError`, a
+replica mid-drain) fails over to the next candidate; only when EVERY
+replica refuses does the caller see backpressure. With the health layer on
+(``MXNET_HEALTH=1``), placement also consults each engine's readiness: an
+unready replica is drained (no new sessions while its live ones finish)
+and re-admitted once its probe passes, each transition journaled
+(``engine_drain`` / ``engine_undrain``); a fleet with no ready replica
+falls back to load order over all of them.
+
+`scale_to` grows the fleet from a factory (each new replica warmed before
+it takes traffic) or drains surplus replicas in background threads.
+
+Not ported yet, each raising NotImplementedError: QoS-class placement and
+`rebalance_parked` (ROADMAP.md queue A, item 6.3, `qos.py`),
+`bind_autoscale` (item 9, the autoscale signal) and `rolling_swap` (its
+SLO burn gate needs item 9's tracker).
+"""
+from __future__ import annotations
+
+import itertools
+import threading
+
+from ... import health
+from ...base import MXNetError
+from ..admission import QueueFullError, ServerClosedError
+
+__all__ = ["GenerationRouter"]
+
+
+class GenerationRouter:
+    """Affinity- and occupancy-balancing front end over N generation
+    engines.
+
+    Parameters
+    ----------
+    engines : list[GenerationEngine]
+        The initial fleet (>= 1 replica).
+    factory : callable, optional
+        Zero-argument constructor of one new engine, which `scale_to`
+        needs to grow the fleet.
+    min_engines / max_engines : int, optional
+        Clamp for `scale_to` (defaults: 1 / no upper bound).
+    """
+
+    def __init__(self, engines, factory=None, min_engines=1,
+                 max_engines=None):
+        engines = list(engines)
+        if not engines:
+            raise MXNetError("GenerationRouter needs >= 1 engine")
+        self._engines = engines
+        self._factory = factory
+        self._min = max(int(min_engines), 1)
+        self._max = None if max_engines is None else int(max_engines)
+        self._rr = itertools.count()
+        self._lock = threading.Lock()
+        self._scale_lock = threading.Lock()
+        self._ready_state = {}      # engine health_name -> last ready bool
+        self._all_unready = False
+        self._draining = []         # (engine, closer thread) during shrink
+        self._closed = False
+
+    @property
+    def engines(self):
+        with self._lock:
+            return list(self._engines)
+
+    def loads(self):
+        """Per-replica occupancy, the placement signal."""
+        return [e.load for e in self.engines]
+
+    def _ready_indices(self, engines):
+        """Readiness sweep (health layer on): the engine indices placement
+        may use, with drain / undrain transitions journaled. Falls back to
+        ALL indices when nothing is ready."""
+        ready = []
+        for i, eng in enumerate(engines):
+            ok, reason = eng.ready()
+            key = eng.health_name
+            prev = self._ready_state.get(key)
+            # journal each transition, including a first sweep that finds
+            # the engine already unready
+            if prev != ok and not (prev is None and ok):
+                health.event("engine_undrain" if ok else "engine_drain",
+                             engine=key, index=i, reason=reason)
+            self._ready_state[key] = ok
+            if ok:
+                ready.append(i)
+        # forget replicas no longer in the fleet, or the dict grows with
+        # every grow cycle's new engine names
+        live = {e.health_name for e in engines}
+        for key in [k for k in self._ready_state if k not in live]:
+            del self._ready_state[key]
+        if not ready:
+            # availability over strictness: an all-unready fleet still
+            # places by load (the engines' own backpressure bounds it)
+            if not self._all_unready:
+                self._all_unready = True
+                health.event("fleet_all_unready", engines=len(engines))
+            return list(range(len(engines)))
+        self._all_unready = False
+        return ready
+
+    def submit(self, prompt, **kwargs):
+        """Place one session: longest cached prompt prefix first, then
+        least loaded (rotating tie-break; READY replicas only when the
+        health layer is on and any is ready); fail over across replicas on
+        `QueueFullError` or `ServerClosedError` and re-raise only when
+        every candidate refuses. Keyword arguments go to
+        `GenerationEngine.submit`."""
+        engines = self.engines
+        n = len(engines)
+        k = next(self._rr)
+        candidates = (set(self._ready_indices(engines))
+                      if health._enabled else None)
+        matches = [e.prefix_match_len(prompt) for e in engines]
+        best = max(matches)
+
+        def _key(i):
+            j = (i + k) % n
+            return (-matches[j], engines[j].load, i)
+
+        last_exc = None
+        for i in sorted(range(n), key=_key):
+            j = (i + k) % n
+            if candidates is not None and j not in candidates:
+                continue
+            eng = engines[j]
+            try:
+                stream = eng.submit(prompt, **kwargs)
+            except (QueueFullError, ServerClosedError) as e:
+                # a replica mid-drain (a concurrent scale_to shrink) fails
+                # over like a full one
+                last_exc = e
+                continue
+            if health._enabled and best > 0 and matches[j] == best:
+                health.event("router_affinity", engine=eng.health_name,
+                             matched=int(matches[j]),
+                             prompt_tokens=int(len(prompt)))
+            return stream
+        raise last_exc if last_exc is not None else QueueFullError(
+            "every generation replica is saturated")
+
+    def generate(self, prompt, **kwargs):
+        """Blocking convenience: route, then collect the full token list."""
+        return list(self.submit(prompt, **kwargs))
+
+    def rebalance_parked(self, max_n=None):
+        raise NotImplementedError(
+            "GenerationRouter.rebalance_parked needs the QoS park region "
+            "(ROADMAP.md queue A, item 6.3)")
+
+    def scale_to(self, n, reason="manual", warm=True):
+        """Resize the fleet to ``n`` replicas (clamped to ``[min_engines,
+        max_engines]``). Growth builds engines with the factory and warms
+        them before they take traffic; shrink pops the newest replicas,
+        stops placing on them at once and drains them in background
+        threads (``close()``: live AND queued sessions finish). Returns the
+        new fleet size; journaled as ``autoscale_actuate``. A closed
+        router does not scale."""
+        if self._closed:
+            return len(self.engines)
+        n = max(int(n), self._min)
+        if self._max is not None:
+            n = min(n, self._max)
+        grown, drained = [], []
+        with self._scale_lock:
+            with self._lock:
+                need = n - len(self._engines)
+            if need > 0 and self._factory is None:
+                raise MXNetError("GenerationRouter.scale_to needs an engine "
+                                 "factory to grow the fleet")
+            for _ in range(max(need, 0)):
+                # built AND warmed before it is published: an unwarmed
+                # replica sorts first by load, and a submit racing the
+                # growth would pay its captures on the serving path
+                eng = self._factory()
+                if warm:
+                    eng.warm()
+                grown.append(eng)
+            with self._lock:
+                self._engines.extend(grown)
+                while len(self._engines) > n:
+                    drained.append(self._engines.pop())
+        for eng in drained:
+            t = threading.Thread(target=eng.close, daemon=True,
+                                 name="mxnet_tpu_torch.serving.generation."
+                                 "drain")
+            t.start()
+            with self._lock:
+                self._draining.append((eng, t))
+        if (grown or drained) and health._enabled:
+            health.event("autoscale_actuate", replicas=n, grown=len(grown),
+                         drained=len(drained), reason=reason)
+        with self._lock:
+            self._draining = [(e, t) for e, t in self._draining
+                              if t.is_alive()]
+        return n
+
+    def bind_autoscale(self):
+        raise NotImplementedError(
+            "GenerationRouter.bind_autoscale needs the health layer's "
+            "autoscale signal (ROADMAP.md queue A, item 9)")
+
+    def rolling_swap(self, weights, draft_params=None, version=None,
+                     observe_s=None, gate=None, rollback=True,
+                     reason="publish"):
+        raise NotImplementedError(
+            "GenerationRouter.rolling_swap needs the SLO burn tracker for "
+            "its gate (ROADMAP.md queue A, item 9); swap each engine with "
+            "GenerationEngine.swap_weights")
+
+    def warm(self, buckets=None):
+        """Warm every replica; sums the builds (``serving.warmup``
+        reports through this)."""
+        out = {"buckets": None, "compiles": 0, "captures": 0,
+               "seconds": 0.0, "cache_entries": 0}
+        for e in self.engines:
+            w = e.warm(buckets)
+            out["buckets"] = w["buckets"]
+            for key in ("compiles", "captures", "seconds", "cache_entries"):
+                out[key] += w[key]
+        return out
+
+    def close(self, timeout=None):
+        self._closed = True
+        for e in self.engines:
+            e.close(timeout)
+        with self._lock:
+            draining, self._draining = self._draining, []
+        for _, t in draining:
+            t.join(timeout)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        self.close()
+        return False
+
+    def stats(self):
+        engines = self.engines
+        return {"replicas": len(engines),
+                "loads": [e.load for e in engines],
+                "engines": [e.stats() for e in engines]}

@@ -41,6 +41,8 @@ class GenerationStream:
         self.deadline = deadline
         self.submitted_at = time.monotonic()
         self.first_token_at = None
+        self.cached_prefix_len = 0  # prompt tokens forked from the cache
+        self.weights_version = None  # pinned at admission (swap_weights)
 
     # -- engine side ---------------------------------------------------------
 

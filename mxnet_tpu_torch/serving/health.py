@@ -1,6 +1,10 @@
 """Serving-side health probes: the port of the request-level half of
 `mxnet_tpu/serving/health.py`.
 
+* :func:`attach_engine`: a `GenerationEngine` registers a liveness probe
+  (its scheduler worker alive) and a readiness probe (warmed, the intake
+  queue below the watermark, not draining), which the `GenerationRouter`
+  consults for placement when the health layer is on;
 * :func:`attach_predictor`: a `Predictor` registers a readiness probe
   (warm-up run, or a bucket already bound by traffic);
 * :func:`attach_batcher`: a `DynamicBatcher` registers a liveness probe
@@ -9,8 +13,8 @@
 
 Registration happens at construction (weak references, a few dict
 entries); :mod:`mxnet_tpu_torch.health` aggregates the probes. Not ported
-yet (ROADMAP.md queue A, item 6.4): `attach_engine` for the generation
-engine.
+yet (ROADMAP.md queue A, item 9): the engine's tick beacon for the stall
+watchdog, so `attach_engine` returns the probe name only.
 """
 from __future__ import annotations
 
@@ -19,8 +23,8 @@ import itertools
 from .. import health
 from ..base import getenv
 
-__all__ = ["attach_batcher", "attach_predictor", "queue_watermark",
-           "queue_ready"]
+__all__ = ["attach_engine", "attach_batcher", "attach_predictor",
+           "queue_watermark", "queue_ready"]
 
 _seq = itertools.count()
 
@@ -39,6 +43,23 @@ def queue_ready(queue):
         return False, (f"queue depth {depth} >= watermark "
                        f"{limit:.0f} (of {queue.max_depth})")
     return True, f"queue {depth}/{queue.max_depth}"
+
+
+def _engine_live(e):
+    return e.healthy()
+
+
+def _engine_ready(e):
+    return e.ready()
+
+
+def attach_engine(engine):
+    """Register one generation engine's probes. Returns the
+    (engine-unique) probe name."""
+    name = f"generation.engine.{next(_seq)}"
+    health.register_liveness(name, engine, _engine_live)
+    health.register_readiness(name, engine, _engine_ready)
+    return name
 
 
 def _batcher_live(b):

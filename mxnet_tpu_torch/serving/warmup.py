@@ -3,9 +3,9 @@
 The port of `mxnet_tpu/serving/warmup.py`. A server that builds lazily pays
 the build (on the card, a CUDA-graph capture) on the first unlucky user
 request of each shape. Warmup runs a zeros batch through every bucket of a
-`Predictor` (or of a `DynamicBatcher`'s predictor), or builds the prefill
-programs and THE decode program of a `GenerationEngine`, so steady state
-builds nothing.
+`Predictor` (or of a `DynamicBatcher`'s predictor), or builds every
+program of a `GenerationEngine` (or of each engine behind a
+`GenerationRouter`), so steady state builds nothing.
 """
 from __future__ import annotations
 
@@ -20,14 +20,17 @@ def warmup(target, buckets=None):
     """Build every program of ``target`` ahead of traffic.
 
     ``target`` is a `Predictor` or `DynamicBatcher` (one forward program
-    per batch bucket) or a `GenerationEngine` (one prefill program per
-    prompt-length bucket plus THE decode program); anything else raises
-    TypeError. Returns ``{"buckets", "compiles", "seconds",
-    "cache_entries"}`` (an engine's also has ``"captures"``):
+    per batch bucket) or a `GenerationEngine` or `GenerationRouter` (one
+    prefill program per prompt-length bucket plus THE decode program, and
+    the programs of the enabled lanes, per replica: `GenerationEngine.warm`);
+    anything else raises TypeError. Returns ``{"buckets", "compiles", "seconds",
+    "cache_entries"}`` (an engine's or router's also has ``"captures"``):
     ``compiles`` is the exact number of new programs built (the
     cache-miss delta; on a card, graphs captured), so a second call
     reports 0."""
-    if hasattr(target, "prefill_buckets"):
+    if hasattr(target, "prefill_buckets") or any(
+            hasattr(e, "prefill_buckets")
+            for e in getattr(target, "engines", ())):
         return target.warm(buckets)
     pred = getattr(target, "predictor", target)
     if not hasattr(pred, "warm_bucket"):

@@ -224,3 +224,25 @@ def test_capture_stream_waits_back_when_the_block_raises(captures,
             assert not gc.isenabled()
             raise RuntimeError("warm-up")
     assert len(waits) == 2  # the side stream on the current, and back
+
+
+def test_module_profiles_are_taken_before_the_noise_graphs(monkeypatch):
+    """`chip_smoke.module_phase` profiles the full-width Module steps
+    before `module_checks` makes and destroys the graphs of its noise
+    reading. Profiled after those and after later profiler sessions, the
+    fused step's replay segfaulted inside torch.profiler's graph launch,
+    where plain replays at the same point ran (ROADMAP C.4,
+    `chip_profile_order.py`)."""
+    import chip_smoke as cs
+
+    order = []
+    monkeypatch.setattr(cs, "module_full_width",
+                        lambda torch_, mx_, smi, fused: (
+                            {}, "fused" if fused else "eager"))
+    monkeypatch.setattr(cs, "profile_step",
+                        lambda torch_, step, must_run: order.append(step))
+    monkeypatch.setattr(cs, "module_checks",
+                        lambda mx_, workdir: order.append("checks") or {})
+    _, profiles = cs.module_phase(torch, "card", "unused", profile=True)
+    assert order == ["fused", "eager", "checks"]
+    assert set(profiles) == {"module_fused", "module_eager"}
