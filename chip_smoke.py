@@ -24,7 +24,11 @@ Phases, each printed as one JSON line:
            kvstore with 2-bit gradient compression, in a one-rank NCCL
            process group opened on a free localhost port: per parameter a
            K3 quantize, an all-gather of the packed words, a dequantize and
-           a pull; the group is destroyed at the end of the phase;
+           a pull; the group is destroyed at the end of the phase. With
+           telemetry on for the steps (slice 11): the ``dist.*_bytes``
+           counters must equal the bytes of the 32-bit words K3 packs
+           (4 x ceil(n / 16) a parameter of n values, a step) and
+           ``kvstore.push_bytes`` / ``pull_bytes`` the dense gradients';
   generate slice 5's path, run before the trainer: `GenerationEngine` over
            the default model (weights from seed 0) with a 32 x 2048 KV slab
            (512 MiB) and the prefill ladder 8, 16, ..., 2048, served by its
@@ -174,6 +178,27 @@ Phases, each printed as one JSON line:
            outputs of (b) and (d) must spread (standard deviation at least
            1e-2); (e) four threads hitting an unwarmed predictor at once
            make one capture a bucket; (f) no kernel launched;
+  observe  slice 11's observability planes, after serve (`observe_phase`),
+           with telemetry, tracing, health and the observatory on over the
+           full-width models of the earlier phases, in short windows:
+           generate (the default model, a 32 x 2048 slab: a 16-session
+           burst with the planes off, then on, equal streams; the tokens
+           counter equals the tokens streamed, the census's kv_cache is
+           exactly the 512 MiB slab and at most what the allocator holds,
+           no capture after warm-up, the tick beacon's median gap within
+           2x of the median tick; then 16 prefix sessions and a spec burst
+           with the n-gram draft, whose prefix.* / spec.* counters equal
+           the engines' counts), serve (the serve phase's ResNet-50 v1
+           checkpoint: 200 requests through the batcher off, then on;
+           200 requests counted, one complete span tree each; the bucket-32
+           program's counted FLOPs within 3 % of the phase's bound),
+           module (`Module.fit` of the symbolic ResNet-50 over two batches:
+           the step.* histograms count 2, the fit.step beacon moved twice,
+           the step program's FLOPs within 3 % of its bound) and the peak
+           probes (bf16 and fp32 matmul, a device copy, each below 1.05 x
+           the data sheet). Prints the roofline rows of the step,
+           bucket-32 and tick programs, the peaks, tokens/s and req/s with
+           the planes off and on, and the telemetry snapshot's path;
   kernels  each kernel against its plain PyTorch version on the card, at the
            shapes the main path gives it and at extra cases (every head dim
            and dtype variant of K1 and K2), with times (`cuda_ms`: many calls
@@ -183,7 +208,12 @@ Phases, each printed as one JSON line:
            the plain version's, one PyTorch library call's as a yardstick
            where one exists, the least time the card could take (`bound_ms`,
            H100 SXM peaks), its share of `ms`, and the achieved TFLOP/s;
-and last {"ok": true, "device": {...}}. Every kernel's launch count is set
+  profiler ``mx.profiler`` (slice 11), last of all: one full-width train
+           step between `profiler.start` and `dump`; the dumped trace must
+           hold its 4 K1 launches by the kernel's name, a telemetry counter
+           event and the step's span;
+and last the card's name and power limit, then {"ok": true, "device":
+{...}}. Every kernel's launch count is set
 to 0 just before each path and read just after; each path must launch its
 own kernels and no other. Any failed check raises, so the script exits
 non-zero and prints no last line; so does a machine without a CUDA card.
@@ -516,6 +546,7 @@ def trainer_phase(torch, profile=False):
     import torch.distributed as dist
 
     from mxnet_tpu_torch import gradient_compression as gcm
+    from mxnet_tpu_torch import telemetry
     from mxnet_tpu_torch.gluon import Trainer
     from mxnet_tpu_torch.parallel import KVStoreDistTPUSync
 
@@ -555,6 +586,11 @@ def trainer_phase(torch, profile=False):
             gcm.GradientCompression.quantize = observed
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
+            # MXNET_TELEMETRY=1 for the steps: the dist.* and kvstore.*
+            # series of the path
+            tele_was = telemetry.enabled()
+            telemetry.reset()
+            telemetry.enable()
             reset_launches()
             losses, seconds, shares = [], [], []
             for _ in range(TRAIN_STEPS):
@@ -566,6 +602,9 @@ def trainer_phase(torch, profile=False):
                 shares.append(nonzero_code_share(packs, n_values))
                 packs.clear()
             launches = read_launches()
+            snap = telemetry.snapshot()
+            telemetry.enable(tele_was)
+            telemetry.reset()
             gcm.GradientCompression.quantize = real_quantize
             kv = trainer._kvstore
             check(isinstance(kv, KVStoreDistTPUSync) and kv.num_workers == 1
@@ -586,6 +625,7 @@ def trainer_phase(torch, profile=False):
                     "flash_block_partials": 0}
             check(launches == want,
                   f"trainer path launched {launches}, want {want}")
+            series = trainer_series(snap, lm)
             profiled = profile_step(
                 torch, lambda: one_step(trainer),
                 must_run=("K1 flash_attention_fwd", "K3 quantize_2bit")) \
@@ -608,8 +648,40 @@ def trainer_phase(torch, profile=False):
         "tokens_per_s_from": "median of steps 2..3",
         "nonzero_code_share": shares,
         "peak_mem_gb": peak, "held_before_gb": held,
-        "kernel_launches": launches,
+        "kernel_launches": launches, "telemetry": series,
     }, profiled
+
+
+def trainer_series(snap, lm):
+    """Check the trainer's telemetry over its steps: the ``dist.*_bytes``
+    counters are the bytes of the 32-bit words K3 packs (4 x ceil(n / 16)
+    for a parameter of n values, each step), and ``kvstore.push_bytes`` /
+    ``pull_bytes`` the dense gradients'. Returns the series read."""
+    counters = snap["counters"]
+    dist_bytes = {k: v for k, v in counters.items()
+                  if k.startswith("dist.") and k.endswith("_bytes")}
+    packed = TRAIN_STEPS * sum(4 * -(-p.numel() // 16)
+                               for p in lm.parameters())
+    dense = TRAIN_STEPS * sum(p.numel() * p.element_size()
+                              for p in lm.parameters())
+    check(sum(dist_bytes.values()) == packed,
+          f"trainer: dist.*_bytes {dist_bytes}, want K3's packed {packed}")
+    for name in ("kvstore.push_bytes", "kvstore.pull_bytes"):
+        check(counters.get(name) == dense,
+              f"trainer: {name} {counters.get(name)}, want the dense "
+              f"{dense}")
+    n_keys = TRAIN_STEPS * len(list(lm.parameters()))
+    check(counters.get("dist.allgather_calls") == n_keys,
+          f"trainer: {counters.get('dist.allgather_calls')} all-gathers, "
+          f"want {n_keys}")
+    hist = snap["histograms"].get("dist.allgather_us", {})
+    return {"dist_bytes": dist_bytes, "k3_packed_bytes": packed,
+            "kvstore_push_bytes": counters["kvstore.push_bytes"],
+            "kvstore_pull_bytes": counters["kvstore.pull_bytes"],
+            "dense_bytes": dense,
+            "allgather_calls": counters["dist.allgather_calls"],
+            "allgather_host_us_p50": hist.get("p50"),
+            "push_collectives": counters.get("dist.push_collectives")}
 
 
 GEN_SLOTS, GEN_MAX_LEN = 32, 2048          # docs/faq/perf.md:495
@@ -3703,6 +3775,513 @@ def serve_phase(torch, smi, workdir, profile=False):
             "cold_bucket": serve_cold_bucket(mx, prefix)}, profiles
 
 
+OBS_BURST = 16                # sessions of each generation window
+OBS_PREFIX_NEW = 16           # new tokens of each prefix session
+OBS_SPEC_NEW = 32             # new tokens of each spec-burst session
+OBS_SERVE_PER_CLIENT = 50     # SERVE_CLIENTS x 50 = 200 requests a window
+OBS_MODULE_STEPS = 2          # fused steps of the module window
+OBS_FLOP_TOL = 0.03           # counted FLOPs against the phase's own bound
+OBS_PEAK_MARGIN = 1.05        # a measured peak above the sheet is an error
+OBS_BUCKET_CALLS = 10         # bucket-32 forwards the serving row reads
+OBS_TURNS = ("off", "on", "off", "on")  # the overhead reading's windows
+# then one generate window with each plane alone: its share of the cost
+OBS_PLANES = ("telemetry", "tracing", "health", "observatory")
+SERVE_STAGES = ("serving.admission", "serving.queue", "serving.execute",
+                "serving.reassembly")
+
+
+def planes():
+    from mxnet_tpu_torch import health, observatory, telemetry, tracing
+
+    return telemetry, tracing, health, observatory
+
+
+@contextlib.contextmanager
+def planes_on():
+    """Telemetry, tracing, health and the observatory on over fresh state
+    for the block (as ``MXNET_TELEMETRY=1 MXNET_TRACING=1 MXNET_HEALTH=1
+    MXNET_OBSERVATORY=1`` would start them); off and reset after, their
+    threads stopped."""
+    for plane in planes():
+        plane.reset()
+        plane.enable()
+    try:
+        yield
+    finally:
+        for plane in planes():
+            plane.disable()
+            plane.reset()
+
+
+@contextlib.contextmanager
+def planes_off(keep=None):
+    """Every plane off for the block (the overhead reading's baseline) but
+    the one named ``keep``, all back on after, their state kept."""
+    for plane in planes():
+        if plane.__name__.rsplit(".", 1)[-1] != keep:
+            plane.disable()
+    try:
+        yield
+    finally:
+        for plane in planes():
+            plane.enable()
+
+
+def fresh_records():
+    """Drop what the planes recorded so far (health's beacons stay)."""
+    telemetry, tracing, _, observatory = planes()
+    telemetry.reset()
+    tracing.reset()
+    observatory.reset()
+
+
+def counter(name):
+    from mxnet_tpu_torch import telemetry
+
+    m = telemetry.get(name)
+    return m.value if m is not None else 0
+
+
+def lane_row(lane):
+    """The observatory's roofline row of ``lane`` (`summary`), trimmed."""
+    from mxnet_tpu_torch import observatory
+
+    row = observatory.summary()["lanes"].get(lane)
+    check(row is not None, f"observe: no roofline row for the {lane} lane")
+    keep = ("key", "dtype", "flops", "bytes_accessed", "roofline_bound",
+            "predicted_floor_s", "measured_s", "device_s", "wall_s",
+            "host_gap_us", "mfu", "mbu", "samples")
+    return {k: row.get(k) for k in keep}
+
+
+def observe_generate(torch):
+    """The generation windows, planes on: the default model (seed 0) and a
+    32 x 2048 slab. A 16-session burst with the planes off and on in turns
+    (`OBS_TURNS`), equal streams every time; the checks, on the last
+    window: ``serving.generation.tokens`` equals the tokens streamed, the
+    census's ``kv_cache`` is exactly the slab (512 MiB) and at most what
+    the allocator holds, no capture after warm-up, the tick beacon's median
+    gap within 2x of the median tick. Then 16 sessions on one system prompt
+    through a prefix engine and a burst through the speculative lane with
+    the n-gram draft: their ``prefix.*`` / ``spec.*`` counters equal the
+    engines' own counts."""
+    import gc
+
+    import numpy as np
+
+    from mxnet_tpu_torch import memory, tracing
+    from mxnet_tpu_torch.models import TransformerLM, TransformerLMConfig
+    from mxnet_tpu_torch.serving.generation import NgramDraft
+
+    cfg = TransformerLMConfig()
+    lm = TransformerLM(cfg, device="cuda",
+                       generator=torch.Generator(device="cuda").manual_seed(0))
+    rng = np.random.RandomState(0)
+    lens = rng.randint(GEN_PROMPT_LENS[0], GEN_PROMPT_LENS[1] + 1, OBS_BURST)
+    prompts = [rng.randint(0, cfg.vocab_size, n) for n in lens]
+    out = {}
+    eng, warm = lane_engine(lm)
+    try:
+        misses0, captures0 = eng.cache.misses, eng.captures
+        ticks = []
+        real_tick = eng._tick
+
+        def timed_tick():
+            t0 = time.perf_counter()
+            real_tick()
+            ticks.append(time.perf_counter() - t0)
+
+        eng._tick = timed_tick
+        turns, first = [], None
+        for turn in OBS_TURNS:
+            ticks.clear()
+            with (planes_off() if turn == "off" else
+                  contextlib.nullcontext()):
+                if turn == "on":
+                    fresh_records()
+                outs, _, wall = burst(eng, prompts)
+            first = outs if first is None else first
+            check(outs == first, f"observe: the burst's streams changed "
+                  f"in a window with the planes {turn}")
+            turns.append({"planes": turn, "wall_s": wall,
+                          "tokens_per_s": sum(map(len, outs)) / wall,
+                          "median_tick_s": statistics.median(ticks)})
+        eng._tick = real_tick
+        outs_on = outs
+        streamed = sum(len(o) for o in outs_on)
+        check(counter("serving.generation.tokens") == streamed,
+              f"observe: serving.generation.tokens "
+              f"{counter('serving.generation.tokens')} for {streamed} "
+              "tokens streamed")
+        check((eng.cache.misses, eng.captures) == (misses0, captures0),
+              "observe: the generate windows captured after warm-up")
+        gap, tick = eng._beacon.median_gap(), turns[-1]["median_tick_s"]
+        check(gap is not None and 0.5 <= gap / tick <= 2.0,
+              f"observe: tick beacon median gap {gap} s against the median "
+              f"tick {tick} s")
+        gc.collect()
+        census = memory.census()
+        slab = census["categories"]["kv_cache"]["total"]
+        categorized = sum(c["total"] for c in census["categories"].values())
+        allocated = torch.cuda.memory_allocated()
+        check(slab == eng.kv_slab_bytes() == 512 << 20,
+              f"observe: census kv_cache {slab} bytes, the slab "
+              f"{eng.kv_slab_bytes()} ({len(memory._providers['kv_cache'])}"
+              " providers registered)")
+        check(categorized <= allocated,
+              f"observe: census {categorized} bytes > allocated {allocated}")
+        worst = tracing.tick_recorder.worst()
+        check(worst is not None and worst["name"] == "generation.tick",
+              "observe: no tick span tree recorded")
+        out["burst"] = {
+            "sessions": OBS_BURST, "new_tokens": GEN_NEW,
+            "tokens_streamed": streamed, "warm_captures": warm["captures"],
+            "turns": turns, **overhead(turns, "tokens_per_s"),
+            "median_tick_s": tick, "beacon_median_gap_s": gap,
+            "census_kv_cache_bytes": slab,
+            "census_categorized_bytes": categorized,
+            "memory_allocated_bytes": allocated,
+            "tick_row": lane_row("generation.tick")}
+        # each plane alone, after the checks read the last window
+        eng._tick = timed_tick
+        alone = {}
+        for name in OBS_PLANES:
+            ticks.clear()
+            with planes_off(keep=name):
+                outs_alone, _, wall = burst(eng, prompts)
+            check(outs_alone == first, f"observe: the burst's streams "
+                  f"changed with {name} alone on")
+            alone[name] = {"tokens_per_s": sum(map(len, outs_alone)) / wall,
+                           "median_tick_s": statistics.median(ticks)}
+        eng._tick = real_tick
+        out["burst"]["plane_alone"] = alone
+    finally:
+        eng.close()
+    del eng
+    gc.collect()
+
+    eng, _ = lane_engine(lm, prefix_cache=True, prefix_min_tokens=PREFIX_MIN)
+    try:
+        fresh_records()
+        for p in prefix_prompts(cfg.vocab_size)[:OBS_BURST]:
+            eng.generate(p, max_new_tokens=OBS_PREFIX_NEW)
+        got = {"hits": counter("serving.generation.prefix.hits"),
+               "misses": counter("serving.generation.prefix.misses")}
+        want = {"hits": eng.prefix_hits, "misses": eng.prefix_misses}
+        check(got == want and want["hits"] >= OBS_BURST - 1,
+              f"observe: prefix counters {got}, the engine's {want}")
+        out["prefix"] = dict(got, inserts=counter(
+            "serving.generation.prefix.inserts"))
+    finally:
+        eng.close()
+    del eng
+    gc.collect()
+
+    eng, _ = lane_engine(lm, spec_k=SPEC_K, draft=NgramDraft())
+    try:
+        fresh_records()
+        t0 = time.perf_counter()
+        streams = [eng.submit(p, max_new_tokens=OBS_SPEC_NEW)
+                   for p in prompts]
+        spec_tokens = sum(len(s.result(timeout=600)) for s in streams)
+        wall = time.perf_counter() - t0
+        got = {"committed": counter("serving.generation.spec.committed"),
+               "verified_slots": counter(
+                   "serving.generation.spec.verified_slots")}
+        want = {"committed": eng.spec_committed,
+                "verified_slots": eng.spec_verified_slots}
+        check(got == want and got["committed"] > 0,
+              f"observe: spec counters {got}, the engine's {want}")
+        out["spec"] = dict(got, tokens_per_s=spec_tokens / wall,
+                           accepted=counter(
+                               "serving.generation.spec.accepted"),
+                           proposed=counter(
+                               "serving.generation.spec.proposed"))
+    finally:
+        eng.close()
+    del eng, lm
+    gc.collect()
+    return out
+
+
+def overhead(turns, rate):
+    """The overhead reading over alternating windows: the mean rate and
+    the mean median tick (where read) with the planes off and on."""
+    out = {}
+    for side in ("off", "on"):
+        rows = [t for t in turns if t["planes"] == side]
+        out[f"{rate}_{side}"] = statistics.mean(t[rate] for t in rows)
+        if "median_tick_s" in rows[0]:
+            out[f"median_tick_s_{side}"] = statistics.mean(
+                t["median_tick_s"] for t in rows)
+    out["on_over_off"] = out[f"{rate}_off"] / out[f"{rate}_on"]
+    return out
+
+
+def serve_window(mx, pred):
+    """`SERVE_CLIENTS` closed-loop clients of `OBS_SERVE_PER_CLIENT`
+    requests (sizes cycling `SERVE_SIZES`) through a new batcher; the
+    requests answered and the wall seconds."""
+    import threading
+
+    payloads = serve_payloads(tuple(pred._data_descs[0].shape[1:]))
+    done = []
+    t0 = time.perf_counter()
+    with mx.serving.DynamicBatcher(pred, max_wait_ms=SERVE_WAIT_MS) as srv:
+        def client(k):
+            for i in range(OBS_SERVE_PER_CLIENT):
+                srv.predict(payloads[SERVE_SIZES[(k + i)
+                                                 % len(SERVE_SIZES)]])
+                done.append(1)
+
+        threads = [threading.Thread(target=client, args=(k,))
+                   for k in range(SERVE_CLIENTS)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+    return len(done), time.perf_counter() - t0
+
+
+def request_trees(events):
+    """Check that every request has exactly one complete span tree with
+    no orphan; returns the number of request trees."""
+    spans = [e for e in events if e.get("ph") == "X"]
+    by_trace = {}
+    for e in spans:
+        by_trace.setdefault(e["args"]["trace_id"], []).append(e)
+    trees = 0
+    for tid, group in by_trace.items():
+        ids = {e["args"]["span_id"] for e in group}
+        orphans = [e["name"] for e in group
+                   if e["args"].get("parent_id") not in (None, *ids)]
+        check(not orphans, f"observe: orphan spans {orphans} in {tid}")
+        roots = [e for e in group if e["name"] == "serving.request"]
+        if not roots:
+            continue
+        check(len(roots) == 1, f"observe: trace {tid} has {len(roots)} "
+              "request roots")
+        names = {e["name"] for e in group}
+        check(set(SERVE_STAGES) <= names,
+              f"observe: request tree {tid} lacks "
+              f"{set(SERVE_STAGES) - names}")
+        trees += 1
+    return trees
+
+
+def observe_serve(torch, mx, workdir):
+    """The serve windows over the serve phase's ResNet-50 v1 checkpoint
+    (``TPU_FUSE``, ladder 1-32), planes on: 200 requests through the
+    batcher with the planes off and on in turns (`OBS_TURNS`). Checks, on
+    the last window: ``serving.requests`` and the answered count are 200,
+    each request has exactly one complete span tree, and the bucket-32
+    program's counted FLOPs are within 3 % of the phase's own bound (its
+    convolutions and FullyConnected)."""
+    from mxnet_tpu_torch import tracing
+
+    prefix = os.path.join(workdir, "resnet50_v1")
+    shape = (3, ND_SIZE, ND_SIZE)
+    pred = mx.serving.Predictor.load(prefix, 0,
+                                     data_shapes=[("data", (1,) + shape)])
+    pred.warmup()
+    captures = pred.cache.misses
+    want = SERVE_CLIENTS * OBS_SERVE_PER_CLIENT
+    turns = []
+    for turn in OBS_TURNS:
+        with (planes_off() if turn == "off" else contextlib.nullcontext()):
+            if turn == "on":
+                fresh_records()
+            n, wall = serve_window(mx, pred)
+        check(n == want, f"observe: {n} requests answered, want {want}")
+        turns.append({"planes": turn, "wall_s": wall,
+                      "req_per_s": n / wall})
+    events, dropped = tracing.take_events()
+    check(counter("serving.requests") == want,
+          f"observe: serving.requests {counter('serving.requests')}, "
+          f"want {want}")
+    check(dropped == 0, f"observe: {dropped} span events dropped")
+    trees = request_trees(events)
+    check(trees == want, f"observe: {trees} request trees for {want}")
+    check(pred.cache.misses == captures,
+          "observe: the serve windows captured after warm-up")
+    # the bucket-32 program alone: its roofline row
+    import numpy as np
+
+    from mxnet_tpu_torch import observatory
+
+    observatory.reset("serving")
+    x = serve_payloads(shape)[SERVE_SIZES[-1]]
+    big = np.concatenate([x] * -(-32 // len(x)))[:32]
+    for _ in range(OBS_BUCKET_CALLS):
+        pred.predict(big)
+    row = lane_row("serving")
+    sym = mx.sym.load(prefix + "-symbol.json")
+    bound = symbol_forward_flop(sym, {"data": (32,) + shape})
+    check(abs(row["flops"] / bound - 1) <= OBS_FLOP_TOL,
+          f"observe: bucket-32 counted {row['flops']} FLOP against the "
+          f"bound's {bound}")
+    fill = counter("serving.batch_rows") / max(counter("serving.batch_slots"),
+                                               1)
+    return {"requests": want, "turns": turns,
+            **overhead(turns, "req_per_s"), "request_trees": trees,
+            "batch_fill_ratio": fill, "bucket32_bound_flop": bound,
+            "bucket32_flop_over_bound": row["flops"] / bound,
+            "bucket32_row": row}
+
+
+def observe_module(torch, mx):
+    """The module window, planes on: `Module.fit` of the symbolic
+    ResNet-50 (batch 32 x 224², fp32, SGD as the module phase) over two
+    batches, so two captured fused steps. Checks: the ``step.*``
+    histograms count the two steps, the ``fit.step`` beacon moved, and the
+    step program's counted FLOPs are within 3 % of the phase's own bound
+    (3 x the forward's convolutions and FullyConnected)."""
+    from mxnet_tpu_torch import health, telemetry
+    from mxnet_tpu_torch.models.resnet import resnet50_symbol
+
+    data, label = gluon_batches(0, ND_BATCH * OBS_MODULE_STEPS, ND_SIZE,
+                                ND_CLASSES)
+    fresh_records()
+    with mx.gpu(0):
+        mod = mx.mod.Module(resnet50_symbol(num_classes=ND_CLASSES,
+                                            image_shape=(3, ND_SIZE,
+                                                         ND_SIZE)),
+                            context=mx.gpu(0))
+        mod.fit(mx.io.NDArrayIter(data, label, batch_size=ND_BATCH),
+                num_epoch=1, optimizer="sgd",
+                optimizer_params=tuple(MODULE_OPT.items()),
+                initializer=mx.init.Xavier())
+    snap = telemetry.snapshot()
+    counts = {k: snap["histograms"].get(f"step.{k}_us", {}).get("count")
+              for k in ("total", "fwdbwd", "update", "sync", "data")}
+    check(all(c == OBS_MODULE_STEPS for c in counts.values()),
+          f"observe: step histograms counted {counts}, want "
+          f"{OBS_MODULE_STEPS} each")
+    check(snap["gauges"].get("step.fused") == 1,
+          "observe: fit did not take the fused step")
+    beacon = health.beacons().get("fit.step")
+    check(beacon is not None and beacon.touches == OBS_MODULE_STEPS,
+          f"observe: the fit.step beacon moved "
+          f"{beacon.touches if beacon else None} times")
+    row = lane_row("step")
+    bound = symbol_step_flop(mod.symbol, {"data": (ND_BATCH, 3, ND_SIZE,
+                                                   ND_SIZE),
+                                          "softmax_label": (ND_BATCH,)})
+    check(abs(row["flops"] / bound - 1) <= OBS_FLOP_TOL,
+          f"observe: the step counted {row['flops']} FLOP against the "
+          f"bound's {bound}")
+    return {"steps": OBS_MODULE_STEPS, "step_counts": counts,
+            "step_total_us": snap["histograms"]["step.total_us"],
+            "bound_flop": bound, "flop_over_bound": row["flops"] / bound,
+            "step_row": row}
+
+
+def observe_peaks():
+    """The observatory's peak probes on the card: bf16 and fp32 (TF32 off)
+    matmul FLOP/s and the copy's bytes/s, each below 1.05 x the data
+    sheet's constant."""
+    from mxnet_tpu_torch import observatory
+
+    pk = observatory.peaks(refresh=True)
+    flops = pk["matmul_flops"]
+    for dtype, peak in PEAK_FLOPS.items():
+        check(0 < flops[dtype] < OBS_PEAK_MARGIN * peak,
+              f"observe: measured {dtype} matmul {flops[dtype]} FLOP/s "
+              f"against the sheet's {peak}")
+    check(0 < pk["hbm_bytes_per_s"] < OBS_PEAK_MARGIN * PEAK_BYTES_PER_S,
+          f"observe: measured copy {pk['hbm_bytes_per_s']} B/s against "
+          f"the sheet's {PEAK_BYTES_PER_S}")
+    check(pk["collective_bytes_per_s"] is None,
+          "observe: a collective peak on one card")
+    return {"matmul_flops": flops, "hbm_bytes_per_s": pk["hbm_bytes_per_s"],
+            "collective_bytes_per_s": None,
+            "share_of_sheet": {
+                **{k: v / PEAK_FLOPS[k] for k, v in flops.items()},
+                "hbm": pk["hbm_bytes_per_s"] / PEAK_BYTES_PER_S},
+            "provenance": pk["provenance"]}
+
+
+def observe_phase(torch, smi, workdir):
+    """Slice 11's planes over the full-width models of the earlier phases,
+    in short windows, each plane on (`observe_generate`, `observe_serve`,
+    `observe_module`, `observe_peaks`); no K1-K3 launch. The telemetry
+    snapshot is dumped under the run's temp dir."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import telemetry
+
+    reset_launches()
+    with planes_on():
+        generate = observe_generate(torch)
+        progress("observe generate")
+        serve = observe_serve(torch, mx, workdir)
+        progress("observe serve")
+        module = observe_module(torch, mx)
+        progress("observe module")
+        peaks = observe_peaks()
+        snapshot = telemetry.dump(os.path.join(workdir, "telemetry.json"))
+        with open(snapshot) as f:
+            snap = json.load(f)
+    launches = read_launches()
+    check(not any(launches.values()),
+          f"the observe windows launched kernels: {launches}")
+    return {"generate": generate, "serve": serve, "module": module,
+            "peaks": peaks, "snapshot_path": snapshot,
+            "snapshot_counters": len(snap["counters"]),
+            "snapshot_histograms": len(snap["histograms"]),
+            "kernel_launches": launches, "card": smi}
+
+
+def profiler_phase(torch, lm_state, smi):
+    """``mx.profiler`` on the card: one full-width train step (bf16, 8 x
+    2048) between `profiler.start` and `dump`, under a span, with
+    telemetry and tracing on. The dumped trace must hold the step's 4 K1
+    launches by the kernel's name, a telemetry counter event and the
+    span. Runs last: the profiler session and a torch.profiler session
+    never overlap, and no graph is captured or replayed after it."""
+    from mxnet_tpu_torch import profiler, telemetry, tracing
+
+    lm, step, state, tokens, targets = lm_state
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "profile.json")
+        profiler.set_config(filename=path)
+        # a first tiny session starts the tracer (the step's is complete)
+        profiler.start()
+        torch.ones(1, device="cuda").add_(1)
+        torch.cuda.synchronize()
+        profiler.stop()
+        profiler.dumps(reset=True)
+        with planes_on():
+            telemetry.counter("chip_smoke.profiled_steps").inc()
+            reset_launches()
+            profiler.start()
+            with tracing.span("train.step", cat="train"):
+                loss = step(state, tokens, targets, TRAIN_STEPS + 1)
+                torch.cuda.synchronize()
+            profiler.stop()
+            profiler.dump()
+            launched = read_launches()["flash_attention_fwd"]
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    k1 = [e for e in events if e.get("cat") == "kernel" and any(
+        key in e.get("name", "") for key, group in KERNEL_GROUPS
+        if group == PORT_GROUPS["flash_attention_fwd"])]
+    counters = [e for e in events if e.get("ph") == "C"
+                and e.get("cat") == "telemetry"]
+    spans = [e for e in events if e.get("name") == "train.step"
+             and e.get("ph") == "X"]
+    want = lm.cfg.n_layers
+    check(len(k1) == launched == want,
+          f"profiler: {len(k1)} K1 kernels in the trace, {launched} "
+          f"launched, want {want}")
+    check(counters, "profiler: no telemetry counter event in the trace")
+    check(len(spans) == 1, f"profiler: {len(spans)} train.step spans")
+    check(math.isfinite(float(loss)), "profiler: non-finite loss")
+    return {"events": len(events), "k1_kernels": len(k1),
+            "k1_device_us": sum(e.get("dur", 0) for e in k1),
+            "telemetry_counter_events": len(counters),
+            "spans": len(spans), "card": smi}
+
+
 def attention_case(torch, fa, F, *, b, l, h, d, dtype, causal, tol, timed):
     """Kernel vs plain version on inputs shaped as the transformer makes
     them: q, k, v strided views of one [B, L, 3*H*D] projection."""
@@ -4177,7 +4756,9 @@ def main(argv=None):
         progress("module")
         serve, serve_profiles = serve_phase(torch, smi, workdir,
                                             profile=bool(args.profile))
-    progress("serve")
+        progress("serve")
+        observe = observe_phase(torch, smi, workdir)
+    progress("observe")
     kernels = kernels_phase(torch, fa, gcm, {
         "train": train["kernel_launches"],
         "ring": ring["kernel_launches"],
@@ -4199,6 +4780,7 @@ def main(argv=None):
     emit(gluon=gluon)
     emit(module=module)
     emit(serve=serve)
+    emit(observe=observe)
     if args.profile:
         def one_more_step(state_of_path):
             _, step, state, tokens, targets = state_of_path
@@ -4222,6 +4804,10 @@ def main(argv=None):
             json.dump(profiles, f, indent=1)
         emit(profile={"path": args.profile, **{
             k: profile_summary(v) for k, v in profiles.items()}})
+    # last: its sessions follow every capture and every other session
+    emit(profiler=profiler_phase(torch, lm_state, smi))
+    progress("profiler")
+    emit(card_line=smi)
     emit(ok=True, device={"platform": "gpu",
                           "kind": torch.cuda.get_device_name(0),
                           "count": torch.cuda.device_count()})

@@ -42,7 +42,12 @@ which runs no TPU kernel's port either; and the serving stack of that path
 (`serving.Predictor`, one captured CUDA graph a batch-size bucket, with
 the ``TPU_FUSE`` conv+BN folding of `symbol.subgraph` / `symbol.fusion`;
 `serving.DynamicBatcher`; `serving.rollout` with live weight swaps;
-`health` probes; `resilience`), which runs no TPU kernel's port either.
+`health` probes; `resilience`), which runs no TPU kernel's port either;
+and the observability planes every path above reports into, each off
+unless its switch is set (`telemetry`, `tracing`, the lock-order recorder
+`analysis`, `health` with the beacons, watchdog, SLO tracker and
+autoscale signal, `profiler` over torch.profiler, the memory census
+`memory`, the roofline `observatory`, and `compile_cache`'s accounting).
 """
 from . import autograd, ndarray, random
 from . import ndarray as nd
@@ -50,6 +55,7 @@ from . import initializer
 from . import initializer as init
 from . import name, lr_scheduler, optimizer, metric, io, gluon
 from . import attribute, symbol, module, model, callback, monitor
+from . import analysis, telemetry, tracing, profiler, memory, observatory
 from . import resilience, health, serving
 from . import symbol as sym
 from . import module as mod
@@ -63,6 +69,7 @@ __all__ = ["nd", "ndarray", "autograd", "random", "initializer", "init",
            "name", "lr_scheduler", "optimizer", "metric", "io", "gluon",
            "attribute", "symbol", "sym", "Symbol", "module", "mod", "model",
            "callback", "monitor", "AttrScope", "resilience", "health",
-           "serving",
+           "serving", "analysis", "telemetry", "tracing", "profiler",
+           "memory", "observatory",
            "cpu", "gpu", "tpu", "num_gpus", "Context", "current_context",
            "MXNetError", "resolve_device"]

@@ -1,9 +1,9 @@
 """Training callbacks: the port of `mxnet_tpu/callback.py` (parity
 `python/mxnet/callback.py`): module_checkpoint, do_checkpoint,
 log_train_metric, Speedometer, ProgressBar, LogValidationMetricsCallback.
-The JAX package's Speedometer also reads step-latency quantiles and the
-slowest traced step; the port has no telemetry or tracing yet (ROADMAP.md
-queue A, item 9), so it logs the speed and the metric only."""
+`Speedometer` also logs the step latency's p50 / p99 (``step_stats``,
+with telemetry on) and the worst step of the interval with its slowest
+phase (the flight recorder, with tracing on)."""
 from __future__ import annotations
 
 import logging
@@ -54,7 +54,9 @@ def log_train_metric(period, auto_reset=False):
 
 
 class Speedometer:
-    """Logs samples a second every ``frequent`` batches."""
+    """Logs samples a second every ``frequent`` batches, with the step
+    latency's p50 / p99 and the interval's worst step where the planes
+    are on (``worst_step`` keeps that tree)."""
 
     def __init__(self, batch_size, frequent=50, auto_reset=True):
         self.batch_size = batch_size
@@ -63,6 +65,7 @@ class Speedometer:
         self.tic = 0
         self.last_count = 0
         self.auto_reset = auto_reset
+        self.worst_step = None
 
     def __call__(self, param):
         count = param.nbatch
@@ -80,17 +83,38 @@ class Speedometer:
             speed = self.frequent * self.batch_size / (time.time() - self.tic)
         except ZeroDivisionError:
             speed = float("inf")
+        # the quantile sort runs here, once a log tick
+        stats = getattr(param, "step_stats", None)
+        lat, lat_args = "", ()
+        if stats and stats.get("hist") is not None:
+            p50_us, p99_us = stats["hist"].quantiles(50, 99)
+            if p50_us is not None:
+                lat = "\tstep-p50: %.1f ms\tstep-p99: %.1f ms"
+                lat_args = (p50_us / 1e3, p99_us / 1e3)
+        from . import tracing
+
+        if tracing._enabled:
+            # this interval's worst step tree, its slowest phase named
+            worst = tracing.flight_recorder.worst(reset=True)
+            if worst is not None:
+                self.worst_step = worst
+                kids = worst.get("children") or []
+                if kids:
+                    slow = max(kids, key=lambda c: c.get("dur") or 0)
+                    lat += "\tworst-step: %.1f ms (%s %.1f ms)"
+                    lat_args += ((worst.get("dur") or 0) / 1e3, slow["name"],
+                                 (slow.get("dur") or 0) / 1e3)
         if param.eval_metric is not None:
             name_value = param.eval_metric.get_name_value()
             if self.auto_reset:
                 param.eval_metric.reset()
             msg = "Epoch[%d] Batch [%d]\tSpeed: %.2f samples/sec"
             msg += "\t%s=%f" * len(name_value)
-            _logger().info(msg, param.epoch, count, speed,
-                           *sum(name_value, ()))
+            _logger().info(msg + lat, param.epoch, count, speed,
+                           *(sum(name_value, ()) + lat_args))
         else:
-            _logger().info("Iter[%d] Batch [%d]\tSpeed: %.2f samples/sec",
-                           param.epoch, count, speed)
+            _logger().info("Iter[%d] Batch [%d]\tSpeed: %.2f samples/sec"
+                           + lat, param.epoch, count, speed, *lat_args)
         self.tic = time.time()
 
 

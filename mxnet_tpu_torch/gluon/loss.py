@@ -3,7 +3,7 @@
 value per sample (the mean over every axis but ``batch_axis``).
 
 `CTCLoss` runs the CTCLoss op (`ops/ctc.py`), which the port has not yet
-(ROADMAP.md queue A, item 9): constructing one raises NotImplementedError.
+(ROADMAP.md queue A, item A.4): constructing one raises NotImplementedError.
 """
 from __future__ import annotations
 
@@ -160,7 +160,7 @@ class CTCLoss(Loss):
     def __init__(self, *args, **kwargs):
         raise NotImplementedError(
             "CTCLoss runs the CTCLoss op (ops/ctc.py), which the port has not "
-            "yet (ROADMAP.md queue A, item 9)")
+            "yet (ROADMAP.md queue A, item A.4)")
 
 
 class HuberLoss(Loss):

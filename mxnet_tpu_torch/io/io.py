@@ -8,7 +8,7 @@ from numpy's global stream, as the JAX package's does, so a seeded run
 shuffles alike in both packages.
 
 Not ported yet: `PrefetchingIter` and `CSVIter`, which wait for the staging
-ring (ROADMAP.md queue A, item 9); both raise NotImplementedError.
+ring (ROADMAP.md queue A, item A.3); both raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -300,7 +300,7 @@ class PrefetchingIter(DataIter):
     def __init__(self, *args, **kwargs):
         raise NotImplementedError(
             "PrefetchingIter waits for the port's staging ring (ROADMAP.md "
-            "queue A, item 9)")
+            "queue A, item A.3)")
 
 
 class CSVIter(DataIter):
@@ -309,4 +309,4 @@ class CSVIter(DataIter):
     def __init__(self, *args, **kwargs):
         raise NotImplementedError(
             "CSVIter waits for the port's staging ring (ROADMAP.md queue A, "
-            "item 9)")
+            "item A.3)")

@@ -3,7 +3,7 @@
 ``MXNET_OVERLAP`` turns every overlap lane on or off at once. The port has
 one so far: the serving batcher stages its next flush while the current
 one runs on the card (`serving/batcher.py`). ``0`` restores lockstep.
-Not ported yet (ROADMAP.md queue A, item 9): the `DeviceStager` ring and
+Not ported yet (ROADMAP.md queue A, item A.3): the `DeviceStager` ring and
 the other lanes (`fit`, the generation tick).
 """
 from __future__ import annotations

@@ -9,14 +9,21 @@ tensors stands for one key's per-device values. `create` maps ``local`` and
 flat-bucket primitives of gradient bucketing (`allreduce_flat`,
 `reduce_scatter_flat`), the fused-step hooks and the save/load of optimizer
 states.
+
+With telemetry on, push and pull record ``kvstore.push_bytes`` /
+``kvstore.pull_bytes`` (the dense bytes of the values pushed and of the
+arrays pulled into) and the host latency histograms ``kvstore.push_us`` /
+``kvstore.pull_us`` (enqueue time on a card).
 """
 from __future__ import annotations
 
+import time
 import zlib
 
 import torch
 
 from . import optimizer as opt
+from . import telemetry
 from .base import MXNetError
 from .gradient_compression import GradientCompression
 
@@ -58,6 +65,13 @@ class KVStoreBase:
 
     def barrier(self):
         pass
+
+
+def _nbytes(values):
+    """Dense bytes of a tensor or a list of them."""
+    if isinstance(values, (list, tuple)):
+        return sum(_nbytes(v) for v in values)
+    return int(values.numel()) * values.element_size()
 
 
 def _group_sum(values):
@@ -105,7 +119,11 @@ class KVStoreLocal(KVStoreBase):
         """Sum values across devices, compress the sum when compression is
         on, then either apply the updater to the stored value or store the
         sum."""
+        tele = telemetry._enabled
+        t0 = time.perf_counter() if tele else 0.0
         for k, vals in self._normalize(key, value):
+            if tele:
+                telemetry.counter("kvstore.push_bytes").inc(_nbytes(vals))
             if k not in self._store:
                 raise MXNetError(f"key {k} not initialized (call init first)")
             merged = _group_sum(vals)
@@ -119,17 +137,27 @@ class KVStoreLocal(KVStoreBase):
                 self._updater(_key_index(k), merged, stored)
             else:
                 self._store[k] = merged
+        if tele:
+            telemetry.histogram("kvstore.push_us").record(
+                (time.perf_counter() - t0) * 1e6)
 
     @torch.no_grad()
     def pull(self, key, out=None, priority=0):
         """Copy the stored values into the ``out`` tensors, in their dtype."""
         if out is None:
             raise MXNetError("pull needs out")
+        tele = telemetry._enabled
+        t0 = time.perf_counter() if tele else 0.0
         for k, outs in self._normalize(key, out):
             if k not in self._store:
                 raise MXNetError(f"key {k} not initialized (call init first)")
+            if tele:
+                telemetry.counter("kvstore.pull_bytes").inc(_nbytes(outs))
             for o in outs:
                 o.copy_(self._store[k])
+        if tele:
+            telemetry.histogram("kvstore.pull_us").record(
+                (time.perf_counter() - t0) * 1e6)
 
     def pushpull(self, key, value, out=None, priority=0):
         """Push, then pull into ``out`` (into ``value`` when out is None)."""

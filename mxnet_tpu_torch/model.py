@@ -17,8 +17,10 @@ from __future__ import annotations
 import logging
 import os
 import re
+import time
 from collections import namedtuple
 
+from . import health, telemetry, tracing
 from . import kvstore as kvs
 from . import ndarray as nd
 from .base import MXNetError, getenv, register_env
@@ -142,15 +144,25 @@ def save_checkpoint(prefix, epoch, symbol, arg_params, aux_params,
     after a save that reads back whole, only the newest ``keep`` epoch
     files stay. With ``MXNET_ROLLOUT_DIR`` set, the epoch is also published
     there as rollout version ``epoch`` (`serving.rollout`); a publish
-    failure is logged, never raised."""
-    if symbol is not None:
-        symbol.save(f"{prefix}-symbol.json", remove_amp_cast=remove_amp_cast)
-    save_dict = {f"arg:{k}": v.as_in_context(_cpu())
-                 for k, v in arg_params.items()}
-    save_dict.update({f"aux:{k}": v.as_in_context(_cpu())
-                      for k, v in aux_params.items()})
-    cur_path = _param_path(prefix, epoch)
-    nd.save(cur_path, save_dict)
+    failure is logged, never raised. With telemetry on, the caller's time
+    (the copies from the card included) goes into
+    ``checkpoint.save_us``; tracing spans it as ``checkpoint.save``."""
+    tele = telemetry._enabled
+    t0 = time.perf_counter() if tele else 0.0
+    with tracing.span("checkpoint.save", cat="io", prefix=prefix,
+                      epoch=epoch):
+        if symbol is not None:
+            symbol.save(f"{prefix}-symbol.json",
+                        remove_amp_cast=remove_amp_cast)
+        save_dict = {f"arg:{k}": v.as_in_context(_cpu())
+                     for k, v in arg_params.items()}
+        save_dict.update({f"aux:{k}": v.as_in_context(_cpu())
+                          for k, v in aux_params.items()})
+        cur_path = _param_path(prefix, epoch)
+        nd.save(cur_path, save_dict)
+    if tele:
+        telemetry.histogram("checkpoint.save_us").record(
+            (time.perf_counter() - t0) * 1e6)
     keep = getenv("MXNET_CHECKPOINT_KEEP") if keep is None else int(keep)
     if keep > 0:
         survivors = set(list_checkpoint_epochs(prefix)[-keep:]) | {epoch}
@@ -209,18 +221,26 @@ def load_checkpoint(prefix, epoch=None, fallback=None, return_epoch=False):
                        if e < epoch]
     errors = []
     save_dict = loaded_epoch = None
-    for cand in candidates:
-        try:
-            save_dict = nd.load(_param_path(prefix, cand), ctx=_cpu())
-            loaded_epoch = cand
-            break
-        except (MXNetError, OSError) as e:
-            errors.append(e)
-            if not fallback:
-                raise
-            logging.getLogger("mxnet_tpu_torch.model").warning(
-                "checkpoint %s is unreadable (%s); falling back to an "
-                "older epoch", _param_path(prefix, cand), e)
+    with tracing.span("checkpoint.load", cat="io", prefix=prefix,
+                      epoch=epoch):
+        for cand in candidates:
+            try:
+                save_dict = nd.load(_param_path(prefix, cand), ctx=_cpu())
+                loaded_epoch = cand
+                break
+            except (MXNetError, OSError) as e:
+                errors.append(e)
+                if not fallback:
+                    raise
+                if telemetry._enabled:
+                    telemetry.counter("checkpoint.crc_fallback").inc()
+                    telemetry.counter("checkpoint.corrupt_skipped").inc()
+                if health._enabled:
+                    health.event("checkpoint_fallback", prefix=str(prefix),
+                                 epoch=int(cand), error=repr(e))
+                logging.getLogger("mxnet_tpu_torch.model").warning(
+                    "checkpoint %s is unreadable (%s); falling back to an "
+                    "older epoch", _param_path(prefix, cand), e)
     if save_dict is None:
         raise MXNetError(
             f"no loadable checkpoint for prefix {prefix!r} at or below "

@@ -4,16 +4,25 @@
 `forward_backward`). A subclass gives bind → init_params →
 init_optimizer → forward / backward / update, and `fused_step`.
 
-Not ported here: `fit`'s telemetry, tracing, health and observatory
-calls and the `MXNET_OVERLAP` staging lane (ROADMAP.md queue A, item 9);
-`fit` runs the JAX package's lockstep order, which that lane keeps
-bit-exact.
+`fit` records, each plane gated on its module's ``_enabled``: the
+``step.*`` breakdown (``fwdbwd`` / ``update`` / ``sync`` / ``data`` and
+``total`` histograms, ``step.fused``, ``step.wall_us_total``), handed to
+batch-end callbacks as ``BatchEndParam.step_stats``; a span tree a step
+under a deterministic trace id, fed to `tracing.flight_recorder`; the
+``fit.step`` beacon of the stall watchdog; and the step's wall for the
+observatory's ``step`` lane. Host times around a captured step are enqueue
+times until the metric update reads the outputs (the ``sync`` segment).
+
+Not ported here: the `MXNET_OVERLAP` staging lane (ROADMAP.md queue A,
+item A.3); `fit` runs the JAX package's lockstep order, which that lane
+keeps bit-exact.
 """
 from __future__ import annotations
 
 import logging
 import time
 
+from .. import health, observatory, telemetry, tracing
 from .. import metric as _metric
 from .. import ndarray as nd
 
@@ -216,7 +225,14 @@ class BaseModule:
         if not isinstance(eval_metric, _metric.EvalMetric):
             eval_metric = _metric.create(eval_metric)
 
+        # the stall watchdog's progress beacon: armed while the loop owes
+        # steps, touched per completed step
+        fit_beacon = health.beacon("fit.step") if health._enabled else None
         for epoch in range(begin_epoch, num_epoch):
+            if fit_beacon is not None:
+                # armed per epoch: the tail between epochs has no step
+                # cadence, so its silence is not judged by the step median
+                fit_beacon.arm()
             tic = time.time()
             eval_metric.reset()
             nbatch = 0
@@ -227,28 +243,82 @@ class BaseModule:
                 data_batch = next_data_batch
                 if monitor is not None:
                     monitor.tic()
-                if not self.fused_step(data_batch):
-                    self.forward_backward(data_batch)
-                    self.update()
-                if isinstance(data_batch, list):
-                    self.update_metric(eval_metric,
-                                       [db.label for db in data_batch],
-                                       pre_sliced=True)
-                else:
-                    self.update_metric(eval_metric, data_batch.label)
-                try:
-                    next_data_batch = next(data_iter)
-                    self.prepare(next_data_batch,
-                                 sparse_row_id_fn=sparse_row_id_fn)
-                except StopIteration:
-                    end_of_batch = True
+                tele = telemetry._enabled
+                trc = tracing._enabled
+                timed = tele or trc or observatory._enabled
+                step_span = tracing.span(
+                    "step", cat="train",
+                    trace_id=(tracing.deterministic_trace_id(
+                        "fit", epoch, nbatch) if trc else None),
+                    epoch=epoch, step=nbatch)
+                with step_span:
+                    t0 = time.perf_counter() if timed else 0.0
+                    fused = self.fused_step(data_batch)
+                    if not fused:
+                        self.forward_backward(data_batch)
+                    t_fb = time.perf_counter() if timed else 0.0
+                    if not fused:
+                        self.update()
+                    t_up = time.perf_counter() if timed else 0.0
+                    if tele:
+                        telemetry.gauge("step.fused").set(1 if fused else 0)
+                    if isinstance(data_batch, list):
+                        self.update_metric(eval_metric,
+                                           [db.label for db in data_batch],
+                                           pre_sliced=True)
+                    else:
+                        self.update_metric(eval_metric, data_batch.label)
+                    t_sync = time.perf_counter() if timed else 0.0
+                    try:
+                        next_data_batch = next(data_iter)
+                        self.prepare(next_data_batch,
+                                     sparse_row_id_fn=sparse_row_id_fn)
+                    except StopIteration:
+                        end_of_batch = True
+                    t_end = time.perf_counter() if timed else 0.0
+                    marks = (("fwdbwd", t0, t_fb), ("update", t_fb, t_up),
+                             ("sync", t_up, t_sync), ("data", t_sync, t_end))
+                    if trc:
+                        # the phase children, rebuilt from the marks
+                        end_us = tracing.now_us()
+                        for seg, a, b in marks:
+                            tracing.emit_span(
+                                "step." + seg, end_us - (t_end - a) * 1e6,
+                                (b - a) * 1e6, cat="train",
+                                parent=step_span)
+                        step_span.set(fused=fused)
+                if trc:
+                    tracing.flight_recorder.observe(step_span.tree())
+                if observatory._enabled:
+                    observatory.observe("step", wall_s=t_end - t0)
+                step_stats = None
+                if tele:
+                    total_h = telemetry.histogram("step.total_us")
+                    for seg, a, b in marks:
+                        telemetry.histogram(f"step.{seg}_us").record(
+                            (b - a) * 1e6)
+                    total_us = (t_end - t0) * 1e6
+                    total_h.record(total_us)
+                    telemetry.counter("step.wall_us_total").inc(
+                        int(total_us))
+                    if batch_end_callback is not None:
+                        # quantiles are read by the consumer on its log
+                        # ticks, not sorted here each batch
+                        step_stats = dict(
+                            {f"{seg}_ms": (b - a) * 1e3
+                             for seg, a, b in marks},
+                            total_ms=total_us / 1e3, hist=total_h)
                 if monitor is not None:
                     monitor.toc_print()
                 if batch_end_callback is not None:
                     for cb in _as_list(batch_end_callback):
                         cb(_BatchEndParam(epoch, nbatch, eval_metric,
-                                          locals()))
+                                          locals(), step_stats=step_stats))
                 nbatch += 1
+                if fit_beacon is not None:
+                    fit_beacon.touch()
+            if fit_beacon is not None:
+                fit_beacon.idle()
             for name, val in eval_metric.get_name_value():
                 self.logger.info("Epoch[%d] Train-%s=%f", epoch, name, val)
             self.logger.info("Epoch[%d] Time cost=%.3f", epoch,
@@ -300,7 +370,7 @@ class _BatchEndParam:
         self.nbatch = nbatch
         self.eval_metric = eval_metric
         self.locals = locals_
-        # the JAX package's per-step telemetry; the port has none yet
+        # fit's per-step breakdown with telemetry on (else None)
         self.step_stats = step_stats
 
 

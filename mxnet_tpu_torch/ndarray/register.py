@@ -8,12 +8,14 @@ from __future__ import annotations
 
 import inspect
 import sys
+import time
 import types
 
 import numpy as _np
 import torch
 
 from .. import autograd
+from .. import profiler as _prof
 from .. import random as _random
 from ..context import Context
 from ..ops import registry as _reg
@@ -52,7 +54,29 @@ def invoke_nd(op_name, *args, out=None, name=None, **kwargs):
     """Run registered op ``op_name`` on NDArrays (parity
     `register.py:86-275`). ``out=`` rebinds the given array(s) to the
     result; ``mutate_aux`` outputs are copied in place into their input
-    arrays, outside any graph."""
+    arrays, outside any graph.
+
+    While the profiler runs, each call is recorded (`profiler.record_op`):
+    its host dispatch time (cat "dispatch"), or with ``profile_all`` (or
+    ``profile_sync``) set, its time to completion on the device, waited
+    for (cat "operator"), as the JAX package labels them."""
+    if _prof._running:
+        t0 = time.perf_counter()
+        res = _invoke_nd_impl(op_name, *args, out=out, name=name, **kwargs)
+        sync = _prof._config.get("profile_all") or \
+            _prof._config.get("profile_sync")
+        if sync:
+            first = res[0] if isinstance(res, (list, tuple)) else res
+            if getattr(first, "_data", None) is not None and \
+                    first._data.is_cuda:
+                torch.cuda.synchronize(first._data.device)
+        _prof.record_op(op_name, (time.perf_counter() - t0) * 1e6,
+                        cat="operator" if sync else "dispatch")
+        return res
+    return _invoke_nd_impl(op_name, *args, out=out, name=name, **kwargs)
+
+
+def _invoke_nd_impl(op_name, *args, out=None, name=None, **kwargs):
     op = _reg.get_op(op_name)
     ctx = kwargs.pop("ctx", None)
     if isinstance(ctx, str):

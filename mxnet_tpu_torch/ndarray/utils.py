@@ -9,15 +9,21 @@ which `save` writes, follows every payload with a (crc32 uint32, length
 int64) footer that `load` verifies. A short or corrupt file raises
 `CorruptCheckpointError`. bfloat16, which has no dtype flag, is written as
 float32, as the JAX package writes it.
+
+With telemetry on: ``checkpoint.saves`` / ``save_bytes`` /
+``write_us`` and ``checkpoint.loads`` / ``load_bytes`` / ``load_us``, and
+``checkpoint.corrupt`` for a file that fails its checks.
 """
 from __future__ import annotations
 
 import os
 import struct
+import time
 import zlib
 
 import numpy as _np
 
+from .. import telemetry
 from ..base import MXNetError, _DTYPE_MX_TO_NP, _DTYPE_NP_TO_MX, getenv, \
     register_env
 from ..resilience import CorruptCheckpointError
@@ -95,6 +101,12 @@ def save(fname, data):
     else:
         raise MXNetError("save expects NDArray, list or dict of NDArrays")
     snaps = [_as_numpy(a) for a in arrays]
+    tele = telemetry._enabled
+    t0 = time.perf_counter() if tele else 0.0
+    if tele:
+        telemetry.counter("checkpoint.saves").inc()
+        telemetry.counter("checkpoint.save_bytes").inc(
+            sum(a.nbytes for a in snaps))
     tmp = fname + ".tmp~"
     with open(tmp, "wb") as f:
         f.write(struct.pack("<Q", _MAGIC))
@@ -110,6 +122,9 @@ def save(fname, data):
         f.flush()
         os.fsync(f.fileno())
     os.replace(tmp, fname)
+    if tele:
+        telemetry.histogram("checkpoint.write_us").record(
+            (time.perf_counter() - t0) * 1e6)
 
 
 def load(fname, ctx=None):
@@ -120,6 +135,28 @@ def load(fname, ctx=None):
     from .ndarray import array
 
     verify = bool(getenv("MXNET_CHECKPOINT_VERIFY"))
+    tele = telemetry._enabled
+    t0 = time.perf_counter() if tele else 0.0
+    try:
+        raw, names = _read_file(fname, verify)
+    except CorruptCheckpointError:
+        if tele:
+            telemetry.counter("checkpoint.corrupt").inc()
+        raise
+    if tele:
+        telemetry.counter("checkpoint.loads").inc()
+        telemetry.counter("checkpoint.load_bytes").inc(
+            sum(npv.nbytes for npv in raw))
+        telemetry.histogram("checkpoint.load_us").record(
+            (time.perf_counter() - t0) * 1e6)
+    arrays = [array(npv, ctx=ctx, dtype=npv.dtype) for npv in raw]
+    if not names:
+        return arrays
+    return dict(zip(names, arrays))
+
+
+def _read_file(fname, verify):
+    """The arrays (numpy) and names of one file."""
     with open(fname, "rb") as f:
         (magic,) = struct.unpack("<Q", _read_exact(f, 8, fname))
         if magic != _MAGIC:
@@ -136,7 +173,4 @@ def load(fname, ctx=None):
             except UnicodeDecodeError as e:
                 raise CorruptCheckpointError(
                     f"{fname}: undecodable array name") from e
-    arrays = [array(npv, ctx=ctx, dtype=npv.dtype) for npv in raw]
-    if not names:
-        return arrays
-    return dict(zip(names, arrays))
+    return raw, names

@@ -564,6 +564,18 @@ class Test(Optimizer):
         state.copy_(weight)
 
 
+def _state_leaves(state):
+    """The tensors of one optimizer state (a tensor, None or a tuple)."""
+    if state is None:
+        return []
+    if isinstance(state, torch.Tensor):
+        return [state]
+    if isinstance(state, (list, tuple)):
+        return [t for s in state for t in _state_leaves(s)]
+    return [getattr(state, "_data", state)] if hasattr(state, "_data") \
+        else []
+
+
 class Updater:
     """Applies an optimizer by index, creating each index's state at its
     first update; a group of weights is updated as one (the module's
@@ -574,6 +586,13 @@ class Updater:
         self.states = {}
         self.states_synced = {}
         self.aggregate_updates = optimizer.aggregate_num > 0
+        # the memory census's optimizer_state: a live view of the states
+        from .. import memory
+
+        memory.register_provider(
+            "optimizer_state", self,
+            lambda u: [t for st in u.states.values()
+                       for t in _state_leaves(st)])
 
     def ensure_states(self, indices, weights):
         """Create each index's state, or move a loaded one to its weight's

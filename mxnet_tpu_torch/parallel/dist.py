@@ -16,6 +16,14 @@ the optimizer runs on every worker on the summed gradient.
   a card), the packed words of the call ride one `all_gather`, and every
   worker dequantizes all workers' words and sums them in fp32.
 
+With telemetry on, every collective records ``dist.<name>_calls``,
+``dist.<name>_bytes`` (this process's contribution: the flat bucket of an
+all_reduce, the packed uint32 words of a compressed all_gather) and the
+host latency ``dist.<name>_us``, which is enqueue time (NCCL runs on the
+card's stream, as the JAX package's dispatch was asynchronous); pushes
+count ``dist.push_collectives``, and push and pull the
+``kvstore.push_bytes`` / ``kvstore.pull_bytes`` dense sizes.
+
 Not ported: row-sparse push and pull, `allreduce_flat`,
 `reduce_scatter_flat`, the fused-step sync and the elastic lease.
 """
@@ -23,14 +31,16 @@ from __future__ import annotations
 
 import datetime
 import os
+import time
 
 import torch
 import torch.distributed as dist
 
+from .. import analysis, telemetry
 from ..base import MXNetError
 from ..context import resolve_device
 from ..gradient_compression import compressed_size
-from ..kvstore import KVStoreBase, _group_sum, _key_index
+from ..kvstore import KVStoreBase, _group_sum, _key_index, _nbytes
 
 __all__ = ["init_process_group", "KVStoreDistTPUSync"]
 
@@ -94,6 +104,15 @@ def init_process_group(coordinator=None, num_processes=None, process_id=None,
     return True
 
 
+def _collective_telemetry(name, buf, t0):
+    """One collective: its bytes (this process's contribution) and the
+    host time to issue it."""
+    telemetry.counter(f"dist.{name}_calls").inc()
+    telemetry.counter(f"dist.{name}_bytes").inc(_nbytes(buf))
+    telemetry.histogram(f"dist.{name}_us").record(
+        (time.perf_counter() - t0) * 1e6)
+
+
 def _wire_dtype(dtype, fp32_wire):
     """16-bit keys ship over a bf16 wire (fp32's exponent range in half the
     bytes); `MXNET_KVSTORE_FP32_WIRE=1` gives them an exact fp32 wire."""
@@ -134,7 +153,14 @@ class KVStoreDistTPUSync(KVStoreBase):
 
     def barrier(self):
         if self._grouped:
+            if analysis._enabled:
+                analysis.check_blocking("collective.barrier")
+            t0 = time.monotonic()
             dist.barrier()
+            if telemetry._enabled:
+                # the time this rank waited at the sync point
+                telemetry.histogram("dist.barrier_wait_us").record(
+                    (time.monotonic() - t0) * 1e6)
 
     # -- data plane -----------------------------------------------------------
 
@@ -159,7 +185,11 @@ class KVStoreDistTPUSync(KVStoreBase):
     def push(self, key, value, priority=0):
         """Sum gradients over all workers into the pending buffer; a list
         value is first summed over its devices."""
+        tele = telemetry._enabled
+        t0 = time.perf_counter() if tele else 0.0
         keys, vals = self._key_list(key, value)
+        if tele:
+            telemetry.counter("kvstore.push_bytes").inc(_nbytes(vals))
         arrs = []
         for k, v in zip(keys, vals):
             if k not in self._store:
@@ -171,6 +201,9 @@ class KVStoreDistTPUSync(KVStoreBase):
             self._push_dense_compressed(keys, arrs)
         else:
             self._push_dense(keys, arrs)
+        if tele:
+            telemetry.histogram("kvstore.push_us").record(
+                (time.perf_counter() - t0) * 1e6)
 
     def _add_pending(self, k, p):
         pend = self._pending.get(k)
@@ -187,8 +220,14 @@ class KVStoreDistTPUSync(KVStoreBase):
         for bucket in buckets.values():
             wire = _wire_dtype(bucket[0][1].dtype, fp32_wire)
             flat = torch.cat([a.reshape(-1).to(wire) for _, a in bucket])
+            tele = telemetry._enabled
+            if tele:
+                telemetry.counter("dist.push_collectives").inc()
             if self._grouped:
+                t0 = time.perf_counter() if tele else 0.0
                 dist.all_reduce(flat, op=dist.ReduceOp.SUM)
+                if tele:
+                    _collective_telemetry("allreduce", flat, t0)
             off = 0
             for k, a in bucket:
                 part = flat[off:off + a.numel()].view(a.shape)
@@ -201,10 +240,16 @@ class KVStoreDistTPUSync(KVStoreBase):
         them over the workers in fp32, cast to each gradient's dtype."""
         packs = [self._gc.quantize(k, a) for k, a in zip(keys, arrs)]
         bucket = packs[0] if len(packs) == 1 else torch.cat(packs)
+        tele = telemetry._enabled
+        if tele:
+            telemetry.counter("dist.push_collectives").inc()
         if self._grouped:
+            t0 = time.perf_counter() if tele else 0.0
             gathered = torch.empty((dist.get_world_size(), bucket.numel()),
                                    dtype=bucket.dtype, device=bucket.device)
             dist.all_gather(list(gathered.unbind(0)), bucket)
+            if tele:
+                _collective_telemetry("allgather", bucket, t0)
         else:
             gathered = bucket.unsqueeze(0)
         off = 0
@@ -221,13 +266,21 @@ class KVStoreDistTPUSync(KVStoreBase):
         is set) and copy the stored value into the ``out`` tensors."""
         if out is None:
             raise MXNetError("pull needs out")
+        tele = telemetry._enabled
+        t0 = time.perf_counter() if tele else 0.0
         keys, outs = self._key_list(key, out)
         for k, o in zip(keys, outs):
             if k not in self._store:
                 raise MXNetError(f"key {k} not initialized (call init first)")
             self._apply_pending(k)
-            for t in (o if isinstance(o, (list, tuple)) else [o]):
+            targets = o if isinstance(o, (list, tuple)) else [o]
+            if tele:
+                telemetry.counter("kvstore.pull_bytes").inc(_nbytes(targets))
+            for t in targets:
                 t.copy_(self._store[k])
+        if tele:
+            telemetry.histogram("kvstore.pull_us").record(
+                (time.perf_counter() - t0) * 1e6)
 
     def _apply_pending(self, k):
         pend = self._pending.pop(k, None)

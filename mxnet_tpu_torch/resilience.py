@@ -26,7 +26,7 @@ The port of the parts of `mxnet_tpu/resilience.py` the serving stack uses:
   ``error=CORRUPT`` flips a payload byte after the CRC footers land, and
   ``error=STALE`` stamps the manifest with an already-published version.
 
-Not ported yet (ROADMAP.md queue A, item 9): `wrap_retry`,
+Not ported yet (ROADMAP.md queue A, item A.8): `wrap_retry`,
 `open_checked`, `WorkerLostError` and the other fault points' call sites.
 """
 from __future__ import annotations

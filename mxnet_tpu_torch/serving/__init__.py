@@ -36,9 +36,10 @@ Quick start::
         fut = srv.submit(batch_of_rows, timeout=0.5)
         probs = fut.result()
 
-Not ported yet (ROADMAP.md queue A, items 6 and 9): the generation
-engine's QoS lane, `TenantRegistry`, `GenerationRouter.rolling_swap` and
-the serving telemetry.
+Every layer here reports into the observability planes (`telemetry`,
+`tracing`, `health`, `observatory`, `memory`) when they are on. Not
+ported yet (ROADMAP.md queue A, item A.2): the generation engine's QoS
+lane, `TenantRegistry` and `GenerationRouter.rolling_swap`.
 """
 from . import generation
 from . import rollout

@@ -8,9 +8,10 @@ oldest request's wait; the boundary request split so a full flush is
 exactly full), the non-blocking pop of an assisting caller and of the
 generation engine (`get_batch_nowait`), the per-tick deadline sweep
 (`expire`) and the graceful drain (`close`: `ServerClosedError` for new
-work, queued work still handed out). Not ported yet (ROADMAP.md queue A,
-items 6.3 and 9): the QoS ordering and quotas, telemetry and the health
-journal.
+work, queued work still handed out), with the ``<prefix>.queue_depth``
+gauge and ``<prefix>.rejected`` counter (telemetry) and the
+``admission_reject`` journal event (health). Not ported yet (ROADMAP.md
+queue A, item A.2): the QoS ordering and quotas.
 """
 from __future__ import annotations
 
@@ -18,6 +19,7 @@ import collections
 import threading
 import time
 
+from .. import health, telemetry
 from ..base import MXNetError, getenv, register_env
 
 __all__ = ["AdmissionQueue", "Request", "ServingError", "QueueFullError",
@@ -58,13 +60,16 @@ class Request:
     points back at the original through ``parent`` and ``offset``, and the
     original is cut down to its tail rows in place (keeping its queue
     position, future and enqueue time). The batcher reassembles the pieces
-    by offset before it resolves the future. ``tenant`` is accepted and
-    ignored until the QoS lanes are ported (ROADMAP.md queue A, item 6.3).
+    by offset before it resolves the future. ``span`` is the request's
+    root span (tracing on); ``traced_queue`` and ``flow_ended`` mark the
+    queue span and the flow arrow emitted once. ``tenant`` is accepted
+    and ignored until the QoS lanes are ported (ROADMAP.md queue A, item
+    A.2).
     """
 
     __slots__ = ("arrays", "rows", "future", "deadline", "enqueued_at",
-                 "parent", "offset", "total_rows", "parts", "payload",
-                 "tenant")
+                 "parent", "offset", "total_rows", "parts", "span",
+                 "traced_queue", "flow_ended", "payload", "tenant")
 
     def __init__(self, arrays, rows, future, deadline=None, payload=None,
                  tenant=None):
@@ -79,6 +84,9 @@ class Request:
         self.offset = 0             # row offset within the original request
         self.total_rows = self.rows  # original size (pieces keep parent's)
         self.parts = None           # on the original: delivered pieces
+        self.span = None            # the root span (tracing on)
+        self.traced_queue = False   # queue span emitted for THIS piece
+        self.flow_ended = False     # flow arrow landed (on the origin)
 
     @property
     def origin(self):
@@ -90,9 +98,10 @@ class Request:
 class AdmissionQueue:
     """Bounded FIFO of :class:`Request` with the batch-flush wait logic."""
 
-    def __init__(self, max_depth=None):
+    def __init__(self, max_depth=None, metric_prefix="serving"):
         self._max_depth = int(getenv("MXNET_SERVING_MAX_QUEUE")
                               if max_depth is None else max_depth)
+        self._prefix = metric_prefix
         if self._max_depth < 1:
             raise MXNetError("serving queue depth must be >= 1, got "
                              f"{self._max_depth}")
@@ -127,12 +136,20 @@ class AdmissionQueue:
                 raise ServerClosedError(
                     "serving queue is closed; no new requests accepted")
             if len(self._q) >= self._max_depth:
+                if telemetry._enabled:
+                    telemetry.counter(f"{self._prefix}.rejected").inc()
+                if health._enabled:
+                    health.event("admission_reject", prefix=self._prefix,
+                                 depth=len(self._q))
                 raise QueueFullError(
                     f"serving queue full ({len(self._q)} >= "
                     f"{self._max_depth} requests); shed load or raise "
                     "MXNET_SERVING_MAX_QUEUE")
             self._q.append(req)
             self._rows += req.rows
+            if telemetry._enabled:
+                telemetry.gauge(f"{self._prefix}.queue_depth").set(
+                    len(self._q))
             if not self.assist_active:
                 self._cond.notify()
 
@@ -205,6 +222,8 @@ class AdmissionQueue:
                 out.append(self._split(req, k))
                 self._rows -= k
                 rows += k
+        if telemetry._enabled:
+            telemetry.gauge(f"{self._prefix}.queue_depth").set(len(self._q))
         return out
 
     def expire(self, now=None):
@@ -220,6 +239,9 @@ class AdmissionQueue:
             for r in expired:
                 self._q.remove(r)
                 self._rows -= r.rows
+            if expired and telemetry._enabled:
+                telemetry.gauge(f"{self._prefix}.queue_depth").set(
+                    len(self._q))
         return expired
 
     @staticmethod

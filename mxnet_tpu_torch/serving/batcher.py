@@ -28,8 +28,15 @@ deadline in the batch; other errors fail every request of the batch.
 ``close()`` drains: admitted requests complete, new ones get
 `ServerClosedError`.
 
-Not ported yet (ROADMAP.md queue A, items 6.3 and 9): QoS tenants,
-telemetry, tracing and the observatory.
+Observability, each plane gated on its module's ``_enabled``: the
+``serving.*`` series (requests, batches, ``batch_rows`` / ``batch_slots``,
+whose ratio is the derived ``serving.batch_fill_ratio``, flush reasons,
+queue time, ``e2e_us``, errors and timeouts); a span tree a request
+(``serving.request`` with its admission, queue, execute and reassembly
+children, a flow arrow to the batch that ran it), across the worker, an
+assisting caller and split requests; and the flush's wall time as the
+observatory's ``serving`` lane. Not ported yet (ROADMAP.md queue A, item
+A.2): QoS tenants.
 """
 from __future__ import annotations
 
@@ -38,6 +45,7 @@ import time
 from concurrent.futures import Future
 
 from .. import ndarray as nd
+from .. import observatory, telemetry, tracing
 from ..base import getenv, register_env
 from ..io.staging import overlap_enabled
 from ..log import get_logger
@@ -126,7 +134,7 @@ class DynamicBatcher:
         sets its deadline: expired in the queue (or before a retry), the
         future fails with `DeadlineExceededError`. ``tenant`` names a QoS
         tenant and is accepted and ignored until the QoS lanes are ported
-        (ROADMAP.md queue A, item 6.3). Raises `QueueFullError` /
+        (ROADMAP.md queue A, item A.2). Raises `QueueFullError` /
         `ServerClosedError` synchronously. Any row count is accepted:
         requests larger than the biggest bucket stream through successive
         batches and reassemble."""
@@ -135,8 +143,28 @@ class DynamicBatcher:
         deadline = (time.monotonic() + float(timeout)
                     if timeout is not None else None)
         fut = Future()
-        self._admission.put(Request(arrays, n, fut, deadline=deadline,
-                                    tenant=tenant))
+        req = Request(arrays, n, fut, deadline=deadline, tenant=tenant)
+        if tracing._enabled:
+            # the request's root span, finished by the thread that
+            # resolves the future (the worker, an assisting caller, or
+            # this one on a synchronous rejection)
+            req.span = tracing.begin("serving.request", cat="serving",
+                                     rows=n)
+            sub = req.span.child("serving.admission")
+            # the flow arrow starts before put(): once the request is
+            # queued the worker may end the flow at once
+            tracing.flow_start(req.span.span_id, name="serving.request")
+            try:
+                self._admission.put(req)
+            except Exception as e:
+                sub.set(error=repr(e)).finish()
+                req.span.set(error=repr(e)).finish()
+                raise
+            sub.finish()
+        else:
+            self._admission.put(req)
+        if telemetry._enabled:
+            telemetry.counter("serving.requests").inc()
         return fut
 
     def predict(self, data, timeout=None, tenant=None):
@@ -232,34 +260,52 @@ class DynamicBatcher:
             self._logger.error("serving batch failed unexpectedly: %r", e)
             return None
 
-    def _fail(self, req, exc):
+    def _fail(self, req, exc, timeout=False):
         """Fail the request a piece belongs to (once: later pieces of a
         split request are dropped unrun by the queue's done() check)."""
         orig = req.origin
         with self._result_lock:
-            if not orig.future.done():
-                orig.future.set_exception(exc)
+            if orig.future.done():
+                return
+            if telemetry._enabled:
+                telemetry.counter(
+                    "serving.timeouts" if timeout else "serving.errors").inc()
+            orig.future.set_exception(exc)
+            if orig.span is not None:
+                orig.span.set(error=repr(exc), timeout=timeout).finish()
 
-    def _deliver(self, req, sliced):
+    def _deliver(self, req, sliced, done_ts):
         """Hand a computed piece its rows; a split request resolves once
         every piece has arrived, reassembled in row order."""
         orig = req.origin
         with self._result_lock:
             if orig.future.done():
                 return
+            t0r = (tracing.now_us()
+                   if tracing._enabled and orig.span is not None else None)
             if req.offset == 0 and req.rows == orig.total_rows:
                 orig.future.set_result(self._predictor._wrap_outputs(sliced))
-                return
-            if orig.parts is None:
-                orig.parts = []
-            orig.parts.append((req.offset, req.rows, sliced))
-            if sum(r for _, r, _ in orig.parts) < orig.total_rows:
-                return
-            orig.parts.sort(key=lambda p: p[0])
-            merged = [nd.concatenate([p[2][k] for p in orig.parts], axis=0)
-                      for k in range(len(sliced))]
-            orig.parts = None
-            orig.future.set_result(self._predictor._wrap_outputs(merged))
+            else:
+                if orig.parts is None:
+                    orig.parts = []
+                orig.parts.append((req.offset, req.rows, sliced))
+                if sum(r for _, r, _ in orig.parts) < orig.total_rows:
+                    return
+                orig.parts.sort(key=lambda p: p[0])
+                merged = [nd.concatenate([p[2][k] for p in orig.parts],
+                                         axis=0)
+                          for k in range(len(sliced))]
+                orig.parts = None
+                orig.future.set_result(self._predictor._wrap_outputs(merged))
+            if t0r is not None:
+                # the request resolved on this thread: close its tree
+                tracing.emit_span("serving.reassembly", t0r,
+                                  tracing.now_us() - t0r, cat="serving",
+                                  parent=orig.span, rows=orig.total_rows)
+                orig.span.finish()
+            if telemetry._enabled:
+                telemetry.histogram("serving.e2e_us").record(
+                    (done_ts - orig.enqueued_at) * 1e6)
 
     def _run_batch(self, reqs, reason, stage=None):
         prep = self._prepare_batch(reqs, reason)
@@ -267,25 +313,45 @@ class DynamicBatcher:
             return None
         return self._execute_prep(prep, stage=stage)
 
-    def _prepare_batch(self, reqs, reason, staged=False):
+    def _prepare_batch(self, reqs, reason, staged=False, requeued=False):
         """Everything on the host a flush needs BEFORE dispatch: the
-        deadline filter and the concatenated feed, and for a staged prep
-        (overlap lane) the pad up to the bucket, so the predictor's own pad
-        is a no-op. Returns a prep dict, or None when nothing stayed
-        live."""
+        deadline filter, the queue records and spans, the concatenated
+        feed, and for a staged prep (overlap lane) the pad up to the
+        bucket, so the predictor's own pad is a no-op. Returns a prep
+        dict, or None when nothing stayed live."""
         now = time.monotonic()
         live = []
         for r in reqs:
             if r.deadline is not None and now >= r.deadline:
                 self._fail(r, DeadlineExceededError(
                     f"request waited {now - r.enqueued_at:.3f}s in queue, "
-                    "past its deadline"))
+                    "past its deadline"), timeout=True)
             elif not r.origin.future.done():
                 live.append(r)
         if not live:
             return None
+        if telemetry._enabled and not requeued:
+            for r in live:
+                telemetry.histogram("serving.time_in_queue_us").record(
+                    (now - r.enqueued_at) * 1e6)
         rows = sum(r.rows for r in live)
         bucket = self._predictor.bucket_for(rows)
+        if tracing._enabled:
+            # each request's queue span (submit to this pop) and the flow
+            # arrow landing in this batch, once a request
+            t_pop = tracing.now_us()
+            for r in live:
+                sp = r.origin.span
+                if sp is None:
+                    continue
+                if not r.traced_queue:
+                    r.traced_queue = True
+                    tracing.emit_span("serving.queue", sp.t0, t_pop - sp.t0,
+                                      cat="serving", parent=sp,
+                                      offset=r.offset, rows=r.rows)
+                if not r.origin.flow_ended:
+                    r.origin.flow_ended = True
+                    tracing.flow_end(sp.span_id, name="serving.request")
         feeds = []
         for i in range(len(self._predictor.data_names)):
             parts = [r.arrays[i] for r in live]
@@ -298,7 +364,8 @@ class DynamicBatcher:
         earliest = min((r.deadline for r in live
                         if r.deadline is not None), default=None)
         return {"live": live, "reason": reason, "rows": rows,
-                "bucket": bucket, "feeds": feeds, "earliest": earliest}
+                "bucket": bucket, "feeds": feeds, "earliest": earliest,
+                "staged": staged, "t0": time.perf_counter()}
 
     def _resweep_staged(self, prep):
         """A staged prep sat out one flush: sweep its deadlines again
@@ -312,11 +379,13 @@ class DynamicBatcher:
             return prep
         for r in expired:
             self._fail(r, DeadlineExceededError(
-                "request expired while staged for the next flush"))
+                "request expired while staged for the next flush"),
+                timeout=True)
         rest = [r for r in live if r not in expired]
         if not rest:
             return None
-        return self._prepare_batch(rest, prep["reason"], staged=True)
+        return self._prepare_batch(rest, prep["reason"], staged=True,
+                                   requeued=True)
 
     def _stage_next(self):
         """Pop and prepare the NEXT flush while the current one runs on
@@ -328,6 +397,8 @@ class DynamicBatcher:
             batch, reason = self._admission.get_batch_nowait(self._max_batch)
             if batch is None:
                 return None
+            if telemetry._enabled:
+                telemetry.counter("serving.staged_flushes").inc()
             return self._prepare_batch(batch, reason, staged=True)
         except Exception as e:  # noqa: BLE001 — never fail the IN-FLIGHT
             # batch because the next one failed to stage
@@ -339,7 +410,10 @@ class DynamicBatcher:
         Returns the prep staged mid-flight, or None."""
         live, reason = prep["live"], prep["reason"]
         bucket, feeds = prep["bucket"], prep["feeds"]
-        earliest = prep["earliest"]
+        earliest, rows = prep["earliest"], prep["rows"]
+        # a staged prep's wall starts at dispatch (its prepare was hidden);
+        # a lockstep one's includes the prepare it paid inline
+        t_wall0 = time.perf_counter() if prep["staged"] else prep["t0"]
         staged_box = [None]
         # an instance whose `_run` was patched over (a test's gate) keeps
         # the lockstep call, so the patch sees every forward
@@ -362,31 +436,59 @@ class DynamicBatcher:
                 return self._predictor._run_wait(pending)
             return self._predictor._run(bucket, feeds)
 
-        try:
-            outs = retry_call(attempt,
-                              desc=f"serving forward bucket={bucket}",
-                              retries=self._retries,
-                              backoff=self._backoff_s,
-                              retry_on=self._predictor.retry_on)
-        except DeadlineExceededError as e:
-            now = time.monotonic()
-            expired, rest = [], []
+        with tracing.span("serving.batch", cat="serving", rows=rows,
+                          bucket=bucket, reason=reason,
+                          staged=prep["staged"]):
+            t_exec0 = tracing.now_us() if tracing._enabled else 0.0
+            try:
+                outs = retry_call(attempt,
+                                  desc=f"serving forward bucket={bucket}",
+                                  retries=self._retries,
+                                  backoff=self._backoff_s,
+                                  retry_on=self._predictor.retry_on)
+            except DeadlineExceededError as e:
+                now = time.monotonic()
+                expired, rest = [], []
+                for r in live:
+                    (expired if r.deadline is not None and now >= r.deadline
+                     else rest).append(r)
+                for r in expired:
+                    self._fail(r, e, timeout=True)
+                if rest:
+                    # the others still have time: run them again without
+                    # the expired requests' rows
+                    self._run_batch(rest, reason)
+                return staged_box[0]
+            except Exception as e:  # noqa: BLE001 - fail the batch, serve on
+                for r in live:
+                    self._fail(r, e)
+                return staged_box[0]
+            if tracing._enabled:
+                # each request's view of the shared compute window, so
+                # every request tree is complete on its own
+                t_exec1 = tracing.now_us()
+                for r in live:
+                    sp = r.origin.span
+                    if sp is not None:
+                        tracing.emit_span("serving.execute", t_exec0,
+                                          t_exec1 - t_exec0, cat="serving",
+                                          parent=sp, bucket=bucket,
+                                          batch_rows=rows)
+            if telemetry._enabled:
+                telemetry.counter("serving.batches").inc()
+                telemetry.counter("serving.batch_rows").inc(rows)
+                telemetry.counter("serving.batch_slots").inc(bucket)
+                telemetry.counter(f"serving.flush_{reason}").inc()
+                telemetry.histogram("serving.batch_occupancy").record(rows)
+            off = 0
+            done_ts = time.monotonic()
             for r in live:
-                (expired if r.deadline is not None and now >= r.deadline
-                 else rest).append(r)
-            for r in expired:
-                self._fail(r, e)
-            if rest:
-                # the others still have time: run them again without the
-                # expired requests' rows
-                self._run_batch(rest, reason)
-            return staged_box[0]
-        except Exception as e:  # noqa: BLE001 — fail the batch, keep serving
-            for r in live:
-                self._fail(r, e)
-            return staged_box[0]
-        off = 0
-        for r in live:
-            self._deliver(r, [o[off:off + r.rows] for o in outs])
-            off += r.rows
+                self._deliver(r, [o[off:off + r.rows] for o in outs],
+                              done_ts)
+                off += r.rows
+            if observatory._enabled:
+                # the flush's wall; the predictor observed the program and
+                # its device time
+                observatory.observe("serving",
+                                    wall_s=time.perf_counter() - t_wall0)
         return staged_box[0]

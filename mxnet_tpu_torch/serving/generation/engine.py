@@ -31,6 +31,12 @@ The port of `mxnet_tpu/serving/generation/engine.py`, its plain lane:
   the engine keeps a copy of every pinned version and, on a tick where
   more than one version is live, writes each cohort's copy into the
   parameters before its replay and the current one back after;
+* **engines sharing a model**: each engine serves its own weights (the
+  ``params`` it was given are its version 0). The model remembers which
+  set its parameters hold; an engine whose set is not the one bound writes
+  its set in under the model's lock before it replays, first keeping a
+  copy of the displaced set where that was its only copy, and engines on
+  one model tick one at a time;
 * **build once**: the engine's ``CompileCache("generation")`` holds one
   program per prefill bucket and exactly one decode (or verify) program,
   plus, per lane, one suffix prefill a bucket and THE fork program, and a
@@ -40,11 +46,18 @@ The port of `mxnet_tpu/serving/generation/engine.py`, its plain lane:
   JAX engine's compile-once executables. `warm` builds them all ahead of
   traffic; steady state, swaps included, builds nothing.
 
-The JAX package publishes the lanes' counts through its telemetry; here
-they are plain integer attributes (``prefix_hits``, ``prefix_misses``,
-``spec_committed``, ``spec_verified_slots``). Not ported yet (ROADMAP.md
-queue A, items 6 and 9): QoS park and resume, the overlap tick order,
-telemetry, tracing, the tick beacon and the memory census.
+Observability, each plane gated on its module's ``_enabled``: the
+``serving.generation.*`` telemetry series (ticks, ``tick_us``, tokens,
+``ttft_us``, prefills, evictions, and the ``prefix.*`` / ``spec.*``
+counters, which the attributes ``prefix_hits``, ``prefix_misses``,
+``spec_committed`` and ``spec_verified_slots`` also keep); a span tree a
+tick (``generation.tick`` with its admit and decode children, observed by
+`tracing.tick_recorder`) and one a session; the tick beacon that
+`attach_engine` arms; the tick's `observatory.observe` with CUDA events
+around the decode on a card; and the slab in the memory census
+(``kv_cache``). Every record sits in the host code around the replays:
+a captured graph runs no Python. Not ported yet (ROADMAP.md queue A,
+items A.2 and A.3): QoS park and resume, and the overlap tick order.
 """
 from __future__ import annotations
 
@@ -57,7 +70,7 @@ import weakref
 import numpy as np
 import torch
 
-from ... import health
+from ... import health, memory, observatory, telemetry, tracing
 from ...base import MXNetError, getenv, register_env
 from ...compile_cache import CompileCache, GraphProgram
 from ...models.convert import state_like
@@ -115,11 +128,38 @@ def prefill_ladder(buckets, max_len):
     return tuple(sorted({min(int(b), int(max_len)) for b in out}))
 
 
+class _ParamSet:
+    """One set of parameter values an engine serves. ``tensors`` is a copy
+    on the model's device, or None while the model's parameters are the
+    set's only copy (it is bound, and nothing displaced it since)."""
+
+    __slots__ = ("tensors", "__weakref__")
+
+    def __init__(self, tensors=None):
+        self.tensors = tensors
+
+
+def _model_state(model):
+    """The per-model record engines share: the lock every program read of
+    the parameters runs under, and (a weak reference to) the `_ParamSet`
+    the parameters hold."""
+    st = model.__dict__.get("_generation_state")
+    if st is None:
+        st = model.__dict__.setdefault(
+            "_generation_state", {"lock": threading.RLock(), "bound": None})
+    return st
+
+
+def _bound_set(state):
+    ref = state["bound"]
+    return ref() if ref is not None else None
+
+
 class _Session:
     """Engine-side state of one admitted (or queued) generation."""
 
     __slots__ = ("prompt", "max_new_tokens", "eos_id", "deadline", "stream",
-                 "slot", "generated", "prefix_len", "version")
+                 "slot", "generated", "prefix_len", "version", "span")
 
     def __init__(self, prompt, max_new_tokens, eos_id, deadline, stream):
         self.prompt = prompt            # np.int32 [n]
@@ -131,6 +171,7 @@ class _Session:
         self.generated = 0
         self.prefix_len = 0             # cached tokens forked at admission
         self.version = 0                # weights version pinned at admission
+        self.span = None                # the session's span (tracing on)
 
 
 def _host_copy(t):
@@ -149,11 +190,10 @@ class GenerationEngine:
         The port's model, on the device it serves from (``cuda``, or the
         CPU when it was built with ``device="cpu"``).
     params : dict, optional
-        None serves the model's own parameters. A state dict in the port's
-        names (as `models.params_from_jax` returns it) is loaded into the
-        model first. Engines over one model share its parameters, so
-        `swap_weights` refuses while another open engine serves the same
-        model.
+        The weights this engine serves, a state dict in the port's names
+        (as `models.params_from_jax` returns it) or the JAX package's.
+        None serves the values the model's parameters hold now. Engines
+        over one model each serve their own set (the module docstring).
     max_slots / max_len / buckets / tick_budget_ms :
         Overrides of the ``MXNET_GENERATION_*`` knobs; `max_len` is capped
         at the model's positional range less `spec_k`.
@@ -182,9 +222,18 @@ class GenerationEngine:
                  buckets=None, max_queue=None, tick_budget_ms=None,
                  eos_id=None, start=True, prefix_cache=None,
                  prefix_min_tokens=None, spec_k=None, draft=None):
-        if params is not None:
-            model.load_state_dict(params)
         self._model = model
+        self._shared = _model_state(model)
+        with self._shared["lock"]:
+            if params is None:
+                ws0 = _bound_set(self._shared)
+                if ws0 is None:
+                    ws0 = _ParamSet()
+                    self._shared["bound"] = weakref.ref(ws0)
+            else:
+                ws0 = _ParamSet(state_like(model, params, "GenerationEngine"))
+                self._bind_set(ws0)
+                ws0.tensors = None      # the parameters hold it now
         self._slots = int(getenv("MXNET_GENERATION_SLOTS")
                           if max_slots is None else max_slots)
         if self._slots < 1:
@@ -223,7 +272,13 @@ class GenerationEngine:
         self._last_tok = np.zeros(self._slots, np.int32)
         self._live = 0
 
-        self._queue = AdmissionQueue(max_queue)
+        self._queue = AdmissionQueue(max_queue,
+                                     metric_prefix="serving.generation")
+        # the kv_cache category of the memory census: the slab, a live view
+        memory.register_provider("kv_cache", self,
+                                 lambda e: [e._ck, e._cv])
+        self._tokens_window = 0
+        self._rate_t0 = time.monotonic()
         self._tick_lock = threading.Lock()
         self._work = threading.Condition()
         self._waiting = 0     # callers queued for the tick lock (_exclusive)
@@ -234,17 +289,13 @@ class GenerationEngine:
         self.prefix_hits = self.prefix_misses = 0
         self.spec_committed = self.spec_verified_slots = 0
 
-        # weight rollout: {version: (copy of its parameters or None, the
-        # WeightSet that published it or None)} for every version a live
-        # session may still decode under. None: the model's parameters
-        # hold it and no copy was needed yet. _bound_version is the
-        # version the parameters hold; between ticks it is the current one
-        self._weights_version = self._bound_version = 0
-        self._param_sets = {0: (None, None)}
-        model.__dict__.setdefault("_generation_engines",
-                                  weakref.WeakSet()).add(self)
+        # weight rollout: {version: (its _ParamSet, the WeightSet that
+        # published it or None)} for every version a live session may
+        # still decode under; version 0 is the set the engine was built on
+        self._weights_version = 0
+        self._param_sets = {0: (ws0, None)}
 
-        self.health_name = attach_engine(self)
+        self.health_name, self._beacon = attach_engine(self)
         use_prefix = (bool(getenv("MXNET_GENERATION_PREFIX_CACHE"))
                       if prefix_cache is None else bool(prefix_cache))
         self._prefix_min = int(
@@ -365,11 +416,13 @@ class GenerationEngine:
 
     def ready(self):
         """Readiness: (ok, reason), the router's placement gate. Not ready
-        while draining (closed), before any program exists (`warm` not
-        run and no traffic built one), or with the intake queue above its
-        watermark."""
+        while draining (closed), while the watchdog marks the tick beacon
+        stalled, before any program exists (`warm` not run and no traffic
+        built one), or with the intake queue above its watermark."""
         if self._closed:
             return False, "closed (draining)"
+        if self._beacon.stalled:
+            return False, "scheduler stalled (watchdog)"
         if not self._warmed and not len(self._cache):
             return False, "warmup not run"
         return queue_ready(self._queue)
@@ -418,8 +471,22 @@ class GenerationEngine:
         sess = _Session(prompt, max_new_tokens,
                         self._eos_id if eos_id is None else eos_id,
                         deadline, stream)
-        self._queue.put(Request([prompt], 1, stream._future,
-                                deadline=deadline, payload=sess))
+        if tracing._enabled:
+            sess.span = tracing.begin("generation.session", cat="generation",
+                                      prompt_tokens=int(prompt.size),
+                                      max_new_tokens=int(max_new_tokens))
+        try:
+            self._queue.put(Request([prompt], 1, stream._future,
+                                    deadline=deadline, payload=sess))
+        except Exception as e:
+            if sess.span is not None:
+                sess.span.set(error=repr(e)).finish()
+            raise
+        if telemetry._enabled:
+            telemetry.counter("serving.generation.sessions").inc()
+        if health._enabled:
+            # work is pending: the tick beacon's silence now counts
+            self._beacon.arm()
         with self._work:
             self.sessions_submitted += 1
             self._work.notify_all()
@@ -444,7 +511,8 @@ class GenerationEngine:
         buckets = (self._buckets if buckets is None
                    else tuple(sorted({int(b) for b in buckets})))
         t0 = time.perf_counter()
-        with self._exclusive():
+        with self._exclusive(), self._shared["lock"]:
+            self._bind_version(self._weights_version)
             misses0, captures0 = self._cache.misses, self.captures
             free_list = self._free_slots()
             free = free_list[0] if free_list else None
@@ -477,6 +545,9 @@ class GenerationEngine:
             compiles = self._cache.misses - misses0
             captures = self.captures - captures0
         self._warmed = True
+        if telemetry._enabled:
+            telemetry.counter("serving.generation.warmup_compiles").inc(
+                compiles)
         return {"buckets": list(buckets), "compiles": compiles,
                 "captures": captures,
                 "seconds": time.perf_counter() - t0,
@@ -484,16 +555,27 @@ class GenerationEngine:
 
     # -- weight rollout ------------------------------------------------------
 
-    def _bind_version(self, version):
-        """Write `version`'s copy into the model's parameters (tick lock
-        held), unless they hold it already."""
-        if version == self._bound_version:
+    def _bind_set(self, ws):
+        """Make the model's parameters hold `ws` (the model's lock held),
+        unless they hold it already. The displaced set keeps a copy first
+        when the parameters were its only one and some engine still holds
+        it."""
+        bound = _bound_set(self._shared)
+        if bound is ws:
             return
-        params = self._param_sets[version][0]
+        params = dict(self._model.named_parameters())
         with torch.no_grad():
-            for name, p in self._model.named_parameters():
-                p.copy_(params[name])
-        self._bound_version = version
+            if bound is not None and bound.tensors is None:
+                bound.tensors = {n: p.detach().clone()
+                                 for n, p in params.items()}
+            for name, p in params.items():
+                p.copy_(ws.tensors[name])
+        self._shared["bound"] = weakref.ref(ws)
+
+    def _bind_version(self, version):
+        """Write `version`'s set into the model's parameters (the tick
+        lock and the model's lock held), unless they hold it already."""
+        self._bind_set(self._param_sets[version][0])
 
     def swap_weights(self, weights, draft_params=None, version=None):
         """Flip to new weights BETWEEN ticks (takes the tick lock): new
@@ -511,9 +593,8 @@ class GenerationEngine:
         tensors. Returns the new version, or None when ``version`` is the
         current one (an idempotent double publish). Rolling back to a
         version still pinned by draining sessions reuses its copy. Raises
-        MXNetError, changing nothing, on other names or shapes, or while
-        another open engine serves the same model (its graphs read the
-        same parameters)."""
+        MXNetError, changing nothing, on other names or shapes. Another
+        engine over the same model keeps serving its own set."""
         ws = None
         if hasattr(weights, "arg_params") and hasattr(weights, "version"):
             ws = weights
@@ -524,13 +605,7 @@ class GenerationEngine:
                 draft_params = ws.draft_params
         else:
             new = dict(weights)
-        with self._exclusive():
-            others = [e for e in self._model._generation_engines
-                      if e is not self and not e.closed]
-            if others:
-                raise MXNetError(
-                    f"swap_weights: {len(others)} other open engine(s) "
-                    "serve this model's parameters")
+        with self._exclusive(), self._shared["lock"]:
             if version is None:
                 version = self._weights_version + 1
             version = int(version)
@@ -539,16 +614,12 @@ class GenerationEngine:
             held = self._param_sets.get(version)
             if held is None:
                 # the same names and shapes, cast to the bound dtypes: the
-                # swap is a copy into the tensors every graph reads
+                # swap is a copy into the tensors every graph reads (the
+                # outgoing set keeps a copy when it is displaced)
                 placed = state_like(self._model, new, "swap_weights")
-                cur, cur_ws = self._param_sets[self._weights_version]
-                if cur is None:
-                    # the outgoing version's only copy is the parameters
-                    self._param_sets[self._weights_version] = (
-                        {n: p.detach().clone()
-                         for n, p in self._model.named_parameters()}, cur_ws)
                 self._param_sets[version] = (
-                    placed, ws.acquire() if ws is not None else None)
+                    _ParamSet(placed),
+                    ws.acquire() if ws is not None else None)
             self._weights_version = version
             self._bind_version(version)
             if draft_params and self._draft is not None:
@@ -556,6 +627,10 @@ class GenerationEngine:
             if self._prefix is not None:
                 self._prefix.evict_other_versions(version)
             self._gc_param_sets()
+        if telemetry._enabled:
+            telemetry.counter("serving.generation.weight_swaps").inc()
+            telemetry.gauge("serving.generation.weights_version").set(
+                version)
         if health._enabled:
             health.event("rollout_swap", engine=self.health_name,
                          version=version,
@@ -568,7 +643,8 @@ class GenerationEngine:
         """Host copies of the CURRENT weights (and a checkpoint draft's)
         in the port's names, bf16 as float32, with their version:
         ``(version, params, draft or None)``."""
-        with self._exclusive():
+        with self._exclusive(), self._shared["lock"]:
+            self._bind_version(self._weights_version)
             params = {k: _host_copy(v)
                       for k, v in self._model.named_parameters()}
             draft = None
@@ -661,10 +737,20 @@ class GenerationEngine:
 
         def build():
             return GraphProgram(fn, [(bucket,), (1,), (1,)], model.device,
-                                self._pool)
+                                self._pool, reads=self._reads)
 
         return self._cache.get_or_build(
             ("prefill", bucket, self._slots, self._slab_len), build)
+
+    def _reads(self):
+        """What the programs read besides their inputs: the parameters and
+        the slab (the observatory's bytes of an entry)."""
+        return [*self._model.parameters(), self._ck, self._cv]
+
+    def _tick_key(self):
+        """The cache key of the program a tick's decode runs."""
+        return (("verify", self._spec_k, self._slots, self._slab_len)
+                if self._spec_k else ("decode", self._slots, self._slab_len))
 
     def _decode_fn(self):
         """THE decode program: one step over the whole slab, (tokens,
@@ -678,7 +764,7 @@ class GenerationEngine:
 
         def build():
             return GraphProgram(fn, [(self._slots,), (self._slots,)],
-                                model.device, self._pool)
+                                model.device, self._pool, reads=self._reads)
 
         return self._cache.get_or_build(
             ("decode", self._slots, self._slab_len), build)
@@ -713,7 +799,7 @@ class GenerationEngine:
 
         def build():
             return GraphProgram(fn, [(bucket,), (1,), (1,), (1,)],
-                                model.device, self._pool)
+                                model.device, self._pool, reads=self._reads)
 
         return self._cache.get_or_build(
             ("suffix_prefill", bucket, self._slots, self._slab_len), build)
@@ -731,7 +817,7 @@ class GenerationEngine:
 
         def build():
             return GraphProgram(fn, [(self._slots, k1), (self._slots,)],
-                                model.device, self._pool)
+                                model.device, self._pool, reads=self._reads)
 
         return self._cache.get_or_build(
             ("verify", self._spec_k, self._slots, self._slab_len), build)
@@ -792,42 +878,102 @@ class GenerationEngine:
         deadlines, admit prefills into free slots, run ONE decode over the
         slab. A tick never raises: a failure fails the live sessions in
         band and zeroes the slab in place, so the captured graphs stay
-        valid and no session reads rows a failed program half wrote."""
-        try:
-            now = time.monotonic()
-            for req in self._queue.expire(now):
-                self._fail_queued(req.payload, now)
-            for slot, sess in enumerate(self._sessions):
-                if (sess is not None and sess.deadline is not None
-                        and now >= sess.deadline):
-                    self._evict(slot, "deadline", DeadlineExceededError(
-                        f"session deadline passed after {sess.generated} "
-                        f"generated token(s)"))
-            self._admit()
-            self._decode()
-            if len(self._param_sets) > 1:
-                # a swap is draining: release versions whose last session
-                # just finished
+        valid and no session reads rows a failed program half wrote. The
+        model's lock is held throughout, with this engine's weights bound
+        (engines sharing the model tick one at a time)."""
+        with self._shared["lock"]:
+            self._tick_locked()
+
+    def _tick_locked(self):
+        tele = telemetry._enabled
+        obs = observatory._enabled
+        decoded = False
+        events = None
+        t0 = time.perf_counter()
+        tick_span = tracing.span("generation.tick", cat="generation",
+                                 live=self._live, queued=len(self._queue))
+        with tick_span:
+            try:
+                self._bind_version(self._weights_version)
+                now = time.monotonic()
+                for req in self._queue.expire(now):
+                    self._fail_queued(req.payload, now)
+                for slot, sess in enumerate(self._sessions):
+                    if (sess is not None and sess.deadline is not None
+                            and now >= sess.deadline):
+                        self._evict(slot, "deadline", DeadlineExceededError(
+                            f"session deadline passed after "
+                            f"{sess.generated} generated token(s)"))
+                with tracing.span("generation.admit", cat="generation"):
+                    self._admit()
+                decoded = self._live > 0
+                if obs and decoded and self._ck.is_cuda:
+                    # device time of the decode, read in the observatory's
+                    # summary, never here
+                    events = (torch.cuda.Event(enable_timing=True),
+                              torch.cuda.Event(enable_timing=True))
+                    events[0].record()
+                with tracing.span("generation.decode", cat="generation",
+                                  live=self._live):
+                    self._decode()
+                if events is not None:
+                    events[1].record()
+                if len(self._param_sets) > 1:
+                    # a swap is draining: release versions whose last
+                    # session just finished
+                    self._gc_param_sets()
+            except Exception as e:  # noqa: BLE001 - never strand a session
+                _logger.exception("generation tick failed")
+                tick_span.set(error=repr(e))
+                events = None
+                for slot, sess in enumerate(self._sessions):
+                    if sess is not None:
+                        self._evict(slot, "error", e)
+                self._ck.zero_()
+                self._cv.zero_()
+                if self._prefix is not None:
+                    self._prefix.clear("slab_reset")   # its rows were zeroed
+                if self._draft is not None:
+                    self._draft.reset()
                 self._gc_param_sets()
-        except Exception as e:  # noqa: BLE001 - never strand a session
-            _logger.exception("generation tick failed")
-            for slot, sess in enumerate(self._sessions):
-                if sess is not None:
-                    self._evict(slot, "error", e)
-            self._ck.zero_()
-            self._cv.zero_()
-            if self._prefix is not None:
-                self._prefix.clear("slab_reset")   # its rows were zeroed
-            if self._draft is not None:
-                self._draft.reset()
-            self._gc_param_sets()
-            self._bind_version(self._weights_version)
+                self._bind_version(self._weights_version)
+        if tracing._enabled:
+            tracing.tick_recorder.observe(tick_span.tree())
+        if health._enabled:
+            # progress: the tick ran (a failed one too); an empty slab
+            # parks the scheduler, so silence while idle is no stall
+            self._beacon.touch()
+            if not self._has_work():
+                self._beacon.idle()
+        if obs and decoded:
+            observatory.observe("generation.tick", self._cache,
+                                self._tick_key(),
+                                wall_s=time.perf_counter() - t0,
+                                events=events)
+        if tele:
+            self._tick_telemetry(time.perf_counter() - t0)
         if self._has_work():
             # an assist tick pops the queue before the session is live; a
             # worker that re-checked _has_work() in that window went back
             # to sleep, so any tick that leaves work pending wakes it
             with self._work:
                 self._work.notify_all()
+
+    def _tick_telemetry(self, dt):
+        telemetry.counter("serving.generation.ticks").inc()
+        telemetry.histogram("serving.generation.tick_us").record(dt * 1e6)
+        telemetry.gauge("serving.generation.live_slots").set(self._live)
+        now = time.monotonic()
+        if not self._has_work():
+            # going idle: the parked scheduler never recomputes the rate
+            telemetry.gauge("serving.generation.tokens_per_s").set(0.0)
+            self._tokens_window = 0
+            self._rate_t0 = now
+        elif now - self._rate_t0 >= 0.5:
+            telemetry.gauge("serving.generation.tokens_per_s").set(
+                self._tokens_window / (now - self._rate_t0))
+            self._tokens_window = 0
+            self._rate_t0 = now
 
     def _free_slots(self):
         """Slots holding neither a live session nor a cached prefix."""
@@ -904,6 +1050,13 @@ class GenerationEngine:
                 free.append(slot)
                 continue
             n = int(sess.prompt.size)
+            trc = tracing._enabled and sess.span is not None
+            if trc:
+                tracing.emit_span("generation.queued", sess.span.t0,
+                                  tracing.now_us() - sess.span.t0,
+                                  cat="generation", parent=sess.span)
+                t_pf_us = tracing.now_us()
+            t_pf = time.perf_counter()
             # prefix-cache lane: fork the longest usable cached prefix,
             # then prefill only the unmatched suffix
             node = None
@@ -933,12 +1086,22 @@ class GenerationEngine:
                     tok = int(self._prefill_fn(bucket)(padded, n, slot)[0])
                     if self._prefix is not None:
                         self.prefix_misses += 1
+                        if telemetry._enabled:
+                            telemetry.counter(
+                                "serving.generation.prefix.misses").inc()
             except Exception as e:
                 # the popped session is in neither the queue nor a slot:
                 # fail its stream here, or it is stranded; re-raise so the
                 # tick resets the slab
+                if sess.span is not None:
+                    sess.span.set(error=repr(e)).finish()
                 sess.stream._fail(e)
                 raise
+            if trc:
+                tracing.emit_span("generation.prefill", t_pf_us,
+                                  tracing.now_us() - t_pf_us,
+                                  cat="generation", parent=sess.span,
+                                  slot=slot, forked=node is not None)
             sess.slot = slot
             # pinned for the session's whole life: after a swap the tick
             # keeps decoding it under these weights
@@ -949,7 +1112,11 @@ class GenerationEngine:
             self._live += 1
             if self._draft is not None:
                 self._draft.on_admit(slot, sess.prompt, tok)
-            self._deliver(sess, tok)
+            self._deliver(sess, tok, first=True)
+            if telemetry._enabled:
+                telemetry.counter("serving.generation.prefills").inc()
+                telemetry.histogram("serving.generation.prefill_us").record(
+                    (time.perf_counter() - t_pf) * 1e6)
             # cache the prompt's K/V while a free slot exists (an insert
             # never evicts): the slot's rows [0, n) are exactly that K/V
             # right after its prefill, so one fork snapshots them
@@ -986,6 +1153,11 @@ class GenerationEngine:
         sess.prefix_len = m
         sess.stream.cached_prefix_len = m
         self.prefix_hits += 1
+        if telemetry._enabled:
+            telemetry.counter("serving.generation.prefix.hits").inc()
+            telemetry.counter("serving.generation.prefix.forks").inc()
+            telemetry.counter(
+                "serving.generation.prefix.cached_tokens_served").inc(m)
         return tok
 
     def _decode(self):
@@ -1037,6 +1209,7 @@ class GenerationEngine:
         if kind == "spec":
             self._spec_commit(pending)
             return
+        live = self._live
         for slots, snap, toks in pending:
             for slot, dispatched in zip(slots, snap):
                 sess = self._sessions[slot]
@@ -1048,6 +1221,11 @@ class GenerationEngine:
                 self._last_tok[slot] = tok
                 self._deliver(sess, tok)
                 self._maybe_finish(slot)
+            if telemetry._enabled:
+                telemetry.counter("serving.generation.tick_slots").inc(
+                    self._slots)
+        if telemetry._enabled:
+            telemetry.counter("serving.generation.decode_tokens").inc(live)
 
     def _spec_dispatch(self):
         """The draft proposes k tokens a slot, once, with its current
@@ -1070,6 +1248,8 @@ class GenerationEngine:
         before they could be."""
         props, pending = state
         k = self._spec_k
+        live = self._live
+        accepted = committed_total = 0
         for slots, snap, toks in pending:
             for slot, dispatched in zip(slots, snap):
                 sess = self._sessions[slot]
@@ -1095,12 +1275,42 @@ class GenerationEngine:
                     self._draft.on_commit(slot, committed)
                 self.spec_verified_slots += 1
                 self.spec_committed += len(committed)
+                # accepted drafts: all committed tokens but the bonus one
+                # (every one of them when a terminal state cut the loop)
+                accepted += min(len(committed), a)
+                committed_total += len(committed)
+            if telemetry._enabled:
+                telemetry.counter("serving.generation.tick_slots").inc(
+                    self._slots)
+        if telemetry._enabled:
+            telemetry.counter("serving.generation.decode_tokens").inc(live)
+            telemetry.counter("serving.generation.spec.ticks").inc()
+            telemetry.counter("serving.generation.spec.verified_slots").inc(
+                live)
+            telemetry.counter("serving.generation.spec.proposed").inc(
+                live * k)
+            telemetry.counter("serving.generation.spec.accepted").inc(
+                accepted)
+            telemetry.counter("serving.generation.spec.rolled_back").inc(
+                live * k - accepted)
+            telemetry.counter("serving.generation.spec.committed").inc(
+                committed_total)
 
     # -- delivery / eviction -------------------------------------------------
 
-    def _deliver(self, sess, tok):
+    def _deliver(self, sess, tok, first=False):
         sess.generated += 1
         sess.stream._push(tok)
+        self._tokens_window += 1
+        if telemetry._enabled:
+            telemetry.counter("serving.generation.tokens").inc()
+            if first and sess.generated == 1:
+                ttft = (time.monotonic() - sess.stream.submitted_at) * 1e6
+                telemetry.histogram("serving.generation.ttft_us").record(
+                    ttft)
+                if sess.prefix_len:
+                    telemetry.histogram(
+                        "serving.generation.prefix.ttft_us").record(ttft)
 
     def _maybe_finish(self, slot):
         """Evict the slot if its session just reached a terminal state."""
@@ -1123,9 +1333,21 @@ class GenerationEngine:
         self._live -= 1
         if self._draft is not None:
             self._draft.on_evict(slot)
+        if telemetry._enabled:
+            telemetry.counter("serving.generation.evictions").inc()
+            telemetry.counter(f"serving.generation.evict_{reason}").inc()
         if reason not in ("eos", "finished"):
             _logger.info("generation slot %d evicted (%s) after %d token(s)",
                          slot, reason, sess.generated)
+            if health._enabled:
+                health.event("generation_evict", engine=self.health_name,
+                             slot=slot, reason=reason,
+                             tokens=sess.generated)
+        if sess.span is not None:
+            sess.span.set(reason=reason, tokens=sess.generated)
+            if exc is not None:
+                sess.span.set(error=repr(exc))
+            sess.span.finish()
         if exc is not None:
             sess.stream._fail(exc)
         else:
@@ -1134,6 +1356,8 @@ class GenerationEngine:
     def _fail_queued(self, sess, now):
         """Deadline death while still queued: no slot to free, only the
         stream to unblock."""
+        if sess.span is not None:
+            sess.span.set(error="deadline in queue").finish()
         sess.stream._fail(DeadlineExceededError(
             f"session waited {now - sess.stream.submitted_at:.3f}s in "
             "queue, past its deadline"))

@@ -1,9 +1,10 @@
 """RadixPrefixCache — refcounted radix trie over prompt tokens whose
 payloads are KV rows living IN the engine's slot slab.
 
-The port of `mxnet_tpu/serving/generation/prefix_cache.py`, whole but for
-its telemetry counters (ROADMAP.md queue A, item 9): the engine keeps the
-hit and miss counts as attributes instead.
+The port of `mxnet_tpu/serving/generation/prefix_cache.py`, whole: its
+``<metric_prefix>.prefix.inserts`` / ``.evictions`` counters and
+``.cached_tokens`` gauge go to the telemetry registry when it is on (the
+engine counts hits and misses).
 
 A fleet serving millions of users sees the same system prompt thousands of
 times; without this module every session pays a full prefill for it. The
@@ -36,12 +37,11 @@ the engine's tick loop mutates entries.
 """
 from __future__ import annotations
 
-import threading
 import time
 
 import numpy as np
 
-from ... import health
+from ... import analysis, health, telemetry
 
 __all__ = ["RadixPrefixCache"]
 
@@ -79,14 +79,16 @@ class _Node:
 class RadixPrefixCache:
     """Refcounted radix prefix cache over one engine's slot slab.
 
-    ``owner`` labels health journal entries.
+    ``owner`` labels health journal entries; ``metric_prefix`` names the
+    telemetry series.
     """
 
-    def __init__(self, owner=""):
+    def __init__(self, metric_prefix="serving.generation", owner=""):
         self._root = _Node(np.zeros(0, np.int32), None, 0)
         self._slots = {}              # slot -> payload _Node
-        self._lock = threading.RLock()
+        self._lock = analysis.make_rlock("generation.prefix_cache")
         self._owner = owner
+        self._prefix = metric_prefix
 
     # -- introspection -------------------------------------------------------
 
@@ -243,6 +245,10 @@ class RadixPrefixCache:
             while p is not None:
                 p.payloads += 1
                 p = p.parent
+            if telemetry._enabled:
+                telemetry.counter(f"{self._prefix}.prefix.inserts").inc()
+                telemetry.gauge(f"{self._prefix}.prefix.cached_tokens").set(
+                    self.cached_tokens())
             return node
 
     # -- eviction ------------------------------------------------------------
@@ -264,6 +270,10 @@ class RadixPrefixCache:
             parent = node.parent
             del parent.children[int(node.edge[0])]
             node = parent
+        if telemetry._enabled:
+            telemetry.counter(f"{self._prefix}.prefix.evictions").inc()
+            telemetry.gauge(f"{self._prefix}.prefix.cached_tokens").set(
+                self.cached_tokens())
         if health._enabled:
             health.event("prefix_evict", engine=self._owner, slot=slot,
                          tokens=tokens, reason=reason)

@@ -26,19 +26,23 @@ and re-admitted once its probe passes, each transition journaled
 falls back to load order over all of them.
 
 `scale_to` grows the fleet from a factory (each new replica warmed before
-it takes traffic) or drains surplus replicas in background threads.
+it takes traffic) or drains surplus replicas in background threads. The
+router registers itself as a fleet of the health layer's autoscale signal
+(`health.register_fleet`), and `bind_autoscale` wires that signal's
+changes (`health.on_autoscale`) to `scale_to`. Placements count into the
+``serving.generation.routed*`` series.
 
-Not ported yet, each raising NotImplementedError: QoS-class placement and
-`rebalance_parked` (ROADMAP.md queue A, item 6.3, `qos.py`),
-`bind_autoscale` (item 9, the autoscale signal) and `rolling_swap` (its
-SLO burn gate needs item 9's tracker).
+Not ported yet, each raising NotImplementedError: QoS-class placement,
+`rebalance_parked` and `rolling_swap` with its SLO gate (ROADMAP.md queue
+A, item A.2).
 """
 from __future__ import annotations
 
 import itertools
 import threading
+import weakref
 
-from ... import health
+from ... import health, telemetry
 from ...base import MXNetError
 from ..admission import QueueFullError, ServerClosedError
 
@@ -76,6 +80,7 @@ class GenerationRouter:
         self._all_unready = False
         self._draining = []         # (engine, closer thread) during shrink
         self._closed = False
+        health.register_fleet(self)
 
     @property
     def engines(self):
@@ -100,6 +105,8 @@ class GenerationRouter:
             if prev != ok and not (prev is None and ok):
                 health.event("engine_undrain" if ok else "engine_drain",
                              engine=key, index=i, reason=reason)
+                telemetry.counter(
+                    "health.undrains" if ok else "health.drains").inc()
             self._ready_state[key] = ok
             if ok:
                 ready.append(i)
@@ -108,6 +115,7 @@ class GenerationRouter:
         live = {e.health_name for e in engines}
         for key in [k for k in self._ready_state if k not in live]:
             del self._ready_state[key]
+        telemetry.gauge("health.ready_engines").set(len(ready))
         if not ready:
             # availability over strictness: an all-unready fleet still
             # places by load (the engines' own backpressure bounds it)
@@ -150,6 +158,12 @@ class GenerationRouter:
                 # over like a full one
                 last_exc = e
                 continue
+            if telemetry._enabled:
+                telemetry.counter("serving.generation.routed").inc()
+                telemetry.counter(
+                    "serving.generation.routed_affinity"
+                    if best > 0 and matches[j] == best
+                    else "serving.generation.routed_load").inc()
             if health._enabled and best > 0 and matches[j] == best:
                 health.event("router_affinity", engine=eng.health_name,
                              matched=int(matches[j]),
@@ -165,7 +179,7 @@ class GenerationRouter:
     def rebalance_parked(self, max_n=None):
         raise NotImplementedError(
             "GenerationRouter.rebalance_parked needs the QoS park region "
-            "(ROADMAP.md queue A, item 6.3)")
+            "(ROADMAP.md queue A, item A.2)")
 
     def scale_to(self, n, reason="manual", warm=True):
         """Resize the fleet to ``n`` replicas (clamped to ``[min_engines,
@@ -206,25 +220,40 @@ class GenerationRouter:
             t.start()
             with self._lock:
                 self._draining.append((eng, t))
-        if (grown or drained) and health._enabled:
-            health.event("autoscale_actuate", replicas=n, grown=len(grown),
-                         drained=len(drained), reason=reason)
+        if grown or drained:
+            if telemetry._enabled:
+                telemetry.gauge("serving.generation.replicas").set(n)
+            if health._enabled:
+                health.event("autoscale_actuate", replicas=n,
+                             grown=len(grown), drained=len(drained),
+                             reason=reason)
         with self._lock:
             self._draining = [(e, t) for e, t in self._draining
                               if t.is_alive()]
         return n
 
     def bind_autoscale(self):
-        raise NotImplementedError(
-            "GenerationRouter.bind_autoscale needs the health layer's "
-            "autoscale signal (ROADMAP.md queue A, item 9)")
+        """Wire `health.on_autoscale` to `scale_to`: whenever the computed
+        ``health.desired_engines`` changes, the fleet grows or drains (the
+        callback runs on the SLO evaluation thread, so growth warms there,
+        off every serving path). The hook holds the router weakly and goes
+        inert once it closes or is collected (`on_autoscale` has no
+        removal). Returns the callback."""
+        wr = weakref.ref(self)
+
+        def _actuate(desired, info):
+            router = wr()
+            if router is not None and not router._closed:
+                router.scale_to(desired, reason="signal")
+
+        return health.on_autoscale(_actuate)
 
     def rolling_swap(self, weights, draft_params=None, version=None,
                      observe_s=None, gate=None, rollback=True,
                      reason="publish"):
         raise NotImplementedError(
-            "GenerationRouter.rolling_swap needs the SLO burn tracker for "
-            "its gate (ROADMAP.md queue A, item 9); swap each engine with "
+            "GenerationRouter.rolling_swap and its SLO gate are not ported "
+            "yet (ROADMAP.md queue A, item A.2); swap each engine with "
             "GenerationEngine.swap_weights")
 
     def warm(self, buckets=None):

@@ -37,6 +37,7 @@ import json
 import numpy as np
 import torch
 
+from ... import memory
 from ...base import MXNetError, getenv, register_env
 from ...compile_cache import GraphProgram
 
@@ -180,6 +181,8 @@ class CheckpointDraft(Draft):
         self._dk, self._dv = self._model.init_cache(engine.max_slots, need)
         self._len = np.zeros(engine.max_slots, np.int32)
         self._pending = [[] for _ in range(engine.max_slots)]
+        # the draft's own slab, beside the engine's in the census
+        memory.register_provider("kv_cache", self, lambda d: [d._dk, d._dv])
 
     def slab_bytes(self):
         return int(self._dk.nbytes) + int(self._dv.nbytes)

@@ -4,7 +4,8 @@
 * :func:`attach_engine`: a `GenerationEngine` registers a liveness probe
   (its scheduler worker alive) and a readiness probe (warmed, the intake
   queue below the watermark, not draining), which the `GenerationRouter`
-  consults for placement when the health layer is on;
+  consults for placement when the health layer is on, and gets its tick
+  beacon for the stall watchdog;
 * :func:`attach_predictor`: a `Predictor` registers a readiness probe
   (warm-up run, or a bucket already bound by traffic);
 * :func:`attach_batcher`: a `DynamicBatcher` registers a liveness probe
@@ -12,9 +13,8 @@
   predictor warmed, the intake queue below the watermark).
 
 Registration happens at construction (weak references, a few dict
-entries); :mod:`mxnet_tpu_torch.health` aggregates the probes. Not ported
-yet (ROADMAP.md queue A, item 9): the engine's tick beacon for the stall
-watchdog, so `attach_engine` returns the probe name only.
+entries); :mod:`mxnet_tpu_torch.health` aggregates the probes and its
+watchdog reads the beacons.
 """
 from __future__ import annotations
 
@@ -54,12 +54,13 @@ def _engine_ready(e):
 
 
 def attach_engine(engine):
-    """Register one generation engine's probes. Returns the
-    (engine-unique) probe name."""
+    """Register one generation engine's probes and tick beacon. Returns
+    the (engine-unique) probe name, which is also the beacon's, and the
+    beacon."""
     name = f"generation.engine.{next(_seq)}"
     health.register_liveness(name, engine, _engine_live)
     health.register_readiness(name, engine, _engine_ready)
-    return name
+    return name, health.beacon(name, owner=engine)
 
 
 def _batcher_live(b):

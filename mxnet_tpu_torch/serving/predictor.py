@@ -36,17 +36,24 @@ cuDNN chooses its convolution algorithm per batch size, so one row served
 in two buckets need not be bit-equal on the card, as it is on XLA:CPU;
 the serve phase of `chip_smoke.py` records the largest difference.
 
-Not ported yet (ROADMAP.md queue A, items 8 and 9): the SPMD serving
-bind, telemetry, tracing, the observatory and the memory census.
+Observability, each plane gated on its module's ``_enabled``:
+``serving.pad`` / ``serving.forward`` spans, the ``serving.compute_us``
+histogram (dispatch to the outputs' event), ``serving.weight_swaps``, the
+observatory's ``serving`` lane (the bucket's program, with CUDA events
+around its replay on a card), and the bound parameters (``weights``) and
+each batch in flight (``serving_batches``) in the memory census. Not
+ported yet (ROADMAP.md queue A, item A.7): the SPMD serving bind.
 """
 from __future__ import annotations
 
 import os
 import threading
+import time
 
 import numpy as np
 import torch
 
+from .. import memory, observatory, telemetry, tracing
 from .. import ndarray as nd
 from ..base import MXNetError, getenv, register_env
 from ..compile_cache import CompileCache
@@ -217,6 +224,9 @@ class Predictor:
         # readiness: serving.warmup sets it (health probe)
         self._warmed = False
         self.health_name = attach_predictor(self)
+        # the census dedups by storage, so buckets sharing them count once
+        memory.track("weights", list(self._arg_params.values())
+                     + list(self._aux_params.values()))
 
     # -- construction conveniences ------------------------------------------
 
@@ -355,21 +365,41 @@ class Predictor:
         this and :meth:`_run_wait` the caller owns the host, and the
         batcher's overlap lane stages its next flush there."""
         exec_ = self._bind_bucket(bucket)
-        padded, _ = pad_arrays(list(arrays), bucket)
+        with tracing.span("serving.pad", cat="serving", bucket=bucket):
+            padded, _ = pad_arrays(list(arrays), bucket)
         feed = dict(zip(self._data_names, padded))
-        with self._lock:
+        obs = observatory._enabled
+        t0 = time.perf_counter() if telemetry._enabled or obs else 0.0
+        cuda = self._device.type == "cuda"
+        with self._lock, tracing.span("serving.forward", cat="serving",
+                                      bucket=bucket):
+            start = None
+            if obs and cuda:
+                start = torch.cuda.Event(enable_timing=True)
+                start.record(torch.cuda.current_stream(self._device))
             outs = list(exec_.forward(is_train=False, **feed))
             done = None
-            if self._device.type == "cuda":
-                done = torch.cuda.Event()
+            if cuda:
+                done = torch.cuda.Event(enable_timing=start is not None)
                 done.record(torch.cuda.current_stream(self._device))
-        return outs, done
+        return outs, done, padded, exec_, t0, start
 
     def _run_wait(self, pending):
-        """Wait for a :meth:`_run_dispatch` handle's outputs."""
-        outs, done = pending
+        """Wait for a :meth:`_run_dispatch` handle's outputs, then account
+        the batch (its host window from dispatch to the outputs' event;
+        the observatory reads the device time between the events)."""
+        outs, done, padded, exec_, t0, start = pending
         if done is not None:
             done.synchronize()
+        memory.track_transient("serving_batches", padded + outs)
+        dt = time.perf_counter() - t0
+        if telemetry._enabled:
+            telemetry.histogram("serving.compute_us").record(dt * 1e6)
+        if observatory._enabled:
+            observatory.observe("serving", self._cache, exec_._last_fwd_key,
+                                exec_s=dt,
+                                events=(start, done) if start is not None
+                                else None)
         return outs
 
     # -- weight rollout ------------------------------------------------------
@@ -436,6 +466,9 @@ class Predictor:
             self._weights_version = (self._weights_version + 1
                                      if version is None else int(version))
             swapped_to = self._weights_version
+        if telemetry._enabled:
+            telemetry.counter("serving.weight_swaps").inc()
+            telemetry.gauge("serving.weights_version").set(swapped_to)
         from .. import health
 
         if health._enabled:

@@ -20,9 +20,11 @@ watched directory. The port of `mxnet_tpu/serving/rollout.py`.
   flushes by writing the new values into the tensors its graphs read:
   identical shapes, nothing captured again.
 
-Not ported yet: `GenerationEngine.swap_weights` and
-`GenerationRouter.rolling_swap` (ROADMAP.md queue A, item 6), the
-``rollout.*`` telemetry (item 9).
+With telemetry on: ``rollout.publishes``, ``publish_us``,
+``publish_duplicate``, ``publish_errors``, ``ingests``, ``rejects`` (and
+``reject_<reason>``), ``apply_errors`` and the version gauges.
+`GenerationEngine.swap_weights` takes a WeightSet too. Not ported yet:
+`GenerationRouter.rolling_swap` (ROADMAP.md queue A, item A.2).
 """
 from __future__ import annotations
 
@@ -34,7 +36,7 @@ import time
 
 import numpy as np
 
-from .. import health
+from .. import health, telemetry
 from .. import ndarray as nd
 from ..base import MXNetError, getenv, register_env
 from ..log import get_logger
@@ -162,9 +164,12 @@ def publish(rollout_dir, version, arg_params, aux_params=None,
     version = int(version)
     if version < 0:
         raise RolloutError(f"rollout version must be >= 0, got {version}")
+    t0 = time.perf_counter()
     os.makedirs(rollout_dir, exist_ok=True)
     manifest_path = os.path.join(rollout_dir, _MANIFEST_FMT % version)
     if os.path.exists(manifest_path):
+        if telemetry._enabled:
+            telemetry.counter("rollout.publish_duplicate").inc()
         _logger().info("rollout: version %d already published, no-op",
                        version)
         return None
@@ -211,6 +216,11 @@ def publish(rollout_dir, version, arg_params, aux_params=None,
         os.fsync(f.fileno())
     durable_replace(tmp, manifest_path)
     _retain(rollout_dir)
+    if telemetry._enabled:
+        telemetry.counter("rollout.publishes").inc()
+        telemetry.gauge("rollout.published_version").set(version)
+        telemetry.histogram("rollout.publish_us").record(
+            (time.perf_counter() - t0) * 1e6)
     if health._enabled:
         health.event("rollout_publish", version=version,
                      arrays=len(save_dict), source=str(source))
@@ -249,6 +259,8 @@ def publish_checkpoint(prefix, epoch, arg_params, aux_params=None,
         return publish(rollout_dir, epoch, arg_params, aux_params,
                        source=f"{prefix}@{int(epoch)}")
     except Exception as e:  # noqa: BLE001 — training survives publish faults
+        if telemetry._enabled:
+            telemetry.counter("rollout.publish_errors").inc()
         if health._enabled:
             health.event("rollout_publish_error", version=int(epoch),
                          error=repr(e))
@@ -289,6 +301,9 @@ class RolloutSubscriber:
 
     def _reject(self, name, reason, exc=None, version=None):
         self._handled.add(name)
+        if telemetry._enabled:
+            telemetry.counter("rollout.rejects").inc()
+            telemetry.counter(f"rollout.reject_{reason}").inc()
         if health._enabled:
             health.event("rollout_reject", manifest=name, reason=reason,
                          version=version, serving=self.version,
@@ -343,6 +358,9 @@ class RolloutSubscriber:
                 if v < version:
                     self._handled.add(n)
             self.version = version
+            if telemetry._enabled:
+                telemetry.counter("rollout.ingests").inc()
+                telemetry.gauge("rollout.version").set(version)
             if health._enabled:
                 health.event("rollout_ingest", version=version,
                              manifest=name)
@@ -381,6 +399,8 @@ class RolloutWatcher:
         try:
             self._apply(ws)
         except Exception as e:  # noqa: BLE001 — keep serving, keep polling
+            if telemetry._enabled:
+                telemetry.counter("rollout.apply_errors").inc()
             _logger().error("rollout: applying version %d failed: %r",
                             ws.version, e)
         return ws

@@ -24,15 +24,23 @@ The arrays stay where they are: `set_args` copies a batch into the bound
 tensors, the fused update writes the weights, momenta and moving stats in
 place, and an array rebound to another tensor since a capture is copied
 into the captured tensor before the replay and bound to it again.
+
+Observability: the weights (arguments with a gradient) and the gradient
+buffers are live views of the memory census; with the observatory on,
+each program's first eager run is counted (`compile_cache.measure_cost`)
+and `fused_step` observes the ``step`` lane with CUDA events around its
+replay (JAX `executor.py:587-616`, which drained the step instead: here
+nothing waits on the card), inside a ``fused.dispatch`` span.
 """
 from __future__ import annotations
 
 import numpy as _np
 import torch
 
+from .. import memory, observatory, tracing
 from .. import random as _random
 from ..base import MXNetError
-from ..compile_cache import WARMUP_CALLS, CompileCache, capture
+from ..compile_cache import WARMUP_CALLS, CompileCache, capture, measure_cost
 from ..context import Context, current_context
 from ..ndarray.register import _op_attr_params
 from ..ops import registry as _reg
@@ -166,6 +174,14 @@ class Executor:
         self._steps = CompileCache("executor")
         self._cache = CompileCache("executor")
         self._graph_pool = None
+        self._last_fwd_key = None
+        # the memory census's live views (a rebind replaces ``_data``)
+        memory.register_provider(
+            "weights", self,
+            lambda s: [a for n, a in s.arg_dict.items()
+                       if s._grad_req.get(n, "null") != "null"])
+        memory.register_provider("gradients", self,
+                                 lambda s: list(s.grad_dict.values()))
 
     # -- helpers -------------------------------------------------------------
 
@@ -241,7 +257,8 @@ class Executor:
                         (*self.arg_dict.items(), *self.aux_dict.items()))
             # the executor is part of the key: a shared cache's program
             # replays over the tensors of the executor that built it
-            fwd = self._cache.get_or_build(("fwd", self, sig),
+            self._last_fwd_key = ("fwd", self, sig)
+            fwd = self._cache.get_or_build(self._last_fwd_key,
                                            lambda: _Inference(self))
             self.outputs = [NDArray(o) for o in fwd()]
             self._monitor(self.outputs)
@@ -353,14 +370,28 @@ class Executor:
         bound = _Bound(self, updater, indices, names)
         sig = (tuple(names), bound.signature(),
                optimizer._fused_static_key(), groups)
+        key = ("fused_step", sig)
+        events = None
         try:
             step = self._steps.get_or_build(
-                ("fused_step", sig),
-                lambda: _FusedStep(self, optimizer, names, groups, bound))
-            outputs = step(bound, hyper)
+                key, lambda: _FusedStep(self, optimizer, names, groups,
+                                        bound))
+            with tracing.span("fused.dispatch", cat="train",
+                              params=len(names)):
+                if observatory._enabled and step.graph is not None:
+                    events = (torch.cuda.Event(enable_timing=True),
+                              torch.cuda.Event(enable_timing=True))
+                    events[0].record()
+                outputs = step(bound, hyper)
+                if events is not None:
+                    events[1].record()
         except Exception:
             _restore_counts(optimizer, counts)
             raise
+        if observatory._enabled:
+            # the program that ran and its device window; the fit loop
+            # observes the step's wall
+            observatory.observe("step", self._steps, key, events=events)
         self._vjp = None
         self.outputs = [NDArray(o) for o in outputs]
         return self.outputs
@@ -526,8 +557,24 @@ class _FusedStep:
         self.device = ex._device
         self.graph = None
         self.captures = 0
+        self.cost = None
         if self.device.type == "cuda":
             self._capture(bound)
+
+    def _run_counted(self, bound, hyper_t):
+        """One eager step, counted into ``cost`` when it is the first with
+        the observatory on: every bound tensor is read once."""
+        params, others, auxs, states = bound.tensors()
+
+        def run():
+            return self.step(params, others, auxs, states, hyper_t)
+
+        if self.cost is None and observatory._enabled:
+            out, self.cost = measure_cost(
+                run, [*params, *others, *auxs,
+                      *(t for s in states for t in _leaves(s))])
+            return out
+        return run()
 
     def _capture(self, bound):
         params, others, auxs, states = bound.tensors()
@@ -545,7 +592,7 @@ class _FusedStep:
             saved = [t.detach().clone() for t in written]
             try:
                 for _ in range(WARMUP_CALLS):
-                    run()
+                    self._run_counted(bound, self.hyper)
             finally:
                 with torch.no_grad():
                     for t, s in zip(written, saved):
@@ -553,15 +600,13 @@ class _FusedStep:
 
         self.graph, self.outputs = capture(
             run, self.device, generator=_random.generator(self.device),
-            warm_up=warm_up)
+            warm_up=warm_up, owner=self)
         self.captures += 1
 
     def __call__(self, bound, hyper):
         if self.graph is None:
-            params, others, auxs, states = bound.tensors()
-            return self.step(params, others, auxs, states,
-                             torch.tensor(hyper, dtype=torch.float32,
-                                          device=self.device))
+            return self._run_counted(bound, torch.tensor(
+                hyper, dtype=torch.float32, device=self.device))
         bound.bind_to(self.static)
         self.hyper.copy_(torch.tensor(hyper, dtype=torch.float32)
                          .pin_memory(), non_blocking=True)
@@ -592,20 +637,34 @@ class _Inference:
         self.run = lambda: fn(*self.static)[0]
         self.graph = None
         self.captures = 0
+        self.cost = None
         if self.device.type == "cuda":
             self._capture()
 
+    def _run_counted(self):
+        """One eager forward, counted into ``cost`` when it is the first
+        with the observatory on: the bound tensors read once."""
+        if self.cost is None and observatory._enabled:
+            out, self.cost = measure_cost(
+                self.run, [t for g in self.static for t in g])
+            return out
+        return self.run()
+
     def _capture(self):
+        def warm_up():
+            for _ in range(WARMUP_CALLS):
+                self._run_counted()
+
         with torch.no_grad():
             self.graph, self.outputs = capture(
                 self.run, self.device, self.pool,
-                _random.generator(self.device))
+                _random.generator(self.device), warm_up=warm_up, owner=self)
         self.captures += 1
 
     def __call__(self):
         with torch.no_grad():
             if self.graph is None:
-                return list(self.run())
+                return list(self._run_counted())
             for group, s_group in zip(self.arrays, self.static):
                 for arr, s in zip(group, s_group):
                     if arr._data is not s:

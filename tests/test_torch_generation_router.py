@@ -175,15 +175,24 @@ def test_router_scale_to(lm48, journal):
 
 
 def test_router_waits_for_later_items(lm48):
-    """QoS rebalancing, the autoscale hook and the burn-gated rolling
-    swap are not ported yet and say so."""
+    """QoS rebalancing and the burn-gated rolling swap are not ported yet
+    and name their queue item (A.2); the autoscale hook is (A.1): it
+    returns the callback it registered, which resizes the fleet."""
+    from mxnet_tpu_torch import health
+
     _, _, lm = lm48
     router = GenerationRouter([GenerationEngine(lm, max_slots=1, max_len=48,
                                                 buckets=(8,), start=False)])
-    for call in (router.rebalance_parked, router.bind_autoscale,
-                 lambda: router.rolling_swap({})):
-        with pytest.raises(NotImplementedError):
+    for call in (router.rebalance_parked, lambda: router.rolling_swap({})):
+        with pytest.raises(NotImplementedError, match="item A.2"):
             call()
+    cb = router.bind_autoscale()
+    try:
+        assert cb in health._autoscale_cbs
+        cb(1, {})                      # already one replica: no change
+        assert len(router.engines) == 1
+    finally:
+        health._autoscale_cbs.remove(cb)
     router.close()
 
 

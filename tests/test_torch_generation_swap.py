@@ -240,13 +240,19 @@ def test_swap_weightset_rollback_and_refs(lm2, lm):
 
 
 def test_swap_refused_while_another_engine_shares_the_model(lm2, lm):
-    """Engines over one model read the same parameters, so a swap while
-    another open engine serves the model is refused."""
-    _, _, p1, _ = lm2
+    """Engines over one model each serve their own weights (ROADMAP C.5,
+    fixed): a swap on one while another open engine shares the model is no
+    longer refused, and changes only the engine swapped. Each stream is
+    held bit for bit to a fresh engine on its version."""
+    jlm, p0, p1, _ = lm2
+    prompt = np.array([3, 5, 7, 9], np.int32)
+    want0 = _alone(jlm, p0, [prompt], max_slots=1)[0]
+    want1 = _alone(jlm, p1, [prompt], max_slots=1)[0]
     a = GenerationEngine(lm, max_slots=1, max_len=48, start=False)
     b = GenerationEngine(lm, max_slots=1, max_len=48, start=False)
-    with pytest.raises(MXNetError):
-        a.swap_weights(p1)
-    b.close()
     assert a.swap_weights(p1) == 1
+    assert a.generate(prompt, max_new_tokens=8) == want1
+    assert b.generate(prompt, max_new_tokens=8) == want0
+    assert a.generate(prompt, max_new_tokens=8) == want1
+    b.close()
     a.close()
