@@ -74,6 +74,31 @@ Phases, each printed as one JSON line:
            engine caching it, 16 unrelated prompts split evenly. Every lane:
            no capture after warm-up, no kernel launched; check (d) also
            runs the lanes on the small model, card against CPU;
+  generate_qos, generate_fleet
+           slice 12's lanes, after those. qos (`bench.py:1511-1627` at full
+           width): a 32 x 2048 engine, the 8-session `latency` trickle
+           (prompts of 16-64 tokens, 16 new) alone, then behind a 64-session
+           `bulk` flood (64-512 tokens, 256 new) that has filled the slab,
+           QoS off (FIFO), then the same under the registry
+           ``latency:interactive;bulk:batch`` with 8 park rows (a 40-row
+           slab). Checks: (a) QoS off, no park row in the keys and flood
+           streams equal to their prompts run alone; (b) at least one
+           preemption, no capture after warm-up; (c) every preempted
+           stream equal to its prompt run alone on the same 40-row engine,
+           every latency stream to its own; (d) a tenant at ``rps=1``
+           refused its second submit inside a second. Prints TTFT p50 and
+           maximum of each phase (8 sessions: a p99 would be the maximum),
+           both degradations (maximum over maximum), preemptions and
+           resumes, the
+           fork graph, the slab's bytes. fleet: two 16-slot engines over the
+           one model, QoS on, 4 park rows each, behind a `GenerationRouter`:
+           class placement, a flood forced onto engine 0 then
+           `rebalance_parked` (each migrated stream equal to a fresh submit
+           of its context), `rolling_swap` to seed-99 weights under 16
+           clients (both flipped, no capture, every stream equal to its
+           version's on engines of the same slab; each engine's ms under
+           its tick lock), a second roll with an objective breached and
+           gate 0 rolled back;
   nd       slice 6's path, after the trainer: `resnet50_v1_nd`, a ResNet-50
            v1 train step written only with `mx.nd` ops and `mx.autograd`
            (the same function the CPU test runs on the JAX package), at full
@@ -199,6 +224,24 @@ Phases, each printed as one JSON line:
            the data sheet). Prints the roofline rows of the step,
            bucket-32 and tick programs, the peaks, tokens/s and req/s with
            the planes off and on, and the telemetry snapshot's path;
+  overlap  slice 12's overlap lane (`bench.py:1630-1850`), after observe:
+           three planes, each with ``MXNET_OVERLAP=0`` then ``=1`` and the
+           observatory on for its host gap (wall minus the device time
+           between the CUDA events around the step, bucket or tick
+           program, medians over the same steps). train: `bench.py`'s MLP
+           (512 -> 512 -> 8, batch 256, 8 batches of float64 sources)
+           through `Module.fit`, SGD, fed by an `NDArrayIter` that copies
+           its batches to the card (nothing to stage), and by one that
+           hands them over on the host, at 0.5 MiB (below the staged
+           feed's size) and 16 MiB batches (staged on every step with
+           overlap on), in 10, 4 and 2 off/on pairs, alternating which
+           runs first, with each pair's ratio and their median: final
+           params bit-equal across modes and runs, no capture after the
+           cold epoch, the rates of both modes printed; serving: the serve
+           phase's full-width ResNet-50 v1 checkpoint behind the batcher,
+           probe outputs bit-equal; generation: the full-width engine and
+           the generate phase's burst, streams equal across modes and to
+           the generate phase's. No kernel launched;
   kernels  each kernel against its plain PyTorch version on the card, at the
            shapes the main path gives it and at extra cases (every head dim
            and dtype variant of K1 and K2), with times (`cuda_ms`: many calls
@@ -232,6 +275,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import faulthandler
+import hashlib
 import json
 import math
 import os
@@ -858,6 +902,7 @@ def generate_phase(torch, card, profile=False):
         check(not any(launches.values()),
               f"generate path launched {launches}, want none")
         kv_bytes = eng.kv_slab_bytes()
+        keys = sorted(map(repr, eng.cache.keys()))
     finally:
         eng.close(timeout=60)
     bound_ms, bound_by, nbytes = decode_bound(lm, eng)
@@ -878,6 +923,8 @@ def generate_phase(torch, card, profile=False):
                   "ticks": len(burst_ticks),
                   "tick_ms_median": statistics.median(burst_ticks) * 1e3},
         "steady_state_builds": steady, "rerun_bit_equal": rerun,
+        "graph_keys": keys, "streams_sha256": hashlib.sha256(
+            json.dumps(outs).encode()).hexdigest(),
         "graph_vs_eager": exact,
         "decode_graph_ms": decode_ms, "decode_bound_ms": bound_ms,
         "decode_bound_by": bound_by, "decode_bytes": nbytes,
@@ -1269,7 +1316,7 @@ def fork_vs_full(eng, prompt):
 
 def fork_bound(eng):
     """(ms, bytes): one slot row of K and V read and written."""
-    row = (eng._ck.nbytes + eng._cv.nbytes) // eng.max_slots
+    row = (eng._ck.nbytes + eng._cv.nbytes) // eng.total_slots
     return 2 * row / PEAK_BYTES_PER_S * 1e3, 2 * row
 
 
@@ -1533,14 +1580,428 @@ def generate_router(torch, card, state):
             "kernel_launches": launches}
 
 
+# slice 12's QoS lane (`bench.py:1511-1627`'s three phases at full width)
+QOS_SPEC = "latency:interactive;bulk:batch"
+QOS_PARK = 8                             # MXNET_QOS_PARK_SLOTS: 40 rows
+QOS_FLOOD, QOS_FLOOD_NEW = 2 * GEN_SLOTS, 256
+QOS_FLOOD_LENS = (64, 512)               # uniform, RandomState(0)
+QOS_TRICKLE, QOS_TRICKLE_NEW = 8, 16
+QOS_TRICKLE_LENS = (16, 64)              # uniform, RandomState(1)
+QOS_FIFO_RERUN = 4                       # flood sessions rerun alone, (a)
+# the fleet lane: two 16-slot engines over the one model, 4 park rows each
+FLEET_SLOTS, FLEET_PARK, FLEET_CLIENTS = 16, 4, 16
+FLEET_FLOOD_NEW, FLEET_LATENCY_NEW = 128, 16
+
+
+def qos_prompts(vocab, n, lens, seed):
+    """``n`` prompts of uniform lengths in ``lens`` from RandomState(seed)."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    sizes = rng.randint(lens[0], lens[1] + 1, n)
+    return [rng.randint(0, vocab, k) for k in sizes]
+
+
+def trickle(eng, prompts, tenant=None):
+    """The interactive trickle, one session after another: (TTFT seconds
+    of each, their streams' tokens)."""
+    ttfts, outs = [], []
+    for p in prompts:
+        t0 = time.perf_counter()
+        stream = eng.submit(p, max_new_tokens=QOS_TRICKLE_NEW, tenant=tenant)
+        next(stream)
+        ttfts.append(time.perf_counter() - t0)
+        outs.append(stream.result(timeout=600))
+    return ttfts, outs
+
+
+def wait_full(eng, timeout=120):
+    """Wait until every session slot of `eng` is live (the flood has
+    filled the slab, so an interactive arrival finds no free slot)."""
+    t_end = time.perf_counter() + timeout
+    while eng.live_slots < eng.max_slots:
+        check(time.perf_counter() < t_end, "the flood never filled the slab")
+        time.sleep(0.0005)
+
+
+def ttft_fields(ttfts):
+    """The trickle's TTFT: median and maximum (over 8 sessions a p99 is
+    the slowest session's)."""
+    return {"ttft_ms_p50": percentile_ms(ttfts, 50),
+            "ttft_ms_max": max(ttfts) * 1e3, "sessions": len(ttfts)}
+
+
+def spy_preemptions(eng):
+    """Record the stream of every session `eng` parks and resumes (its
+    `_preempt_for_priority` and `_resume_into` wrapped); returns the two
+    lists they fill."""
+    victims, resumed = [], []
+    preempt, resume = eng._preempt_for_priority, eng._resume_into
+
+    def spy_preempt():
+        slot = preempt()
+        if slot is not None:
+            rec = max(eng._parked.values(), key=lambda r: r["parked_at"])
+            victims.append(rec["sess"].stream)
+        return slot
+
+    def spy_resume(slot):
+        resume(slot)
+        resumed.append(eng._sessions[slot].stream)
+
+    eng._preempt_for_priority = spy_preempt
+    eng._resume_into = spy_resume
+    return victims, resumed
+
+
+def seed0_params(torch, state):
+    """Host copies of the generate phase's weights (the default model from
+    seed 0), made once: engines built on them serve those values whatever
+    set an earlier engine left in the shared model's parameters."""
+    from mxnet_tpu_torch.models import TransformerLM
+
+    if "seed0" not in state:
+        lm = state["lm"]
+        fresh = TransformerLM(lm.cfg, device=lm.device,
+                              generator=torch.Generator(
+                                  device=lm.device).manual_seed(0))
+        state["seed0"] = {k: v.detach().float().cpu().numpy()
+                          for k, v in fresh.named_parameters()}
+    return state["seed0"]
+
+
+@contextlib.contextmanager
+def qos_registry(spec, park):
+    """A QoS registry installed (as ``MXNET_QOS_SPEC`` would) with
+    ``park`` park rows a engine for the block; off again after, so later
+    phases build QoS-free servers."""
+    from mxnet_tpu_torch.serving import qos
+
+    with env_scope({"MXNET_QOS_PARK_SLOTS": str(park)}):
+        reg = qos.install(qos.TenantRegistry(qos.parse_spec(spec)))
+        try:
+            yield reg
+        finally:
+            qos.clear()
+
+
+def generate_qos(torch, card, state):
+    """The QoS lane (`bench.py:1511-1627` at full width): the generate
+    phase's model and a 32 x 2048 engine, three phases. Unloaded: the
+    8-session `latency` trickle alone (QoS off). FIFO flood (QoS off): 64
+    `bulk` sessions (prompts of 64-512 tokens, 256 new each) submitted at
+    once, then, once they fill the slab, the trickle. QoS flood: the same
+    under the registry ``latency:interactive;bulk:batch`` with 8 park
+    rows (a 40-row slab).
+    Checks: (a) QoS off, the keys carry no park row and the flood's
+    streams (`tenant=` passed and ignored) equal the same prompts rerun
+    alone; (b) at least one preemption, no capture after warm-up; (c)
+    every preempted `bulk` stream equals its prompt rerun alone on the
+    same 40-row engine, and every `latency` stream its own run alone
+    there; (d) a tenant at ``rps=1`` gets `QuotaExceededError` on its
+    second submit inside a second. No kernel launched."""
+    from mxnet_tpu_torch.serving import QuotaExceededError, qos
+    from mxnet_tpu_torch.serving.generation import GenerationEngine
+
+    lm = state["lm"]
+    params = seed0_params(torch, state)
+    vocab = lm.cfg.vocab_size
+    flood = qos_prompts(vocab, QOS_FLOOD, QOS_FLOOD_LENS, 0)
+    lat = qos_prompts(vocab, QOS_TRICKLE, QOS_TRICKLE_LENS, 1)
+    reset_launches()
+    qos.install(None)
+    try:
+        eng, warm_off = lane_engine(lm, params=params)
+    finally:
+        qos.clear()
+    try:
+        keys = sorted(eng.cache.keys(), key=repr)
+        check(eng.total_slots == GEN_SLOTS and ("decode", GEN_SLOTS,
+              GEN_MAX_LEN) in keys and not any(
+                  k[-2] != GEN_SLOTS for k in keys),
+              f"QoS off: keys {keys} carry park rows")
+        base_ttft, base_outs = trickle(eng, lat)
+        streams = [eng.submit(p, max_new_tokens=QOS_FLOOD_NEW,
+                              tenant="bulk") for p in flood]
+        wait_full(eng)
+        fifo_ttft, _ = trickle(eng, lat)
+        fifo_outs = [s.result(timeout=600) for s in streams]
+        rerun = list(range(0, QOS_FLOOD, QOS_FLOOD // QOS_FIFO_RERUN))
+        for i in rerun:                                           # (a)
+            alone = eng.generate(flood[i], max_new_tokens=QOS_FLOOD_NEW)
+            check(alone == fifo_outs[i], f"QoS off: flood session {i} "
+                  "differs from its prompt run alone")
+    finally:
+        eng.close(timeout=60)
+    del eng
+
+    with qos_registry(QOS_SPEC, QOS_PARK):
+        eng, warm = lane_engine(lm, params=params)
+        try:
+            check(eng.total_slots == GEN_SLOTS + QOS_PARK
+                  and ("fork", GEN_SLOTS + QOS_PARK, GEN_MAX_LEN)
+                  in eng.cache.keys(), "QoS on: no 40-row fork graph")
+            captures0 = eng.captures
+            victims, resumed = spy_preemptions(eng)
+            streams = [eng.submit(p, max_new_tokens=QOS_FLOOD_NEW,
+                                  tenant="bulk") for p in flood]
+            wait_full(eng)
+            qos_ttft, qos_outs = trickle(eng, lat, tenant="latency")
+            flood_outs = [s.result(timeout=600) for s in streams]
+            check(eng.parked_count == 0, "QoS on: sessions left parked")
+            check(victims, "QoS on: the trickle preempted nothing")  # (b)
+            check(eng.captures == captures0,
+                  "QoS on: captured after warm-up")
+            # (c) on the same 40-row slab, each alone
+            preempted = [streams.index(v) for v in victims]
+            for i in sorted(set(preempted)):
+                alone = eng.generate(flood[i], max_new_tokens=QOS_FLOOD_NEW)
+                check(alone == flood_outs[i], f"QoS on: preempted session "
+                      f"{i} differs from its run alone")
+            for i, p in enumerate(lat):
+                alone = eng.generate(p, max_new_tokens=QOS_TRICKLE_NEW)
+                check(alone == qos_outs[i], f"QoS on: latency session {i} "
+                      "differs from its run alone")
+            check(eng.captures == captures0,
+                  "QoS on: the reruns captured")
+            with eng._exclusive():
+                fork_ms = cuda_ms(eng._fork_fn().graph.replay)
+            kv_bytes = eng.kv_slab_bytes()
+            fork_bound_ms, fork_bytes = fork_bound(eng)
+        finally:
+            eng.close(timeout=60)
+        del eng
+    with qos_registry("capped:interactive:rps=1", 1):               # (d)
+        small = GenerationEngine(lm, max_slots=1, max_len=64,
+                                 buckets=(16,), start=False)
+        try:
+            small.submit(lat[0][:8], max_new_tokens=2, tenant="capped")
+            try:
+                small.submit(lat[0][:8], max_new_tokens=2, tenant="capped")
+                check(False, "quota: a second submit inside a second "
+                      "was admitted at rps=1")
+            except QuotaExceededError:
+                pass
+        finally:
+            small.close(timeout=10)
+    launches = read_launches()
+    check(not any(launches.values()),
+          f"the QoS lane launched kernels: {launches}")
+    base, fifo, loaded = (ttft_fields(t) for t in
+                          (base_ttft, fifo_ttft, qos_ttft))
+    return {"card": card, "spec": QOS_SPEC, "park_slots": QOS_PARK,
+            "slots": GEN_SLOTS, "flood": {
+                "sessions": QOS_FLOOD, "prompt_lens": "uniform "
+                f"{QOS_FLOOD_LENS[0]}-{QOS_FLOOD_LENS[1]}, RandomState(0)",
+                "max_new_tokens": QOS_FLOOD_NEW},
+            "trickle": {"sessions": QOS_TRICKLE, "prompt_lens": "uniform "
+                        f"{QOS_TRICKLE_LENS[0]}-{QOS_TRICKLE_LENS[1]}, "
+                        "RandomState(1)",
+                        "max_new_tokens": QOS_TRICKLE_NEW},
+            "unloaded": base, "fifo_flood": fifo, "qos_flood": loaded,
+            "ttft_degradation": loaded["ttft_ms_max"] / base["ttft_ms_max"],
+            "fifo_ttft_degradation":
+                fifo["ttft_ms_max"] / base["ttft_ms_max"],
+            "preemptions": len(victims), "resumes": len(resumed),
+            "preempted_sessions": sorted(set(preempted)),
+            "fork_graph_ms": fork_ms, "fork_bound_ms": fork_bound_ms,
+            "fork_bytes": fork_bytes, "kv_slab_bytes": kv_bytes,
+            "warm_captures": {"qos_off": warm_off["captures"],
+                              "qos_on": warm["captures"]},
+            "captures_after_warmup": 0,
+            "checks": ["a", "b", "c", "d"],
+            "fifo_rerun_bit_equal": rerun,
+            "unloaded_streams_equal_qos": base_outs == qos_outs,
+            "kernel_launches": launches}
+
+
+def generate_fleet(torch, card, state):
+    """The fleet lane: two 16-slot engines over the generate phase's model
+    behind a `GenerationRouter`, QoS on (``latency:interactive;
+    bulk:batch``, 4 park rows each). A `latency` session placed by class
+    (away from the engine running batch work); a `bulk` flood forced onto
+    engine 0 and `latency` arrivals there until its park rows fill, then
+    `rebalance_parked`: every migrated stream must equal a fresh submit of
+    its whole context on the receiving engine. Then `rolling_swap` to
+    seed-99 weights while 16 closed-loop clients generate: both replicas
+    flip, no capture, each session's stream equals its prompt's on its
+    version (a burst on engines of the same 20-row slab); a second roll
+    with an SLO objective breached and gate 0 rolls back, every replica
+    on the previous version. No kernel launched."""
+    import threading
+
+    from mxnet_tpu_torch import health, telemetry
+    from mxnet_tpu_torch.models import TransformerLM
+    from mxnet_tpu_torch.serving import warmup
+    from mxnet_tpu_torch.serving.generation import (GenerationEngine,
+                                                    GenerationRouter)
+
+    import numpy as np
+
+    lm, prompts = state["lm"], state["prompts"]
+    params = seed0_params(torch, state)
+    vocab = lm.cfg.vocab_size
+    other = TransformerLM(lm.cfg, device=lm.device, generator=torch.Generator(
+        device=lm.device).manual_seed(99))
+    host = {k: v.detach().float().cpu().numpy()
+            for k, v in other.named_parameters()}
+    flood = qos_prompts(vocab, FLEET_SLOTS + 2 * FLEET_PARK,
+                        QOS_FLOOD_LENS, 3)
+    lat = qos_prompts(vocab, 2 * FLEET_PARK, QOS_TRICKLE_LENS, 4)
+    reset_launches()
+    with qos_registry(QOS_SPEC, FLEET_PARK):
+        engines = [GenerationEngine(lm, params, max_slots=FLEET_SLOTS,
+                                    max_len=GEN_MAX_LEN) for _ in range(2)]
+        locks = []
+        for e in engines:
+            e._tick_lock = HeldTimer(e._tick_lock)
+            locks.append(e._tick_lock)
+        router = GenerationRouter(engines)
+        try:
+            warm = warmup(router)
+            captures0 = sum(e.captures for e in engines)
+            # class placement: batch work on engine 0, the latency
+            # session must go to engine 1
+            first = engines[0].submit(flood[0], max_new_tokens=32,
+                                      tenant="bulk")
+            next(first)
+            placed = router.submit(lat[0], max_new_tokens=QOS_TRICKLE_NEW,
+                                   tenant="latency")
+            check(placed._engine is engines[1], "fleet: the latency "
+                  "session went to the engine running batch work")
+            placed.result(timeout=600)
+            first.result(timeout=600)
+            # force a flood onto engine 0 and fill its park rows
+            e0, e1 = engines
+            bulk = [e0.submit(p, max_new_tokens=FLEET_FLOOD_NEW,
+                              tenant="bulk") for p in flood[:FLEET_SLOTS]]
+            for s in bulk:
+                next(s)
+            # the arrivals preempt one bulk session a tick; the parked stay
+            # parked until a bulk session ends, ~FLEET_FLOOD_NEW ticks on
+            arrivals = [e0.submit(p, max_new_tokens=FLEET_FLOOD_NEW,
+                                  tenant="latency")
+                        for p in lat[:FLEET_PARK]]
+            t_end = time.perf_counter() + 60
+            while e0.parked_count < FLEET_PARK and \
+                    time.perf_counter() < t_end:
+                time.sleep(0.0005)
+            with e0._exclusive():
+                parked = {id(r["sess"].stream): (
+                    r["sess"].prompt, list(r["sess"].stream.tokens),
+                    r["sess"].max_new_tokens)
+                    for r in e0._parked.values()}
+            check(len(parked) == FLEET_PARK, f"fleet: {len(parked)} "
+                  f"sessions parked on engine 0, want {FLEET_PARK}")
+            moved = router.rebalance_parked()
+            check(moved == FLEET_PARK, f"fleet: {moved} migrated, want "
+                  f"{FLEET_PARK}")
+            migrated = [s for s in bulk if id(s) in parked]
+            check(all(s._engine is e1 for s in migrated),
+                  "fleet: a migrated stream is not on engine 1")
+            for s in bulk + arrivals:
+                s.result(timeout=600)
+            for s in migrated:                                  # fresh
+                prompt, before, budget = parked[id(s)]
+                ctx = np.concatenate([prompt, np.asarray(before,
+                                                         np.int32)])
+                fresh = e1.generate(ctx, max_new_tokens=budget - len(before))
+                check(s.result() == before + fresh, "fleet: a migrated "
+                      "stream differs from a fresh submit of its context")
+            check(sum(e.captures for e in engines) == captures0,
+                  "fleet: migration captured")
+            # the roll under 16 closed-loop clients
+            streams = [None] * len(prompts)
+            errors = []
+
+            def client(k):
+                try:
+                    for i in range(k, len(prompts), FLEET_CLIENTS):
+                        streams[i] = router.submit(prompts[i],
+                                                   max_new_tokens=GEN_NEW)
+                        streams[i].result(timeout=600)
+                except Exception as e:  # noqa: BLE001 - raised below
+                    errors.append(e)
+
+            threads = [threading.Thread(target=client, args=(k,))
+                       for k in range(FLEET_CLIENTS)]
+            for th in threads:
+                th.start()
+            while sum(s is not None and s.done for s in streams) < \
+                    len(prompts) // 3 and not errors:
+                time.sleep(0.001)
+            t0 = time.perf_counter()
+            roll = router.rolling_swap(host, version=1, observe_s=0)
+            roll_ms = (time.perf_counter() - t0) * 1e3
+            held_ms = [lk.held_s.get(threading.get_ident(), 0.0) * 1e3
+                       for lk in locks]
+            for th in threads:
+                th.join(timeout=600)
+            if errors:
+                raise errors[0]
+            check(roll["swapped"] == 2 and [e.weights_version for e in
+                                            engines] == [1, 1],
+                  f"fleet: the roll {roll}")
+            check(sum(e.captures for e in engines) == captures0,
+                  "fleet: the roll captured")
+            versions = [s.weights_version for s in streams]
+            # the gated roll: an objective breached, gate 0
+            with env_scope({"MXNET_SLO_SPEC": "fleet_probe.errors:value<=0",
+                            "MXNET_SLO_GRACE_S": "0"}):
+                health.reset()
+                health.enable()
+                try:
+                    telemetry.gauge("fleet_probe.errors").set(1)
+                    gated = router.rolling_swap(params, version=2,
+                                                observe_s=0, gate=0.0)
+                finally:
+                    telemetry.gauge("fleet_probe.errors").set(0)
+                    health.disable()
+                    health.reset()
+            check(gated["rolled_back"] and [e.weights_version for e in
+                                            engines] == [1, 1],
+                  f"fleet: the gated roll {gated} did not roll back")
+            check(sum(e.captures for e in engines) == captures0,
+                  "fleet: the rollback captured")
+        finally:
+            router.close(timeout=60)
+        del router, engines
+        # each version's streams, as bursts on engines of the same slab
+        want = {}
+        for version, model, weights in ((0, lm, params), (1, other, None)):
+            idx = [i for i, v in enumerate(versions) if v == version]
+            with GenerationEngine(model, weights, max_slots=FLEET_SLOTS,
+                                  max_len=GEN_MAX_LEN) as ref:
+                outs, _, _ = burst(ref, [prompts[i] for i in idx])
+            want.update(zip(idx, outs))
+    bad = [i for i, s in enumerate(streams) if s.result() != want[i]]
+    check(not bad, f"fleet: sessions {bad} differ from their version's "
+          "stream")
+    launches = read_launches()
+    check(not any(launches.values()),
+          f"the fleet lane launched kernels: {launches}")
+    return {"card": card, "engines": 2, "slots": FLEET_SLOTS,
+            "park_slots": FLEET_PARK, "warm_captures": warm["captures"],
+            "class_placement": "latency to engine 1 beside batch on 0",
+            "migrated": moved, "migrated_equal_fresh_context": True,
+            "roll": roll, "roll_ms": roll_ms,
+            "roll_ms_under_tick_lock": held_ms,
+            "sessions_by_version": {v: versions.count(v) for v in (0, 1)},
+            "streams_equal_their_version": True,
+            "gated_roll": gated, "captures_after_warmup": 0,
+            "kernel_launches": launches}
+
+
 def generate_lanes(torch, card, state):
-    """Slice 10's lanes after the generate phase, each on its own engines,
-    closed before the next lane."""
+    """Slice 10's and slice 12's lanes after the generate phase, each on
+    its own engines, closed before the next lane."""
     out = {}
     for name, lane in (("generate_spec", generate_spec),
                        ("generate_prefix", generate_prefix),
                        ("generate_swap", generate_swap),
-                       ("generate_router", generate_router)):
+                       ("generate_router", generate_router),
+                       ("generate_qos", generate_qos),
+                       ("generate_fleet", generate_fleet)):
         out[name] = lane(torch, card, state)
         progress(name)
     return out
@@ -4231,6 +4692,280 @@ def observe_phase(torch, smi, workdir):
             "kernel_launches": launches, "card": smi}
 
 
+# slice 12's overlap lane (`bench.py:1630-1850`'s three planes)
+OVL_DIM, OVL_HIDDEN, OVL_CLASSES = 512, 512, 8     # bench.py:1668-1683
+OVL_BATCH, OVL_BATCHES, OVL_EPOCHS = 256, 8, 12    # 1 cold + 12 timed
+# off/on pairs of each train feed, alternating which mode runs first: the
+# host's run-to-run spread is wider than the lane's effect on this plane
+OVL_PAIRS = {"card": 10, "host_small": 4, "host": 2}
+# the host-fed runs: 0.5 MiB float32 batches, below
+# io.staging.STAGE_MIN_BYTES (8 MiB), so none is staged, and 16 MiB ones,
+# each staged
+OVL_HOST_BATCH, OVL_HOST_BATCHES, OVL_HOST_EPOCHS = 8192, 4, 6
+# bench.py trains it with Adam at 1e-3; the port's Adam has no fused update
+# yet (ROADMAP A.4), so the plane takes SGD with momentum: the captured
+# fused step that the staged feed reaches
+OVL_OPT = (("learning_rate", 0.01), ("momentum", 0.9))
+OVL_SERVE_PER_CLIENT = 25
+
+
+def overlap_lane(lane):
+    """The host gap of one observatory lane over its last samples: the
+    median wall, the median device time between the CUDA events around
+    its program over the same steps, and their difference (None where
+    the lane has no events)."""
+    from mxnet_tpu_torch import observatory
+
+    with observatory._lock:
+        count = (observatory._lanes.get(lane) or {}).get("count", 0)
+    gap = observatory.host_gap(lane)
+    out = {"samples": count}
+    if gap is not None:
+        wall, device, diff = gap
+        out.update(wall_us_median=wall * 1e6, device_us_median=device * 1e6,
+                   host_gap_us=diff * 1e6)
+    return out
+
+
+def overlap_modes(fn, order=("off", "on")):
+    """``fn()`` with ``MXNET_OVERLAP`` 0 and 1 in ``order``, the
+    observatory on over fresh lanes for each; {"off": result, "on":
+    result}."""
+    from mxnet_tpu_torch import observatory
+
+    out = {}
+    for mode in order:
+        flag = "1" if mode == "on" else "0"
+        with env_scope({"MXNET_OVERLAP": flag}):
+            observatory.reset()
+            observatory.enable()
+            try:
+                out[mode] = fn()
+            finally:
+                observatory.disable()
+                observatory.reset()
+    return out
+
+
+def overlap_train(torch, mx, feed="card"):
+    """The train plane: `bench.py`'s host-heavy MLP (512 -> 512 -> 8,
+    batch 256, 8 batches of float64 sources cast to the float32 inputs
+    each batch) through `Module.fit` with SGD (`OVL_OPT`), one cold epoch
+    then `OVL_EPOCHS`, Xavier after ``mx.random.seed(7)``. ``feed``
+    ``"card"``: its `NDArrayIter` copies the batches to the card itself;
+    ``"host_small"``: it hands them over on the host (``host_batches``),
+    below the size the staged feed takes; ``"host"``: the same with 16
+    MiB batches (`OVL_HOST_BATCH`), which the staged feed copies.
+    Returns (the line, the final params)."""
+    import numpy as np
+
+    from mxnet_tpu_torch import compile_cache
+
+    batch, batches, epochs = ((OVL_HOST_BATCH, OVL_HOST_BATCHES,
+                               OVL_HOST_EPOCHS) if feed == "host" else
+                              (OVL_BATCH, OVL_BATCHES, OVL_EPOCHS))
+    rng = np.random.RandomState(0)
+    x = rng.uniform(-1, 1, (batch * batches, OVL_DIM))
+    y = rng.randint(0, OVL_CLASSES, (batch * batches,)).astype(np.float64)
+    data = mx.sym.Variable("data")
+    fc1 = mx.sym.FullyConnected(data, num_hidden=OVL_HIDDEN, name="fc1")
+    act = mx.sym.Activation(fc1, act_type="relu")
+    fc2 = mx.sym.FullyConnected(act, num_hidden=OVL_CLASSES, name="fc2")
+    sym = mx.sym.SoftmaxOutput(fc2, name="softmax")
+    marks = {}
+
+    def at_epoch_end(epoch, *_):
+        if epoch == 0:
+            torch.cuda.synchronize()
+            marks["misses"] = compile_cache.named_stats("executor")["misses"]
+            marks["t0"] = time.perf_counter()
+            from mxnet_tpu_torch import observatory
+            observatory.reset("step")
+
+    mx.random.seed(7)
+    mod = mx.mod.Module(sym, context=mx.gpu(0))
+    staged = []
+    consume = mod._consume_staged
+
+    def spy(batch):
+        feed = consume(batch)
+        staged.append(feed is not None)
+        return feed
+
+    mod._consume_staged = spy
+    it = mx.io.NDArrayIter(x, y, batch_size=batch, shuffle=False)
+    it.host_batches = feed != "card"
+    mod.fit(it, num_epoch=epochs + 1, optimizer="sgd",
+            optimizer_params=OVL_OPT, initializer=mx.init.Xavier(),
+            epoch_end_callback=at_epoch_end)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - marks["t0"]
+    steady = compile_cache.named_stats("executor")["misses"] - marks["misses"]
+    check(steady == 0, f"overlap train: {steady} captures after the cold "
+          "epoch")
+    arg, _ = mod.get_params()
+    check(len(staged) == (epochs + 1) * batches,
+          f"overlap train: {len(staged)} fused steps")
+    return {"batch": batch, "steps_per_s": epochs * batches / wall,
+            "staged_steps": sum(staged), "fused_steps": len(staged),
+            "captures_after_warmup": steady, **overlap_lane("step")}, \
+        {k: v.asnumpy() for k, v in arg.items()}
+
+
+def overlap_serving(torch, mx, prefix):
+    """The serving plane: the serve phase's full-width ResNet-50 v1
+    checkpoint loaded by `Predictor.load` (``TPU_FUSE``, ladder 1-32),
+    warmed, then `SERVE_CLIENTS` closed-loop clients of
+    `OVL_SERVE_PER_CLIENT` requests (`SERVE_SIZES` rows, cycled) through a
+    `DynamicBatcher`, and a probe of 3 rows read after. Returns (the line,
+    the probe's output)."""
+    import threading
+
+    shape = (3, ND_SIZE, ND_SIZE)
+    pred = mx.serving.Predictor.load(prefix, 0,
+                                     data_shapes=[("data", (1,) + shape)])
+    mx.serving.warmup(pred)
+    misses0 = pred.cache.misses
+    payloads = serve_payloads(shape)
+    errors = []
+    with mx.serving.DynamicBatcher(pred, max_wait_ms=SERVE_WAIT_MS) as srv:
+        for _ in range(3):
+            srv.predict(payloads[SERVE_PROBE_ROWS])
+
+        def client(k):
+            try:
+                for i in range(OVL_SERVE_PER_CLIENT):
+                    srv.predict(payloads[SERVE_SIZES[(k + i)
+                                                     % len(SERVE_SIZES)]])
+            except Exception as e:  # noqa: BLE001 - raised below
+                errors.append(e)
+
+        threads = [threading.Thread(target=client, args=(k,))
+                   for k in range(SERVE_CLIENTS)]
+        t0 = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=600)
+        wall = time.perf_counter() - t0
+        if errors:
+            raise errors[0]
+        probe = srv.predict(payloads[SERVE_PROBE_ROWS]).asnumpy()
+    steady = pred.cache.misses - misses0
+    check(steady == 0, f"overlap serving: {steady} captures after warm-up")
+    del pred
+    return {"req_per_s": SERVE_CLIENTS * OVL_SERVE_PER_CLIENT / wall,
+            "captures_after_warmup": steady, **overlap_lane("serving")}, \
+        probe
+
+
+def overlap_generation(torch, state):
+    """The generation plane: the full-width default engine (32 x 2048, the
+    generate phase's model and seed-0 weights) and the generate phase's
+    64-session burst. Returns (the line, the streams)."""
+    lm = state["lm"]
+    eng, warm = lane_engine(lm, params=seed0_params(torch, state))
+    try:
+        captures0 = eng.captures
+        outs, _, wall = burst(eng, state["prompts"])
+        check(eng.captures == captures0,
+              "overlap generation: captured after warm-up")
+    finally:
+        eng.close(timeout=60)
+    return {"tokens_per_s": sum(map(len, outs)) / wall,
+            "captures_after_warmup": 0, **overlap_lane("generation.tick")}, \
+        outs
+
+
+def overlap_phase(torch, smi, workdir, state):
+    """Slice 12's overlap lane: three planes, each with ``MXNET_OVERLAP=0``
+    then ``=1`` and the observatory on for its host gap (wall minus the
+    device time between the CUDA events around the step, bucket or tick
+    program): train (`overlap_train`, fed from the card and from the
+    host, final params bit-equal across modes), serving
+    (`overlap_serving`, probe outputs bit-equal) and
+    generation (`overlap_generation`, every stream equal across modes and
+    to the generate phase's). No capture after warm-up, no kernel."""
+    import numpy as np
+
+    import mxnet_tpu_torch as mx
+
+    reset_launches()
+    # each feed in off/on pairs, alternating which runs first: the two
+    # modes' rates compared within one call and around the same point of it
+    runs = {feed: [overlap_modes(lambda: overlap_train(torch, mx, feed),
+                                 ("off", "on") if i % 2 == 0 else
+                                 ("on", "off"))
+                   for i in range(pairs)]
+            for feed, pairs in OVL_PAIRS.items()}
+    for feed, rs in runs.items():
+        p_off = rs[0]["off"][1]
+        for r in rs:
+            # a batch the iterator put on the card has nothing left to
+            # stage, a small one costs less in lockstep, a 16 MiB host
+            # batch is staged on every step
+            want = r["on"][0]["fused_steps"] if feed == "host" else 0
+            check(r["off"][0]["staged_steps"] == 0
+                  and r["on"][0]["staged_steps"] == want,
+                  f"overlap train, {feed} feed: staged "
+                  f"{r['off'][0]['staged_steps']} (off) and "
+                  f"{r['on'][0]['staged_steps']} (on) steps, want 0 and "
+                  f"{want}")
+            check(all(set(p_off) == set(r[m][1]) and all(
+                p_off[k].dtype == r[m][1][k].dtype
+                and np.array_equal(p_off[k], r[m][1][k]) for k in p_off)
+                for m in ("off", "on")),
+                f"overlap train, {feed} feed: params differ across modes "
+                "or runs")
+    progress("overlap train")
+    serving = overlap_modes(lambda: overlap_serving(
+        torch, mx, os.path.join(workdir, "resnet50_v1")))
+    o_off, o_on = serving["off"][1], serving["on"][1]
+    check(o_off.dtype == o_on.dtype and np.array_equal(o_off, o_on),
+          "overlap serving: probe outputs differ across modes")
+    check(output_std([o_on]) >= SERVE_MIN_STD,
+          "overlap serving: the probe's outputs do not spread")
+    progress("overlap serving")
+    gen = overlap_modes(lambda: overlap_generation(torch, state))
+    check(gen["off"][1] == gen["on"][1] == state["outs"],
+          "overlap generation: streams differ across modes or from the "
+          "generate phase's")
+    launches = read_launches()
+    check(not any(launches.values()),
+          f"the overlap lane launched kernels: {launches}")
+
+    def plane(modes, parity):
+        off, on = modes["off"][0], modes["on"][0]
+        out = {"off": off, "on": on, "parity": parity}
+        if off.get("host_gap_us") is not None and \
+                on.get("host_gap_us") is not None:
+            out["host_gap_on_over_off"] = (on["host_gap_us"]
+                                           / max(off["host_gap_us"], 1e-9))
+        return out
+
+    def train_plane(rs):
+        line = plane(rs[0], "params bit-equal across modes and runs")
+        rates = {m: [r[m][0]["steps_per_s"] for r in rs]
+                 for m in ("off", "on")}
+        ratios = sorted(on / off for on, off in zip(rates["on"],
+                                                    rates["off"]))
+        line.update(steps_per_s_off=rates["off"], steps_per_s_on=rates["on"],
+                    pairs=len(rs), pairs_on_faster=sum(r > 1 for r in ratios),
+                    on_over_off_median=statistics.median(ratios),
+                    on_over_off_range=[ratios[0], ratios[-1]],
+                    second_run={m: rs[1][m][0] for m in ("off", "on")})
+        return line
+
+    return {"card": smi, "basis": "same workload, only MXNET_OVERLAP flips",
+            "train": train_plane(runs["card"]),
+            "train_host_feed_small": train_plane(runs["host_small"]),
+            "train_host_feed": train_plane(runs["host"]),
+            "serving": plane(serving, "probe outputs bit-equal"),
+            "generation": plane(gen, "streams equal, and to the generate "
+                                "phase's"),
+            "kernel_launches": launches}
+
+
 def profiler_phase(torch, lm_state, smi):
     """``mx.profiler`` on the card: one full-width train step (bf16, 8 x
     2048) between `profiler.start` and `dump`, under a span, with
@@ -4743,7 +5478,6 @@ def main(argv=None):
         torch, smi, profile=bool(args.profile))
     progress("generate")
     lanes = generate_lanes(torch, smi, generated)
-    del generated
     trainer, trainer_profile = trainer_phase(torch, profile=bool(args.profile))
     progress("trainer")
     nd, nd_steps = nd_phase(torch, smi)
@@ -4758,7 +5492,10 @@ def main(argv=None):
                                             profile=bool(args.profile))
         progress("serve")
         observe = observe_phase(torch, smi, workdir)
-    progress("observe")
+        progress("observe")
+        overlap = overlap_phase(torch, smi, workdir, generated)
+    del generated
+    progress("overlap")
     kernels = kernels_phase(torch, fa, gcm, {
         "train": train["kernel_launches"],
         "ring": ring["kernel_launches"],
@@ -4768,7 +5505,8 @@ def main(argv=None):
         "nd": nd["kernel_launches"],
         "gluon": gluon["kernel_launches"],
         "module": module["kernel_launches"],
-        "serve": serve["kernel_launches"]})
+        "serve": serve["kernel_launches"],
+        "overlap": overlap["kernel_launches"]})
     emit(kernels=kernels)
     emit(train=train, small_reference=small)
     emit(ring=ring, small_reference=small_ring)
@@ -4781,6 +5519,7 @@ def main(argv=None):
     emit(module=module)
     emit(serve=serve)
     emit(observe=observe)
+    emit(overlap=overlap)
     if args.profile:
         def one_more_step(state_of_path):
             _, step, state, tokens, targets = state_of_path

@@ -518,6 +518,13 @@ class GraphProgram:
     write of the same rows is. A capture that fails raises; nothing falls
     back to eager calls. On the CPU a call runs `fn` eagerly.
 
+    `launch` runs the same call without the copy to the host: it returns
+    the first output, a device tensor the next call overwrites, and leaves
+    the caller to order its reads (the generation tick's overlap order
+    copies it to a pinned buffer behind an event). The pinned inputs are
+    written again only once the copies out of them have run (an event
+    behind those copies).
+
     Calls must not overlap: the engine makes them under its tick lock.
 
     With the observatory on when the program first runs, that call (a
@@ -537,26 +544,37 @@ class GraphProgram:
         self._inputs = [torch.zeros(s, dtype=torch.int64, device=self.device)
                         for s in shapes]
         self._pinned = None
+        self._copied = None      # event behind the last launch's input copies
         if self.device.type == "cuda":
             self._pinned = [torch.zeros(s, dtype=torch.int64).pin_memory()
                             for s in shapes]
 
     def __call__(self, *values):
+        out = self.launch(*values)
+        return out.cpu().numpy() if out.is_cuda else out.numpy()
+
+    def launch(self, *values):
+        """Write the inputs and run (on a card: replay) the program without
+        waiting for it. Returns the first output, on the device."""
         if self._pinned is None:
             for buf, val in zip(self._inputs, values):
                 buf.copy_(torch.as_tensor(np.asarray(val), dtype=torch.int64))
             with torch.inference_mode():
                 self.outputs = self._first_or_call()
-            return self.outputs[0].numpy()
-        # the pinned buffers are free: every call ends in a copy to the
-        # host, which waits for the copies out of them
+            return self.outputs[0]
+        if self._copied is not None:
+            # the last launch's copies out of the pinned inputs must have
+            # run before they are written again
+            self._copied.synchronize()
         for pin, buf, val in zip(self._pinned, self._inputs, values):
             pin.numpy()[...] = val
             buf.copy_(pin, non_blocking=True)
+        self._copied = torch.cuda.Event()
+        self._copied.record()
         if self.graph is None:
             self._capture()
         self.graph.replay()
-        return self.outputs[0].cpu().numpy()
+        return self.outputs[0]
 
     def _first_or_call(self):
         """One eager call of `fn`, counted into ``cost`` when it is the

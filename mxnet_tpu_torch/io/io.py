@@ -1,22 +1,32 @@
 """Data iterators: the port of `mxnet_tpu/io/io.py` (parity
 `python/mxnet/io/io.py`): `DataDesc`, `DataBatch`, `DataIter`,
-`NDArrayIter` and `ResizeIter`.
+`NDArrayIter`, `ResizeIter`, `PrefetchingIter` and `CSVIter`.
 
 Batches are cut from host numpy arrays and become NDArrays on the current
-context, one copy to the device a batch. `NDArrayIter`'s shuffle draws
+context, one copy to the device a batch (from pinned memory, not waiting
+for the card). `NDArrayIter`'s shuffle draws
 from numpy's global stream, as the JAX package's does, so a seeded run
-shuffles alike in both packages.
-
-Not ported yet: `PrefetchingIter` and `CSVIter`, which wait for the staging
-ring (ROADMAP.md queue A, item A.3); both raise NotImplementedError.
+shuffles alike in both packages. `PrefetchingIter` fetches batches on a
+background thread (the JAX package's thread path; its native-engine path
+has no counterpart here), with the ``prefetch`` fault point and the
+``io.prefetch_*`` telemetry; `CSVIter` reads a local CSV file once and
+batches it in memory.
 """
 from __future__ import annotations
 
 import collections
+import logging
+import queue as _queue
+import threading
+import time as _time
 
 import numpy as _np
 
-from ..base import MXNetError
+from .. import telemetry, tracing
+from ..base import MXNetError, getenv, register_env
+
+register_env("MXNET_PREFETCH_JOIN_TIMEOUT", 5.0,
+             "seconds to wait for a prefetch thread at reset")
 
 __all__ = ["DataDesc", "DataBatch", "DataIter", "NDArrayIter", "ResizeIter",
            "PrefetchingIter", "CSVIter", "pad_arrays"]
@@ -69,6 +79,32 @@ class DataBatch:
                 f"shapes: {lshapes}")
 
 
+# (rows, batch_size, device) -> the index that maps a short batch onto its
+# padded bucket (row i < n keeps data[i], row n + j recycles data[j % n]),
+# built once a bucket; an LRU keeps the cache bounded under shape churn
+_PAD_INDEX_CACHE = collections.OrderedDict()
+_PAD_INDEX_CACHE_MAX = 64
+
+
+def _pad_index(n, batch_size, device="cpu"):
+    """The cached wrap-around gather index that pads ``n`` rows up to
+    ``batch_size`` on ``device``: the same key returns the SAME tensor."""
+    import torch
+
+    key = (int(n), int(batch_size), str(torch.device(device)))
+    idx = _PAD_INDEX_CACHE.get(key)
+    if idx is None:
+        pad = batch_size - n
+        idx = torch.as_tensor(_np.concatenate(
+            [_np.arange(n), _np.arange(pad) % n]), device=device)
+        _PAD_INDEX_CACHE[key] = idx
+        while len(_PAD_INDEX_CACHE) > _PAD_INDEX_CACHE_MAX:
+            _PAD_INDEX_CACHE.popitem(last=False)
+    else:
+        _PAD_INDEX_CACHE.move_to_end(key)
+    return idx
+
+
 def pad_arrays(arrays, batch_size):
     """Pad each array in ``arrays`` along axis 0 up to ``batch_size`` by
     recycling its rows from the start (wrapping around when the batch is
@@ -93,9 +129,8 @@ def pad_arrays(arrays, batch_size):
                              "(no rows to recycle)")
         pad = batch_size - n
         data = a._data if isinstance(a, NDArray) else torch.as_tensor(a)
-        idx = torch.as_tensor(_np.concatenate(
-            [_np.arange(n), _np.arange(pad) % n]), device=data.device)
-        out.append(NDArray(data.index_select(0, idx)))
+        out.append(NDArray(data.index_select(
+            0, _pad_index(n, batch_size, data.device))))
     return out, pad
 
 
@@ -158,11 +193,46 @@ def _init_data(data, allow_empty, default_name):
             for k, v in data.items()]
 
 
+def _batch_dtype(source):
+    """The dtype of the batches cut from ``source``: `nd.array`'s, which
+    makes float64 float32 and int64 int32, as the JAX package does. A
+    module binds its inputs at this dtype."""
+    return {_np.dtype(_np.float64): _np.dtype(_np.float32),
+            _np.dtype(_np.int64): _np.dtype(_np.int32)}.get(
+                source.dtype, source.dtype)
+
+
+def _batch_array(chunk, host=False):
+    """``chunk`` as an NDArray on the current context (``host``: on the
+    CPU), cast as `nd.array` casts. On a card the values pass through
+    pinned memory and are copied without blocking (stream-ordered before
+    anything that reads them), so fetching the next batch does not wait
+    for the step the card runs."""
+    import torch
+
+    from ..context import cpu, current_context
+    from ..ndarray import NDArray
+    from ..ndarray import array as nd_array
+
+    if host:
+        return nd_array(chunk, ctx=cpu())
+    device = current_context().torch_device
+    if device.type != "cuda":
+        return nd_array(chunk)
+    host = nd_array(chunk, ctx=cpu())._data
+    return NDArray(host.pin_memory().to(device, non_blocking=True))
+
+
 class NDArrayIter(DataIter):
     """Batches of in-memory arrays (data and label as an array, a list or a
     dict), optionally shuffled each epoch, with the last short batch
     padded from the front (``"pad"``), dropped (``"discard"``) or carried
-    into the next epoch (``"roll_over"``)."""
+    into the next epoch (``"roll_over"``). Batches land on the current
+    context; with ``host_batches`` set they stay on the CPU, for a
+    consumer that copies them to its device itself (`Module.fit`'s staged
+    feed, on its staging thread)."""
+
+    host_batches = False
 
     def __init__(self, data, label=None, batch_size=1, shuffle=False,
                  last_batch_handle="pad", data_name="data",
@@ -187,13 +257,13 @@ class NDArrayIter(DataIter):
 
     @property
     def provide_data(self):
-        return [DataDesc(k, (self.batch_size,) + v.shape[1:], v.dtype)
-                for k, v in self.data]
+        return [DataDesc(k, (self.batch_size,) + v.shape[1:],
+                         _batch_dtype(v)) for k, v in self.data]
 
     @property
     def provide_label(self):
-        return [DataDesc(k, (self.batch_size,) + v.shape[1:], v.dtype)
-                for k, v in self.label]
+        return [DataDesc(k, (self.batch_size,) + v.shape[1:],
+                         _batch_dtype(v)) for k, v in self.label]
 
     def reset(self):
         if self.shuffle:
@@ -211,8 +281,6 @@ class NDArrayIter(DataIter):
         return self.cursor < self.num_data
 
     def _take(self, arrays):
-        from ..ndarray import array as nd_array
-
         start = self.cursor
         end = min(start + self.batch_size, self.num_data)
         out = []
@@ -229,7 +297,7 @@ class NDArrayIter(DataIter):
             if chunk.shape[0] < self.batch_size:  # pad from the front
                 pad = self.batch_size - chunk.shape[0]
                 chunk = _np.concatenate([chunk, v[self.idx[:pad]]])
-            out.append(nd_array(chunk))
+            out.append(_batch_array(chunk, self.host_batches))
         return out
 
     def getdata(self):
@@ -295,18 +363,193 @@ class ResizeIter(DataIter):
 
 
 class PrefetchingIter(DataIter):
-    """Not ported yet: waits for the staging ring."""
+    """Background prefetch over one or more iterators (the role of the
+    reference's `PrefetcherIter`): a thread fetches up to
+    ``prefetch_depth`` combined batches ahead while the trainer consumes.
+    The fetches make their arrays on the context that was current where
+    the iterator was built (or last reset). A fetch error is raised to
+    the consumer; a thread that dies without
+    delivering raises MXNetError instead of wedging the loop. `reset`
+    stops the epoch's thread (waiting ``MXNET_PREFETCH_JOIN_TIMEOUT``) and
+    starts the next; a wedged thread is left to the new one, which waits
+    it out before it resets the sources. With telemetry on, the wait and
+    the consumer's compute between batches count into
+    ``io.prefetch_wait_us`` / ``io.prefetch_wait_us_total`` /
+    ``io.prefetch_compute_us_total`` (their ratio is the starvation
+    ratio)."""
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "PrefetchingIter waits for the port's staging ring (ROADMAP.md "
-            "queue A, item A.3)")
+    def __init__(self, iters, rename_data=None, rename_label=None,
+                 prefetch_depth=2):
+        if not isinstance(iters, (list, tuple)):
+            iters = [iters]
+        super().__init__(iters[0].batch_size)
+        self.iters = iters
+        self.rename_data = rename_data
+        self.rename_label = rename_label
+        self._depth = prefetch_depth
+        self._queue = None
+        self._thread = None
+        self._name = (f"PrefetchingIter#{id(self):x}"
+                      f"({','.join(type(i).__name__ for i in iters)})")
+        self._handoff = None
+        self._t_consumed = None     # end of the previous next() (telemetry)
+        self._start()
+
+    @property
+    def provide_data(self):
+        if self.rename_data is None:
+            return sum([i.provide_data for i in self.iters], [])
+        return sum([[DataDesc(r.get(d.name, d.name), d.shape, d.dtype)
+                     for d in i.provide_data]
+                    for r, i in zip(self.rename_data, self.iters)], [])
+
+    @property
+    def provide_label(self):
+        if self.rename_label is None:
+            return sum([i.provide_label for i in self.iters], [])
+        return sum([[DataDesc(r.get(d.name, d.name), d.shape, d.dtype)
+                     for d in i.provide_label]
+                    for r, i in zip(self.rename_label, self.iters)], [])
+
+    def _fetch_one(self):
+        """One combined batch (on the thread): a DataBatch, None at the
+        end, or the exception a source raised."""
+        try:
+            batches = []
+            try:
+                for it in self.iters:
+                    batches.append(it.next())
+            except StopIteration:
+                return None
+            data = sum([b.data for b in batches], [])
+            label = sum([(b.label or []) for b in batches], [])
+            return DataBatch(data=data, label=label, pad=batches[0].pad,
+                             index=batches[0].index)
+        except Exception as e:  # noqa: BLE001 - raised to the consumer
+            return e
+
+    def _start(self):
+        from ..context import current_context
+
+        self._queue = _queue.Queue(maxsize=max(1, self._depth))
+        self._stop = threading.Event()
+        # the current context is per thread: the fetches make their
+        # arrays on the consumer's
+        ctx = current_context()
+
+        # q and stop are bound per epoch: a thread wedged across a reset
+        # keeps talking to ITS queue and ITS (set) stop event. `prev` is a
+        # predecessor that outlived its join timeout: the new thread waits
+        # it out and only then resets the sources
+        def worker(q=self._queue, stop=self._stop, prev=self._handoff):
+            from .. import resilience
+
+            if prev is not None:
+                prev.join()
+                for it in self.iters:
+                    it.reset()
+            while not stop.is_set():
+                try:
+                    resilience.inject("prefetch", self._name)
+                except resilience.ThreadKilled:
+                    return  # a simulated silent thread death
+                with tracing.span("io.prefetch_fetch", cat="io"), ctx:
+                    item = self._fetch_one()
+                q.put(item)
+                if item is None or isinstance(item, Exception):
+                    return
+
+        self._handoff = None
+        self._thread = threading.Thread(target=worker, daemon=True,
+                                        name=self._name)
+        self._thread.start()
+
+    def reset(self):
+        self._stop.set()
+        # the gap between epochs is not step compute
+        self._t_consumed = None
+        try:
+            while True:
+                self._queue.get_nowait()
+        except _queue.Empty:
+            pass
+        stale = None
+        if self._thread is not None:
+            timeout = float(getenv("MXNET_PREFETCH_JOIN_TIMEOUT"))
+            self._thread.join(timeout=timeout)
+            if self._thread.is_alive():
+                # a wedged fetch cannot be killed from Python: leave the
+                # daemon thread, never silently
+                logging.getLogger(__name__).warning(
+                    "%s: prefetch thread still alive %.1fs after reset(); "
+                    "the new epoch waits until it exits (the source "
+                    "iterator may be wedged)", self._name, timeout)
+                stale = self._thread
+        self._handoff = stale
+        if stale is None:
+            for it in self.iters:
+                it.reset()
+        self._start()
+
+    def next(self):
+        if telemetry._enabled:
+            t0 = _time.perf_counter()
+            if self._t_consumed is not None:
+                telemetry.counter("io.prefetch_compute_us_total").inc(
+                    (t0 - self._t_consumed) * 1e6)
+            item = self._get_item()
+            wait_us = (_time.perf_counter() - t0) * 1e6
+            telemetry.histogram("io.prefetch_wait_us").record(wait_us)
+            telemetry.counter("io.prefetch_wait_us_total").inc(wait_us)
+            self._t_consumed = _time.perf_counter()
+        else:
+            item = self._get_item()
+        if item is None:
+            raise StopIteration
+        if isinstance(item, Exception):
+            raise item
+        return item
+
+    def _get_item(self):
+        """A blocking queue read that cannot hang on a dead producer."""
+        while True:
+            try:
+                return self._queue.get(timeout=0.1)
+            except _queue.Empty:
+                if self._thread.is_alive():
+                    continue
+                try:
+                    # the final put may have raced the liveness check
+                    return self._queue.get_nowait()
+                except _queue.Empty:
+                    raise MXNetError(
+                        f"{self._name}: prefetch thread died without "
+                        "delivering a batch") from None
+
+    def iter_next(self):
+        try:
+            self._next_batch = self.next()
+            return True
+        except StopIteration:
+            return False
 
 
-class CSVIter(DataIter):
-    """Not ported yet: waits for the staging ring."""
+class CSVIter(NDArrayIter):
+    """CSV file iterator (reference `iter_csv.cc`): loads a local CSV file
+    once and batches it in memory; ``round_batch`` pads the last batch,
+    else it is discarded."""
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "CSVIter waits for the port's staging ring (ROADMAP.md queue A, "
-            "item A.3)")
+    def __init__(self, data_csv, data_shape, label_csv=None, label_shape=(1,),
+                 batch_size=1, round_batch=True, dtype="float32", **kwargs):
+        data = _np.loadtxt(data_csv, delimiter=",", dtype=dtype, ndmin=2)
+        data = data.reshape((-1,) + tuple(data_shape))
+        label = None
+        if label_csv is not None:
+            label = _np.loadtxt(label_csv, delimiter=",", dtype=dtype,
+                                ndmin=2)
+            label = label.reshape((-1,) + tuple(label_shape))
+            if label.shape[-1] == 1:
+                label = label.reshape(label.shape[:-1])
+        super().__init__(data, label, batch_size=batch_size,
+                         last_batch_handle="pad" if round_batch else "discard",
+                         label_name="label")

@@ -13,9 +13,12 @@ under a deterministic trace id, fed to `tracing.flight_recorder`; the
 observatory's ``step`` lane. Host times around a captured step are enqueue
 times until the metric update reads the outputs (the ``sync`` segment).
 
-Not ported here: the `MXNET_OVERLAP` staging lane (ROADMAP.md queue A,
-item A.3); `fit` runs the JAX package's lockstep order, which that lane
-keeps bit-exact.
+Under ``MXNET_OVERLAP`` (on by default) `fit` runs the overlap order
+where the module supports it (`capture_metric_update`, `stage_batch`,
+`retire_staged`): the next batch is fetched and staged while the step
+runs, and each step's metric read is applied a step late, settled at
+every epoch's end. The trained parameters and epoch-end metrics equal
+the lockstep order's, bit for bit.
 """
 from __future__ import annotations
 
@@ -25,6 +28,7 @@ import time
 from .. import health, observatory, telemetry, tracing
 from .. import metric as _metric
 from .. import ndarray as nd
+from ..io import staging as _staging
 
 
 class BaseModule:
@@ -228,46 +232,83 @@ class BaseModule:
         # the stall watchdog's progress beacon: armed while the loop owes
         # steps, touched per completed step
         fit_beacon = health.beacon("fit.step") if health._enabled else None
-        for epoch in range(begin_epoch, num_epoch):
+        try:
+            for epoch in range(begin_epoch, num_epoch):
+                self._fit_epoch(epoch, train_data, eval_data, eval_metric,
+                                validation_metric, epoch_end_callback,
+                                batch_end_callback, eval_end_callback,
+                                eval_batch_end_callback, monitor,
+                                sparse_row_id_fn, fit_beacon)
+        finally:
+            self._overlap_teardown()
             if fit_beacon is not None:
-                # armed per epoch: the tail between epochs has no step
-                # cadence, so its silence is not judged by the step median
-                fit_beacon.arm()
-            tic = time.time()
-            eval_metric.reset()
-            nbatch = 0
-            end_of_batch = False
-            data_iter = iter(train_data)
-            next_data_batch = next(data_iter)
-            while not end_of_batch:
-                data_batch = next_data_batch
-                if monitor is not None:
-                    monitor.tic()
-                tele = telemetry._enabled
-                trc = tracing._enabled
-                timed = tele or trc or observatory._enabled
-                step_span = tracing.span(
-                    "step", cat="train",
-                    trace_id=(tracing.deterministic_trace_id(
-                        "fit", epoch, nbatch) if trc else None),
-                    epoch=epoch, step=nbatch)
-                with step_span:
-                    t0 = time.perf_counter() if timed else 0.0
-                    fused = self.fused_step(data_batch)
-                    if not fused:
-                        self.forward_backward(data_batch)
-                    t_fb = time.perf_counter() if timed else 0.0
-                    if not fused:
-                        self.update()
-                    t_up = time.perf_counter() if timed else 0.0
-                    if tele:
-                        telemetry.gauge("step.fused").set(1 if fused else 0)
+                fit_beacon.idle()
+
+    def _fit_epoch(self, epoch, train_data, eval_data, eval_metric,
+                   validation_metric, epoch_end_callback, batch_end_callback,
+                   eval_end_callback, eval_batch_end_callback, monitor,
+                   sparse_row_id_fn, fit_beacon):
+        """One epoch of `fit`. Lockstep order: step, metric read, next
+        batch. Overlap order (``MXNET_OVERLAP``, a module whose
+        `capture_metric_update` defers): step t, then apply step t - 1's
+        deferred metric and retire its staged slot, then fetch and stage
+        batch t + 1 while step t runs; the epoch's last step settles at
+        once, so epoch-end metrics equal the lockstep ones."""
+        if fit_beacon is not None:
+            # armed per epoch: the tail between epochs has no step
+            # cadence, so its silence is not judged by the step median
+            fit_beacon.arm()
+        tic = time.time()
+        eval_metric.reset()
+        nbatch = 0
+        end_of_batch = False
+        data_iter = iter(train_data)
+        next_data_batch = next(data_iter)
+        overlap = _staging.overlap_enabled()
+        if overlap:
+            # the epoch's first batch rides the staged feed too
+            self.stage_batch(next_data_batch)
+        pending_metric = None        # step t - 1's deferred metric update
+        pending_batch = None         # and its batch (its staged slot)
+        while not end_of_batch:
+            data_batch = next_data_batch
+            if monitor is not None:
+                monitor.tic()
+            tele = telemetry._enabled
+            trc = tracing._enabled
+            timed = tele or trc or observatory._enabled
+            step_span = tracing.span(
+                "step", cat="train",
+                trace_id=(tracing.deterministic_trace_id(
+                    "fit", epoch, nbatch) if trc else None),
+                epoch=epoch, step=nbatch)
+            with step_span:
+                t0 = time.perf_counter() if timed else 0.0
+                fused = self.fused_step(data_batch)
+                if not fused:
+                    self.forward_backward(data_batch)
+                t_fb = time.perf_counter() if timed else 0.0
+                if not fused:
+                    self.update()
+                t_up = time.perf_counter() if timed else 0.0
+                if tele:
+                    telemetry.gauge("step.fused").set(1 if fused else 0)
+                capture = None
+                if overlap and not isinstance(data_batch, list):
+                    capture = self.capture_metric_update(data_batch.label)
+                if capture is None:
+                    if pending_metric is not None:
+                        # settle the deferred step before this eager one
+                        pending_metric(eval_metric)
+                        pending_metric = None
+                        self.retire_staged(pending_batch)
                     if isinstance(data_batch, list):
                         self.update_metric(eval_metric,
                                            [db.label for db in data_batch],
                                            pre_sliced=True)
                     else:
                         self.update_metric(eval_metric, data_batch.label)
+                        self.retire_staged(data_batch)
                     t_sync = time.perf_counter() if timed else 0.0
                     try:
                         next_data_batch = next(data_iter)
@@ -275,72 +316,119 @@ class BaseModule:
                                      sparse_row_id_fn=sparse_row_id_fn)
                     except StopIteration:
                         end_of_batch = True
-                    t_end = time.perf_counter() if timed else 0.0
+                    t_end = t_data = time.perf_counter() if timed else 0.0
                     marks = (("fwdbwd", t0, t_fb), ("update", t_fb, t_up),
-                             ("sync", t_up, t_sync), ("data", t_sync, t_end))
-                    if trc:
-                        # the phase children, rebuilt from the marks
-                        end_us = tracing.now_us()
-                        for seg, a, b in marks:
-                            tracing.emit_span(
-                                "step." + seg, end_us - (t_end - a) * 1e6,
-                                (b - a) * 1e6, cat="train",
-                                parent=step_span)
-                        step_span.set(fused=fused)
+                             ("sync", t_up, t_sync),
+                             ("data", t_sync, t_data))
+                else:
+                    # apply step t - 1's metric (its outputs are a step
+                    # old) and free its staged slot, then fetch and stage
+                    # batch t + 1 while step t runs
+                    if pending_metric is not None:
+                        pending_metric(eval_metric)
+                        self.retire_staged(pending_batch)
+                    pending_metric, pending_batch = capture, data_batch
+                    t_sync = time.perf_counter() if timed else 0.0
+                    try:
+                        next_data_batch = next(data_iter)
+                        self.prepare(next_data_batch,
+                                     sparse_row_id_fn=sparse_row_id_fn)
+                        self.stage_batch(next_data_batch)
+                    except StopIteration:
+                        end_of_batch = True
+                        # the epoch's end is a sync point
+                        pending_metric(eval_metric)
+                        pending_metric = None
+                        self.retire_staged(pending_batch)
+                    t_end = t_data = time.perf_counter() if timed else 0.0
+                    marks = (("fwdbwd", t0, t_fb), ("update", t_fb, t_up),
+                             ("sync", t_up, t_sync),
+                             ("data", t_sync, t_data))
+                    if tele:
+                        telemetry.counter("overlap.steps").inc()
                 if trc:
-                    tracing.flight_recorder.observe(step_span.tree())
-                if observatory._enabled:
-                    observatory.observe("step", wall_s=t_end - t0)
-                step_stats = None
-                if tele:
-                    total_h = telemetry.histogram("step.total_us")
+                    # the phase children, rebuilt from the marks
+                    end_us = tracing.now_us()
                     for seg, a, b in marks:
-                        telemetry.histogram(f"step.{seg}_us").record(
-                            (b - a) * 1e6)
-                    total_us = (t_end - t0) * 1e6
-                    total_h.record(total_us)
-                    telemetry.counter("step.wall_us_total").inc(
-                        int(total_us))
-                    if batch_end_callback is not None:
-                        # quantiles are read by the consumer on its log
-                        # ticks, not sorted here each batch
-                        step_stats = dict(
-                            {f"{seg}_ms": (b - a) * 1e3
-                             for seg, a, b in marks},
-                            total_ms=total_us / 1e3, hist=total_h)
-                if monitor is not None:
-                    monitor.toc_print()
+                        tracing.emit_span(
+                            "step." + seg, end_us - (t_end - a) * 1e6,
+                            (b - a) * 1e6, cat="train", parent=step_span)
+                    step_span.set(fused=fused)
+            if trc:
+                tracing.flight_recorder.observe(step_span.tree())
+            if observatory._enabled:
+                observatory.observe("step", wall_s=t_end - t0)
+            step_stats = None
+            if tele:
+                total_h = telemetry.histogram("step.total_us")
+                for seg, a, b in marks:
+                    telemetry.histogram(f"step.{seg}_us").record(
+                        (b - a) * 1e6)
+                total_us = (t_end - t0) * 1e6
+                total_h.record(total_us)
+                telemetry.counter("step.wall_us_total").inc(int(total_us))
                 if batch_end_callback is not None:
-                    for cb in _as_list(batch_end_callback):
-                        cb(_BatchEndParam(epoch, nbatch, eval_metric,
-                                          locals(), step_stats=step_stats))
-                nbatch += 1
-                if fit_beacon is not None:
-                    fit_beacon.touch()
+                    # quantiles are read by the consumer on its log ticks,
+                    # not sorted here each batch
+                    step_stats = dict(
+                        {f"{seg}_ms": (b - a) * 1e3 for seg, a, b in marks},
+                        total_ms=total_us / 1e3, hist=total_h)
+            if monitor is not None:
+                monitor.toc_print()
+            if batch_end_callback is not None:
+                for cb in _as_list(batch_end_callback):
+                    cb(_BatchEndParam(epoch, nbatch, eval_metric, locals(),
+                                      step_stats=step_stats))
+            nbatch += 1
             if fit_beacon is not None:
-                fit_beacon.idle()
-            for name, val in eval_metric.get_name_value():
-                self.logger.info("Epoch[%d] Train-%s=%f", epoch, name, val)
-            self.logger.info("Epoch[%d] Time cost=%.3f", epoch,
-                             time.time() - tic)
+                fit_beacon.touch()
+        if fit_beacon is not None:
+            fit_beacon.idle()
+        for name, val in eval_metric.get_name_value():
+            self.logger.info("Epoch[%d] Train-%s=%f", epoch, name, val)
+        self.logger.info("Epoch[%d] Time cost=%.3f", epoch, time.time() - tic)
 
-            arg_p, aux_p = self.get_params()
-            self.set_params(arg_p, aux_p)
-            if epoch_end_callback is not None:
-                for cb in _as_list(epoch_end_callback):
-                    cb(epoch, self.symbol, arg_p, aux_p)
-            if eval_data is not None:
-                res = self.score(eval_data, validation_metric,
-                                 score_end_callback=eval_end_callback,
-                                 batch_end_callback=eval_batch_end_callback,
-                                 epoch=epoch)
-                for name, val in res:
-                    self.logger.info("Epoch[%d] Validation-%s=%f", epoch,
-                                     name, val)
-            train_data.reset()
+        arg_p, aux_p = self.get_params()
+        self.set_params(arg_p, aux_p)
+        if epoch_end_callback is not None:
+            for cb in _as_list(epoch_end_callback):
+                cb(epoch, self.symbol, arg_p, aux_p)
+        if eval_data is not None:
+            res = self.score(eval_data, validation_metric,
+                             score_end_callback=eval_end_callback,
+                             batch_end_callback=eval_batch_end_callback,
+                             epoch=epoch)
+            for name, val in res:
+                self.logger.info("Epoch[%d] Validation-%s=%f", epoch, name,
+                                 val)
+        train_data.reset()
 
     def prepare(self, data_batch, sparse_row_id_fn=None):
         pass
+
+    # -- overlap lane hooks (MXNET_OVERLAP) -----------------------------------
+    # A subclass that can defer its sync points overrides these; the
+    # defaults keep every module on the lockstep order.
+
+    def capture_metric_update(self, labels):
+        """A thunk ``f(eval_metric)`` that applies THIS step's metric
+        update later, from outputs captured now; None makes the step
+        update at once (the lockstep order)."""
+        return None
+
+    def stage_batch(self, data_batch):
+        """Hand ``data_batch`` to a staging thread, so its pad, cast and
+        copy overlap the step in flight. False: not staged."""
+        return False
+
+    def retire_staged(self, data_batch):
+        """Free the staged slot of ``data_batch``, whose step has been read
+        back (False where it had none)."""
+        return False
+
+    def _overlap_teardown(self):
+        """Stop any staging thread and drop staged buffers (fit's exit)."""
+        return None
 
     def save_params(self, fname):
         arg_params, aux_params = self.get_params()

@@ -14,15 +14,28 @@ The bound arrays keep their storage: `init_params`, `set_params`,
 `copy_params_from` and `load` write into them in place, and `get_params`
 returns copies.
 
-Not ported yet (ROADMAP.md queue A, item 5): the bucketed gradient sync
-(the kvstore branch here syncs key by key), the fused step's ZeRO-1,
-pipeline and SPMD variants, and the `MXNET_OVERLAP` staging lane
-(`stage_batch`, `retire_staged`). `as_predictor` serves the module's
-weights through `serving.Predictor`.
+The ``MXNET_OVERLAP`` lane (`fit`'s overlap order): `stage_batch` hands
+the next batch's pad, cast and copy to the card to a
+`io.staging.DeviceStager` thread while the current step runs (a batch
+already on the card as bound has none of that left to do and is not
+staged: `NDArrayIter` copies its batches there without blocking, unless
+its ``host_batches`` is set; nor is a batch below
+`io.staging.STAGE_MIN_BYTES`); `fused_step` takes the staged feed
+(`_consume_staged`), which reaches the captured step by one copy on the
+device into its fixed input tensors, on the main stream behind the
+stager's event (no graph per ring slot); `capture_metric_update` defers
+the step's metric read, and `retire_staged` frees the slot once that
+read has happened.
+
+Not ported yet (ROADMAP.md queue A, item A.7): the bucketed gradient sync
+(the kvstore branch here syncs key by key) and the fused step's ZeRO-1,
+pipeline and SPMD variants. `as_predictor` serves the module's weights
+through `serving.Predictor`.
 """
 from __future__ import annotations
 
 import logging
+import math
 
 import numpy as _np
 import torch
@@ -32,6 +45,7 @@ from .. import ndarray as nd
 from .. import optimizer as opt
 from ..base import MXNetError, getenv
 from ..initializer import InitDesc, Uniform
+from ..io import staging as _staging
 from ..io.io import DataDesc, pad_arrays
 from ..model import _create_kvstore
 from .base_module import BaseModule
@@ -79,6 +93,10 @@ class Module(BaseModule):
         self._pad = 0
         self._pad_bound = 0
         self._last_short_shape = None  # pad-or-reshape hysteresis
+        # the overlap lane: the staging ring (made at the first staged
+        # batch) and (batch, its pad state) for every staged batch
+        self._stager = None
+        self._staged_meta = []
 
     # -- properties ----------------------------------------------------------
 
@@ -361,7 +379,12 @@ class Module(BaseModule):
         forward_backward() + update()."""
         if not self._fused_step_ready():
             return False
-        self._exec.set_args(**self._make_feed(data_batch))
+        # a batch the staging thread already padded, cast and copied rides
+        # straight in (one copy on the device); a miss takes the host feed
+        feed = self._consume_staged(data_batch)
+        if feed is None:
+            feed = self._make_feed(data_batch)
+        self._exec.set_args(**feed)
         self._exec.fused_step(self._optimizer, self._updater,
                               self._param_names)
         return True
@@ -384,6 +407,138 @@ class Module(BaseModule):
         eval_metric.update_dict(
             dict(zip(self._label_names, labels)),
             dict(zip(self._output_names, self.get_outputs())))
+
+    # -- overlap lane (MXNET_OVERLAP) -----------------------------------------
+
+    def capture_metric_update(self, labels):
+        """Defer this step's metric read: a thunk holding the CURRENT
+        labels and outputs (sliced by the current pad state), on a card
+        copied to pinned host buffers behind this step's work
+        (`io.staging.host_copies`), that applies them when `fit` settles
+        the deferred lane. Its wait is for this step alone, not for the
+        next one, queued on the stream by then."""
+        if labels is None or not (self.binded and self.params_initialized):
+            return None
+        labels, outs = list(labels), list(self.get_outputs())
+        copies, event = _staging.host_copies(labels + outs)
+        label_map = dict(zip(self._label_names, copies[:len(labels)]))
+        out_map = dict(zip(self._output_names, copies[len(labels):]))
+
+        def apply(eval_metric):
+            if event is not None:
+                event.synchronize()
+            eval_metric.update_dict(label_map, out_map)
+
+        return apply
+
+    def stage_batch(self, data_batch):
+        """Decide on the MAIN thread whether ``data_batch`` can be staged
+        (the executor's shapes and the pad-or-reshape hysteresis are only
+        coherent here), then hand its pad, cast and copy to the staging
+        thread. `_make_feed`'s decision tree, exactly: a batch that would
+        reshape the executor is not staged."""
+        import torch
+
+        if not _staging.overlap_enabled() or not self._fused_step_ready():
+            return False
+        if isinstance(data_batch, list) or data_batch.data is None:
+            return False
+        feed_src = dict(zip(self._data_names, data_batch.data))
+        if data_batch.label is not None and self._label_names:
+            feed_src.update(zip(self._label_names, data_batch.label))
+        cur = self._exec.arg_dict
+        if not feed_src or any(n not in cur for n in feed_src):
+            return False
+        mismatched = [n for n, a in feed_src.items()
+                      if tuple(cur[n].shape) != tuple(a.shape)]
+        short_shape = None
+        if mismatched:
+            short_shape = tuple(sorted((n, tuple(feed_src[n].shape))
+                                       for n in mismatched))
+            is_short = not self.inputs_need_grad and all(
+                tuple(feed_src[n].shape[1:]) == tuple(cur[n].shape[1:])
+                and 0 < feed_src[n].shape[0] < cur[n].shape[0]
+                for n in mismatched)
+            if not is_short or short_shape == self._last_short_shape:
+                return False  # a reshape: the lockstep path rebinds
+        shapes = {n: tuple(cur[n].shape) for n in feed_src}
+        dtypes = {n: cur[n]._data.dtype for n in feed_src}
+        device = cur[next(iter(feed_src))]._data.device
+        srcs = {n: getattr(a, "_data", a) for n, a in feed_src.items()}
+        if device.type == "cuda" and all(
+                torch.is_tensor(t) and t.device == device
+                and t.dtype == dtypes[n] and tuple(t.shape) == shapes[n]
+                for n, t in srcs.items()):
+            # already on the card as bound: nothing to pad, cast or copy,
+            # and the lockstep feed is the one device copy it needs
+            return False
+        if sum(math.prod(shapes[n]) * dtypes[n].itemsize
+               for n in srcs) < _staging.STAGE_MIN_BYTES:
+            return False  # the lockstep feed costs less than the hand-off
+        pad_names = frozenset(mismatched)
+        bound = cur[mismatched[0]].shape[0] if mismatched else 0
+        exec_ref = self._exec
+
+        def prep(put):  # the staging thread: pad -> cast -> copy
+            from ..ndarray import NDArray
+
+            feed, pad = {}, 0
+            for n, a in feed_src.items():
+                if n in pad_names:
+                    padded, p = pad_arrays([a], shapes[n][0])
+                    a = padded[0]
+                    pad = max(pad, p)
+                feed[n] = NDArray(put(n, a, dtypes[n]))
+            return feed, pad
+
+        if self._stager is None:
+            self._stager = _staging.DeviceStager(name="module.stager",
+                                                 device=device)
+        accepted = self._stager.stage(
+            data_batch, prep,
+            # a reshape swaps the executor: the staged layout is stale
+            guard=lambda: self._exec is exec_ref)
+        if accepted:
+            self._staged_meta.append(
+                (data_batch, {"short_shape": short_shape, "bound": bound}))
+            del self._staged_meta[:-self._stager.depth - 2]
+        return accepted
+
+    def _consume_staged(self, data_batch):
+        """The staged feed of this exact batch (on the device, padded and
+        cast), setting the pad and hysteresis state `_make_feed` would
+        have set; None for the lockstep feed."""
+        st = self._stager
+        if st is None or isinstance(data_batch, list):
+            return None
+        meta = None
+        for i, (b, m) in enumerate(self._staged_meta):
+            if b is data_batch:
+                meta = m
+                del self._staged_meta[:i + 1]  # and stale earlier entries
+                break
+        if meta is None:
+            return None
+        hit = st.take(data_batch)
+        if hit is None:
+            return None
+        feed, pad = hit
+        self._pad = pad
+        if pad:
+            self._pad_bound = meta["bound"]
+        self._last_short_shape = meta["short_shape"]
+        return feed
+
+    def retire_staged(self, data_batch):
+        st = self._stager
+        return st.retire(data_batch) if st is not None else False
+
+    def _overlap_teardown(self):
+        st = self._stager
+        if st is not None:
+            self._stager = None
+            self._staged_meta = []
+            st.close()
 
     # -- checkpoint ----------------------------------------------------------
 

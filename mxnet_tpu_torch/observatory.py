@@ -61,7 +61,8 @@ from . import telemetry
 from .base import MXNetError, getenv, register_env
 
 __all__ = ["enabled", "enable", "disable", "reset", "observe", "lanes",
-           "peaks", "probe_verdict", "attribute", "attribution", "summary",
+           "host_gap", "peaks", "probe_verdict", "attribute", "attribution",
+           "summary",
            "cached_summary", "SCHEMA_VERSION"]
 
 register_env("MXNET_OBSERVATORY", False,
@@ -159,6 +160,9 @@ def observe(lane, cache=None, key=None, wall_s=None, events=None,
             st["key"] = key
         if wall_s is not None:
             _ewma_update(st, "wall_s", wall_s)
+            # the last walls, matched to the event window's steps
+            st.setdefault("_walls", collections.deque(
+                maxlen=_EVENT_WINDOW)).append(float(wall_s))
         if exec_s is not None:
             _ewma_update(st, "exec_s", exec_s)
         if events is not None:
@@ -185,10 +189,27 @@ def _device_seconds(pairs):
             times.append(start.elapsed_time(end) / 1e3)
         except RuntimeError:   # an event never recorded
             continue
-    if not times:
+    return _median(times)
+
+
+def _median(values):
+    values = sorted(values)
+    return values[len(values) // 2] if values else None
+
+
+def host_gap(lane):
+    """``(median wall, median device, their difference)`` in seconds over
+    the last `_EVENT_WINDOW` samples of ``lane``: the same steps' walls
+    and CUDA event windows, so the gap compares matched statistics.
+    None where the lane has no walls or no events."""
+    with _lock:
+        st = _lanes.get(lane) or {}
+        walls, pairs = list(st.get("_walls") or ()), \
+            list(st.get("_events") or ())
+    wall, device = _median(walls), _device_seconds(pairs)
+    if wall is None or device is None:
         return None
-    times.sort()
-    return times[len(times) // 2]
+    return wall, device, max(wall - device, 0.0)
 
 
 # ---------------------------------------------------------------------------
@@ -433,7 +454,8 @@ def attribution(lane, pk=None, device=None):
     observation or no counted program. ``measured_s`` is the lane's median
     device time between its CUDA events, or where it has none (the CPU)
     its host wall time, else its program's host window; with a device
-    time and a wall, ``host_gap_us`` is wall minus device."""
+    time and walls, ``host_gap_us`` is the median wall minus the median
+    device time over the same window of samples."""
     with _lock:
         st = dict(_lanes.get(lane) or {})
     cache_name, key = st.get("cache"), st.get("key")
@@ -459,9 +481,10 @@ def attribution(lane, pk=None, device=None):
                     dtype=cache.entry_dtype(key), wall_s=measured)
     if device_s is not None:
         row["device_s"] = device_s
-        if wall is not None:
+        wall_med = _median(st.get("_walls") or ())
+        if wall_med is not None:
             row["wall_s"] = wall
-            row["host_gap_us"] = max(wall - device_s, 0.0) * 1e6
+            row["host_gap_us"] = max(wall_med - device_s, 0.0) * 1e6
     row["lane"] = lane
     row["cache"] = cache_name
     row["key"] = repr(key)

@@ -10,7 +10,7 @@ and the frontend copies the states into their arrays in place
 ``multi_*`` op takes its weights' inputs interleaved (weight, grad, state
 ... for each) with one learning rate and weight decay each (``lrs``,
 ``wds``), and returns the new weights, then the new states. Not ported yet
-(ROADMAP.md queue A, item 3): NAG and the other optimizers' ops.
+(ROADMAP.md queue A, item A.4): NAG and the other optimizers' ops.
 """
 from __future__ import annotations
 

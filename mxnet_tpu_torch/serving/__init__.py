@@ -24,9 +24,14 @@ generation:
   and live `Predictor.swap_weights` with nothing captured again;
 * `health`: liveness and readiness probes of predictors, batchers and
   generation engines;
+* `qos`: multi-tenant QoS (`TenantRegistry` from ``MXNET_QOS_SPEC``):
+  class-ordered admission with per-tenant quotas (`QuotaExceededError`),
+  preemption of batch sessions into the generation slab's park region;
 * `generation`: continuous-batching autoregressive serving over a KV slot
-  slab (`GenerationEngine` with its prefix-cache, speculative and
-  weight-swap lanes, `GenerationRouter`, `GenerationStream`).
+  slab (`GenerationEngine` with its prefix-cache, speculative,
+  weight-swap and QoS lanes, `GenerationRouter` with class placement,
+  parked-session migration and the SLO-gated `rolling_swap`,
+  `GenerationStream`).
 
 Quick start::
 
@@ -37,11 +42,10 @@ Quick start::
         probs = fut.result()
 
 Every layer here reports into the observability planes (`telemetry`,
-`tracing`, `health`, `observatory`, `memory`) when they are on. Not
-ported yet (ROADMAP.md queue A, item A.2): the generation engine's QoS
-lane, `TenantRegistry` and `GenerationRouter.rolling_swap`.
+`tracing`, `health`, `observatory`, `memory`) when they are on.
 """
 from . import generation
+from . import qos
 from . import rollout
 from .admission import (AdmissionQueue, DeadlineExceededError, QueueFullError,
                         Request, ServerClosedError, ServingError)
@@ -49,14 +53,16 @@ from .batcher import DynamicBatcher
 from .generation import (GenerationEngine, GenerationRouter,
                          GenerationStream)
 from .predictor import Predictor, bucket_ladder
+from .qos import QuotaExceededError, TenantRegistry
 from .rollout import (RolloutSubscriber, RolloutWatcher, WeightSet, publish,
                       publish_checkpoint)
 from .warmup import warmup
 
 __all__ = ["Predictor", "DynamicBatcher", "AdmissionQueue", "Request",
            "ServingError", "QueueFullError", "DeadlineExceededError",
-           "ServerClosedError", "bucket_ladder", "warmup", "generation",
-           "GenerationEngine", "GenerationRouter", "GenerationStream",
-           "rollout", "WeightSet",
+           "ServerClosedError", "QuotaExceededError", "bucket_ladder",
+           "warmup", "generation", "GenerationEngine", "GenerationRouter",
+           "GenerationStream", "qos", "TenantRegistry", "rollout",
+           "WeightSet",
            "RolloutSubscriber", "RolloutWatcher", "publish",
            "publish_checkpoint"]

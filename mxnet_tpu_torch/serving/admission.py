@@ -10,8 +10,15 @@ generation engine (`get_batch_nowait`), the per-tick deadline sweep
 (`expire`) and the graceful drain (`close`: `ServerClosedError` for new
 work, queued work still handed out), with the ``<prefix>.queue_depth``
 gauge and ``<prefix>.rejected`` counter (telemetry) and the
-``admission_reject`` journal event (health). Not ported yet (ROADMAP.md
-queue A, item A.2): the QoS ordering and quotas.
+``admission_reject`` journal event (health).
+
+With a QoS registry active (`qos.active`, captured when the queue is
+built) the pop order becomes ``(class rank, earliest deadline, enqueue
+time)``, batch requests aging into standard rank after
+``MXNET_QOS_AGING_S``, and `put` also enforces the tenants' quotas
+(`qos.QuotaExceededError`, the ``qos.rejected`` / ``qos.admitted``
+counters and the ``qos_quota_reject`` event). Without one every path
+here is the FIFO queue, unchanged.
 """
 from __future__ import annotations
 
@@ -28,6 +35,10 @@ __all__ = ["AdmissionQueue", "Request", "ServingError", "QueueFullError",
 register_env("MXNET_SERVING_MAX_QUEUE", 1024,
              "admission-queue depth bound: serving submit() fast-rejects "
              "with QueueFullError once this many requests are waiting")
+
+# the qos module, bound at the first queue's construction: qos.py imports
+# this module for ServingError, so a top-level import would cycle
+_qos = None
 
 
 class ServingError(MXNetError):
@@ -62,14 +73,16 @@ class Request:
     position, future and enqueue time). The batcher reassembles the pieces
     by offset before it resolves the future. ``span`` is the request's
     root span (tracing on); ``traced_queue`` and ``flow_ended`` mark the
-    queue span and the flow arrow emitted once. ``tenant`` is accepted
-    and ignored until the QoS lanes are ported (ROADMAP.md queue A, item
-    A.2).
+    queue span and the flow arrow emitted once. ``tenant`` names the QoS
+    tenant (None = the default class); ``qos_rank`` is its class rank,
+    stamped by `put` while QoS is on; ``qos_exempt`` skips the quotas (a
+    migrated session, charged at its first admission).
     """
 
     __slots__ = ("arrays", "rows", "future", "deadline", "enqueued_at",
                  "parent", "offset", "total_rows", "parts", "span",
-                 "traced_queue", "flow_ended", "payload", "tenant")
+                 "traced_queue", "flow_ended", "payload", "tenant",
+                 "qos_rank", "qos_exempt")
 
     def __init__(self, arrays, rows, future, deadline=None, payload=None,
                  tenant=None):
@@ -79,6 +92,8 @@ class Request:
         self.deadline = deadline
         self.payload = payload
         self.tenant = tenant
+        self.qos_rank = None        # class rank stamped at put() (QoS on)
+        self.qos_exempt = False     # skip quotas (migrated, already charged)
         self.enqueued_at = time.monotonic()
         self.parent = None          # set on split-off head pieces
         self.offset = 0             # row offset within the original request
@@ -96,7 +111,8 @@ class Request:
 
 
 class AdmissionQueue:
-    """Bounded FIFO of :class:`Request` with the batch-flush wait logic."""
+    """Bounded FIFO of :class:`Request` with the batch-flush wait logic
+    (class-ordered while a QoS registry is active)."""
 
     def __init__(self, max_depth=None, metric_prefix="serving"):
         self._max_depth = int(getenv("MXNET_SERVING_MAX_QUEUE")
@@ -105,6 +121,12 @@ class AdmissionQueue:
         if self._max_depth < 1:
             raise MXNetError("serving queue depth must be >= 1, got "
                              f"{self._max_depth}")
+        global _qos
+        if _qos is None:
+            from . import qos as _qos_module
+
+            _qos = _qos_module
+        self._qos = _qos.active()
         self._q = collections.deque()
         self._rows = 0
         self._cond = threading.Condition()
@@ -129,15 +151,38 @@ class AdmissionQueue:
         return self._max_depth
 
     def put(self, req):
-        """Admit `req` or reject NOW (QueueFullError, ServerClosedError).
+        """Admit `req` or reject NOW (QueueFullError, ServerClosedError
+        and, QoS on, QuotaExceededError for a tenant over its quota).
         Never blocks: backpressure is a synchronous signal, not a stall."""
         with self._cond:
             if self._closed:
                 raise ServerClosedError(
                     "serving queue is closed; no new requests accepted")
+            spec = None
+            if self._qos is not None:
+                spec = self._qos.spec_for(req.tenant)
+                req.qos_rank = spec.rank
+                if not req.qos_exempt:
+                    try:
+                        self._qos.check_admit(req.tenant)
+                    except Exception as e:
+                        if telemetry._enabled:
+                            telemetry.counter(
+                                f"{self._prefix}.rejected").inc()
+                            telemetry.counter(_qos.labeled_metric(
+                                "qos.rejected", spec)).inc()
+                        if health._enabled:
+                            health.event("qos_quota_reject",
+                                         prefix=self._prefix,
+                                         tenant=spec.name, cls=spec.cls,
+                                         error=repr(e))
+                        raise
             if len(self._q) >= self._max_depth:
                 if telemetry._enabled:
                     telemetry.counter(f"{self._prefix}.rejected").inc()
+                    if spec is not None:
+                        telemetry.counter(_qos.labeled_metric(
+                            "qos.rejected", spec)).inc()
                 if health._enabled:
                     health.event("admission_reject", prefix=self._prefix,
                                  depth=len(self._q))
@@ -150,6 +195,10 @@ class AdmissionQueue:
             if telemetry._enabled:
                 telemetry.gauge(f"{self._prefix}.queue_depth").set(
                     len(self._q))
+                if spec is not None:
+                    telemetry.counter(_qos.labeled_metric(
+                        "qos.admitted", spec)).inc()
+                    self._qos_depth_gauges()
             if not self.assist_active:
                 self._cond.notify()
 
@@ -158,6 +207,53 @@ class AdmissionQueue:
         left queued are not stranded behind a skipped notify)."""
         with self._cond:
             self._cond.notify_all()
+
+    def _qos_sort(self, now=None):
+        """Reorder the queue by (effective class rank, earliest deadline,
+        enqueue time), under the held condition right before a pop: aging
+        makes the effective rank a function of NOW. Stable, so requests
+        of equal priority stay FIFO. No-op while QoS is off."""
+        if self._qos is None or len(self._q) < 2:
+            return
+        now = time.monotonic() if now is None else now
+        reg, inf = self._qos, float("inf")
+        self._q = collections.deque(sorted(
+            self._q,
+            key=lambda r: (reg.effective_rank(r.qos_rank, r.enqueued_at,
+                                              now),
+                           r.deadline if r.deadline is not None else inf,
+                           r.enqueued_at)))
+
+    def _qos_depth_gauges(self):
+        """The per-class queue-depth gauges (held condition; QoS and
+        telemetry on)."""
+        counts = {cls: 0 for cls in _qos.CLASSES}
+        for r in self._q:
+            rank = (self._qos.default_rank if r.qos_rank is None
+                    else r.qos_rank)
+            counts[_qos.CLASSES[rank]] += 1
+        for cls, n in counts.items():
+            telemetry.gauge(telemetry.labeled(
+                "qos.queue_depth", **{"class": cls})).set(n)
+
+    def peek(self):
+        """The request the next pop would hand out (class order while QoS
+        is on), skipping resolved futures: the generation engine's
+        preemption probe. None when nothing is pending."""
+        with self._cond:
+            self._qos_sort()
+            for r in self._q:
+                if not r.origin.future.done():
+                    return r
+            return None
+
+    def weighted_depth(self):
+        """The queue depth weighted by the tenants' QoS weights (plain
+        ``len`` while QoS is off): the autoscale demand's share."""
+        with self._cond:
+            if self._qos is None:
+                return float(len(self._q))
+            return float(sum(self._qos.weight(r.tenant) for r in self._q))
 
     def get_batch(self, max_rows, max_wait_s):
         """Block until a flushable batch is ready and pop it.
@@ -178,8 +274,12 @@ class AdmissionQueue:
                 elif self._rows >= max_rows:
                     reason = "full"
                 else:
-                    remaining = (self._q[0].enqueued_at + max_wait_s
-                                 - time.monotonic())
+                    oldest = self._q[0].enqueued_at
+                    if self._qos is not None:
+                        # class order can bury the oldest request behind
+                        # the head; the flush timer still honours its age
+                        oldest = min(r.enqueued_at for r in self._q)
+                    remaining = oldest + max_wait_s - time.monotonic()
                     if remaining > 0:
                         self._cond.wait(timeout=remaining)
                         continue
@@ -204,7 +304,9 @@ class AdmissionQueue:
         """FIFO row-order pop under the held condition: whole requests
         while they fit, the boundary request split at ``max_rows``; pieces
         of a request whose future already resolved (an earlier piece
-        failed) are dropped unrun."""
+        failed) are dropped unrun. With QoS on, the order is the class
+        order `_qos_sort` just imposed."""
+        self._qos_sort()
         out, rows = [], 0
         while self._q and rows < max_rows:
             req = self._q[0]
@@ -224,6 +326,8 @@ class AdmissionQueue:
                 rows += k
         if telemetry._enabled:
             telemetry.gauge(f"{self._prefix}.queue_depth").set(len(self._q))
+            if self._qos is not None:
+                self._qos_depth_gauges()
         return out
 
     def expire(self, now=None):
@@ -242,6 +346,8 @@ class AdmissionQueue:
             if expired and telemetry._enabled:
                 telemetry.gauge(f"{self._prefix}.queue_depth").set(
                     len(self._q))
+                if self._qos is not None:
+                    self._qos_depth_gauges()
         return expired
 
     @staticmethod
@@ -251,6 +357,7 @@ class AdmissionQueue:
         deadline and enqueue time)."""
         head = Request([a[0:k] for a in req.arrays], k, req.future,
                        deadline=req.deadline, tenant=req.tenant)
+        head.qos_rank = req.qos_rank
         head.enqueued_at = req.enqueued_at
         head.parent = req.origin
         head.offset = req.offset

@@ -35,8 +35,10 @@ queue time, ``e2e_us``, errors and timeouts); a span tree a request
 (``serving.request`` with its admission, queue, execute and reassembly
 children, a flow arrow to the batch that ran it), across the worker, an
 assisting caller and split requests; and the flush's wall time as the
-observatory's ``serving`` lane. Not ported yet (ROADMAP.md queue A, item
-A.2): QoS tenants.
+observatory's ``serving`` lane. A request's ``tenant`` reaches its
+`admission.Request`: with a QoS registry active the queue pops by class
+and deadline and `submit` enforces the tenant's quotas
+(`qos.QuotaExceededError`, synchronously).
 """
 from __future__ import annotations
 
@@ -132,10 +134,10 @@ class DynamicBatcher:
         """Enqueue one request; returns a Future resolving to what
         ``predictor.predict(data)`` would return. ``timeout`` (seconds)
         sets its deadline: expired in the queue (or before a retry), the
-        future fails with `DeadlineExceededError`. ``tenant`` names a QoS
-        tenant and is accepted and ignored until the QoS lanes are ported
-        (ROADMAP.md queue A, item A.2). Raises `QueueFullError` /
-        `ServerClosedError` synchronously. Any row count is accepted:
+        future fails with `DeadlineExceededError`. ``tenant`` names the
+        QoS tenant (its class and quotas; ignored while QoS is off).
+        Raises `QueueFullError`, `ServerClosedError` and, QoS on,
+        `qos.QuotaExceededError` synchronously. Any row count is accepted:
         requests larger than the biggest bucket stream through successive
         batches and reassemble."""
         arrays = self._predictor._as_arrays(data)

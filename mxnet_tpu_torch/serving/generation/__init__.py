@@ -8,10 +8,15 @@ serving, the port of `mxnet_tpu.serving.generation`.
   admits queued prefills into the freed slots mid-stream. On the card every
   program is a CUDA graph captured once and replayed. Its lanes: the
   prefix cache (`RadixPrefixCache`, fork + suffix prefill), speculative
-  decoding (`NgramDraft`, `CheckpointDraft`, one verify program) and live
-  weight swaps with version cohorts (`swap_weights`);
+  decoding (`NgramDraft`, `CheckpointDraft`, one verify program), live
+  weight swaps with version cohorts (`swap_weights`) and, with a QoS
+  registry active, preemption of batch sessions into park rows and their
+  bit-exact resume (`eject_parked` / `adopt` move them between replicas);
+  on by default, the overlap tick order (``MXNET_OVERLAP``);
 * `GenerationRouter`: places sessions over engine replicas by prefix
-  affinity, then load;
+  affinity, then QoS class, then load; migrates parked sessions
+  (`rebalance_parked`) and rolls new weights through the fleet behind the
+  SLO burn gate (`rolling_swap`);
 * `GenerationStream`: ``submit() -> iterator of tokens`` with caller-runs
   assist, plus ``result()`` for collectors; failures raise in band.
 

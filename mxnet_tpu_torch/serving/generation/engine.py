@@ -37,14 +37,34 @@ The port of `mxnet_tpu/serving/generation/engine.py`, its plain lane:
   its set in under the model's lock before it replays, first keeping a
   copy of the displaced set where that was its only copy, and engines on
   one model tick one at a time;
+* **multi-tenant QoS** (a `qos.TenantRegistry` active at construction):
+  the queue pops by class and deadline, and the slab grows
+  ``MXNET_QOS_PARK_SLOTS`` park rows past session capacity. When a
+  higher-class request heads the queue and no slot is free, the youngest
+  batch session is PREEMPTED: THE fork program copies its rows into a
+  park row and its slot frees; once no higher-class request waits, the
+  oldest parked session is forked back into a free slot and continues,
+  greedy bit-exact with a run the preemption never touched (on a slab of
+  the same shape). Parked sessions keep their deadlines, and
+  `eject_parked` / `adopt` move them to another replica, which
+  re-prefills their whole context. With QoS off the slab, the programs
+  and their keys are those of an engine without the lane;
+* **overlap tick order** (``MXNET_OVERLAP``, on by default): the decode
+  is launched FIRST and its tokens copied to a pinned host buffer behind
+  an event; the queue expiry, deadline sweeps and admission (with
+  preemption) run while the card decodes, and only then does the tick
+  wait on the event and commit. A slot whose session was evicted,
+  preempted or replaced inside that window drops its token (the commit
+  checks the session's identity), so streams equal the lockstep order's;
 * **build once**: the engine's ``CompileCache("generation")`` holds one
   program per prefill bucket and exactly one decode (or verify) program,
-  plus, per lane, one suffix prefill a bucket and THE fork program, and a
-  checkpoint draft's own prefills and step. On the card each is captured
-  once as a CUDA graph over the slab and static input buffers, and every
-  later call refills the inputs and replays it: the counterpart of the
-  JAX engine's compile-once executables. `warm` builds them all ahead of
-  traffic; steady state, swaps included, builds nothing.
+  plus, per lane, one suffix prefill a bucket and THE fork program (for
+  the prefix cache and the park region alike), and a checkpoint draft's
+  own prefills and step. On the card each is captured once as a CUDA
+  graph over the slab and static input buffers, and every later call
+  refills the inputs and replays it: the counterpart of the JAX engine's
+  compile-once executables. `warm` builds them all ahead of traffic;
+  steady state, swaps and preemptions included, builds nothing.
 
 Observability, each plane gated on its module's ``_enabled``: the
 ``serving.generation.*`` telemetry series (ticks, ``tick_us``, tokens,
@@ -56,8 +76,9 @@ tick (``generation.tick`` with its admit and decode children, observed by
 `attach_engine` arms; the tick's `observatory.observe` with CUDA events
 around the decode on a card; and the slab in the memory census
 (``kv_cache``). Every record sits in the host code around the replays:
-a captured graph runs no Python. Not ported yet (ROADMAP.md queue A,
-items A.2 and A.3): QoS park and resume, and the overlap tick order.
+a captured graph runs no Python. With QoS on, the labeled ``qos.*``
+series (tokens, TTFT, preemptions, resumes, ejections, adoptions) and
+the ``qos_preempt`` / ``qos_resume`` events join them.
 """
 from __future__ import annotations
 
@@ -73,7 +94,9 @@ import torch
 from ... import health, memory, observatory, telemetry, tracing
 from ...base import MXNetError, getenv, register_env
 from ...compile_cache import CompileCache, GraphProgram
+from ...io import staging as _staging
 from ...models.convert import state_like
+from .. import qos
 from ..admission import AdmissionQueue, DeadlineExceededError, Request
 from ..health import attach_engine, queue_ready
 from ..predictor import bucket_ladder
@@ -159,9 +182,11 @@ class _Session:
     """Engine-side state of one admitted (or queued) generation."""
 
     __slots__ = ("prompt", "max_new_tokens", "eos_id", "deadline", "stream",
-                 "slot", "generated", "prefix_len", "version", "span")
+                 "slot", "generated", "prefix_len", "version", "span",
+                 "tenant", "qos_rank", "admit_seq")
 
-    def __init__(self, prompt, max_new_tokens, eos_id, deadline, stream):
+    def __init__(self, prompt, max_new_tokens, eos_id, deadline, stream,
+                 tenant=None):
         self.prompt = prompt            # np.int32 [n]
         self.max_new_tokens = int(max_new_tokens)
         self.eos_id = eos_id
@@ -172,6 +197,10 @@ class _Session:
         self.prefix_len = 0             # cached tokens forked at admission
         self.version = 0                # weights version pinned at admission
         self.span = None                # the session's span (tracing on)
+        self.tenant = tenant            # QoS tenant (None = default class)
+        self.qos_rank = None            # class rank stamped at admission
+        self.admit_seq = 0              # admission order: preemption parks
+        #                                 the YOUNGEST batch session
 
 
 def _host_copy(t):
@@ -216,6 +245,10 @@ class GenerationEngine:
     draft : speculative.Draft, optional
         The speculative lane's draft (default: a `CheckpointDraft` from
         ``MXNET_GENERATION_DRAFT``, else the `NgramDraft`).
+
+    The QoS registry (`qos.active`) is read once, here: with one active
+    the slab holds ``max_slots + MXNET_QOS_PARK_SLOTS`` rows
+    (`total_slots`), and every slab-shaped program covers them all.
     """
 
     def __init__(self, model, params=None, max_slots=None, max_len=None,
@@ -264,13 +297,30 @@ class GenerationEngine:
         # at a time on one stream, so their intermediates can share it
         self._pool = (torch.cuda.graph_pool_handle()
                       if model.device.type == "cuda" else None)
+        # multi-tenant QoS (off unless a registry is active): the park
+        # region's rows follow the session slots; with QoS off
+        # _total_slots == _slots and every program is the lane-free one
+        self._qos = qos.active()
+        self._park = (int(getenv("MXNET_QOS_PARK_SLOTS"))
+                      if self._qos is not None else 0)
+        if self._park < 0:
+            raise MXNetError(
+                f"MXNET_QOS_PARK_SLOTS must be >= 0, got {self._park}")
+        self._total_slots = self._slots + self._park
+        self._parked = {}     # park row -> {sess, length, last_tok, parked_at}
+        self._park_free = list(range(self._slots, self._total_slots))
+        self._admit_seq = 0
         # the graphs keep the slab's pointers: it is never reallocated
-        self._ck, self._cv = model.init_cache(self._slots, self._slab_len)
+        self._ck, self._cv = model.init_cache(self._total_slots,
+                                              self._slab_len)
         # host-side slot metadata, mutated only under _tick_lock
-        self._sessions = [None] * self._slots
-        self._lengths = np.zeros(self._slots, np.int32)
-        self._last_tok = np.zeros(self._slots, np.int32)
+        self._sessions = [None] * self._total_slots
+        self._lengths = np.zeros(self._total_slots, np.int32)
+        self._last_tok = np.zeros(self._total_slots, np.int32)
         self._live = 0
+        # the overlap order's token copies: one pinned buffer a version
+        # cohort, reused once the last commit has read it
+        self._tok_pins = []
 
         self._queue = AdmissionQueue(max_queue,
                                      metric_prefix="serving.generation")
@@ -296,6 +346,9 @@ class GenerationEngine:
         self._param_sets = {0: (ws0, None)}
 
         self.health_name, self._beacon = attach_engine(self)
+        if self._qos is not None and health._enabled:
+            # per-tenant TTFT burn rows, once a registry
+            qos.attach_slo(self._qos)
         use_prefix = (bool(getenv("MXNET_GENERATION_PREFIX_CACHE"))
                       if prefix_cache is None else bool(prefix_cache))
         self._prefix_min = int(
@@ -320,7 +373,29 @@ class GenerationEngine:
 
     @property
     def max_slots(self):
+        """Session capacity (the park rows are preemption room, never
+        admitted into)."""
         return self._slots
+
+    @property
+    def total_slots(self):
+        """Slab rows including the QoS park region: the slot dimension of
+        every slab-shaped program and of a checkpoint draft's slab."""
+        return self._total_slots
+
+    @property
+    def parked_count(self):
+        """Preempted sessions parked in the slab's park region now."""
+        return len(self._parked)
+
+    @property
+    def batch_live(self):
+        """Live batch-class sessions: the router's class-placement
+        signal. Always 0 while QoS is off."""
+        if self._qos is None:
+            return 0
+        return sum(1 for s in self._sessions
+                   if s is not None and s.qos_rank == qos.BATCH_RANK)
 
     @property
     def device(self):
@@ -439,14 +514,17 @@ class GenerationEngine:
 
     # -- client API ----------------------------------------------------------
 
-    def submit(self, prompt, max_new_tokens=64, eos_id=None, timeout=None):
+    def submit(self, prompt, max_new_tokens=64, eos_id=None, timeout=None,
+               tenant=None):
         """Admit one prompt; returns a `GenerationStream` at once.
         `timeout` (seconds) is the SESSION deadline, checked every tick in
-        the queue and mid-generation; expiry evicts the slot and fails the
-        stream with `DeadlineExceededError`. Raises `QueueFullError` and
-        `ServerClosedError` synchronously, and MXNetError on a prompt that
-        is empty, holds a token outside the vocabulary (an index the card
-        cannot clamp), or does not fit a bucket or the slab."""
+        the queue, mid-generation and while parked; expiry evicts the slot
+        and fails the stream with `DeadlineExceededError`. `tenant` names
+        the QoS tenant (its class, quotas and weight; ignored while QoS is
+        off). Raises `QueueFullError`, `ServerClosedError` and, QoS on,
+        `qos.QuotaExceededError` synchronously, and MXNetError on a prompt
+        that is empty, holds a token outside the vocabulary (an index the
+        card cannot clamp), or does not fit a bucket or the slab."""
         prompt = np.asarray(prompt, dtype=np.int32).reshape(-1)
         if prompt.size < 1:
             raise MXNetError("empty prompt")
@@ -467,17 +545,18 @@ class GenerationEngine:
         deadline = (time.monotonic() + float(timeout)
                     if timeout is not None else None)
         stream = GenerationStream(self, prompt.size, max_new_tokens,
-                                  deadline)
+                                  deadline, tenant=tenant)
         sess = _Session(prompt, max_new_tokens,
                         self._eos_id if eos_id is None else eos_id,
-                        deadline, stream)
+                        deadline, stream, tenant=tenant)
         if tracing._enabled:
             sess.span = tracing.begin("generation.session", cat="generation",
                                       prompt_tokens=int(prompt.size),
                                       max_new_tokens=int(max_new_tokens))
         try:
             self._queue.put(Request([prompt], 1, stream._future,
-                                    deadline=deadline, payload=sess))
+                                    deadline=deadline, payload=sess,
+                                    tenant=tenant))
         except Exception as e:
             if sess.span is not None:
                 sess.span.set(error=repr(e)).finish()
@@ -499,8 +578,9 @@ class GenerationEngine:
     def warm(self, buckets=None):
         """Build every program the enabled lanes will run, counted
         exactly: one prefill per bucket, plus (prefix cache on) one suffix
-        prefill per bucket and THE fork program, plus THE decode program
-        (plain) or THE verify program and the draft's own programs
+        prefill per bucket, plus THE fork program (prefix cache on, or a
+        QoS park region: preemption and resume ride it), plus THE decode
+        program (plain) or THE verify program and the draft's own programs
         (speculative); on the card each build is one capture. The prefill
         warms write garbage into a FREE slot (skipped, with a log, when
         the slab is full); the decode or verify warm runs only while no
@@ -528,13 +608,14 @@ class GenerationEngine:
                 if self._prefix is not None:
                     self._suffix_prefill_fn(b)(np.zeros(b, np.int64), 1,
                                                free, 0)
-            if self._prefix is not None and free is not None:
+            if (self._prefix is not None or self._park) and free is not None:
                 self._fork_fn()(free, free)   # a self-copy disturbs nothing
             idle = self._live == 0
             if self._spec_k:
                 if idle:
                     self._verify_fn()(
-                        np.zeros((self._slots, self._spec_k + 1), np.int64),
+                        np.zeros((self._total_slots, self._spec_k + 1),
+                                 np.int64),
                         self._tick_positions())
                     self._draft.warm()
                 else:
@@ -605,6 +686,15 @@ class GenerationEngine:
                 draft_params = ws.draft_params
         else:
             new = dict(weights)
+        placed = None
+        if version is None or (int(version) != self._weights_version
+                               and int(version) not in self._param_sets):
+            # the same names and shapes, cast to the bound dtypes and put
+            # on the card BEFORE the tick lock: a host set's copy to the
+            # card would stall every tick behind it. The swap under the
+            # lock is then a copy into the tensors every graph reads (the
+            # outgoing set keeps a copy when it is displaced)
+            placed = state_like(self._model, new, "swap_weights")
         with self._exclusive(), self._shared["lock"]:
             if version is None:
                 version = self._weights_version + 1
@@ -613,10 +703,8 @@ class GenerationEngine:
                 return None
             held = self._param_sets.get(version)
             if held is None:
-                # the same names and shapes, cast to the bound dtypes: the
-                # swap is a copy into the tensors every graph reads (the
-                # outgoing set keeps a copy when it is displaced)
-                placed = state_like(self._model, new, "swap_weights")
+                if placed is None:   # pinned or current when first read
+                    placed = state_like(self._model, new, "swap_weights")
                 self._param_sets[version] = (
                     _ParamSet(placed),
                     ws.acquire() if ws is not None else None)
@@ -722,6 +810,10 @@ class GenerationEngine:
             out["prefix"] = self._prefix.stats()
         if hasattr(self._draft, "slab_bytes"):
             out["draft_slab_bytes"] = self._draft.slab_bytes()
+        if self._qos is not None:
+            out["qos"] = {"park_slots": self._park,
+                          "parked": len(self._parked),
+                          "weighted_demand": self.qos_demand()}
         return out
 
     # -- built programs ------------------------------------------------------
@@ -740,7 +832,7 @@ class GenerationEngine:
                                 self._pool, reads=self._reads)
 
         return self._cache.get_or_build(
-            ("prefill", bucket, self._slots, self._slab_len), build)
+            ("prefill", bucket, self._total_slots, self._slab_len), build)
 
     def _reads(self):
         """What the programs read besides their inputs: the parameters and
@@ -749,8 +841,9 @@ class GenerationEngine:
 
     def _tick_key(self):
         """The cache key of the program a tick's decode runs."""
-        return (("verify", self._spec_k, self._slots, self._slab_len)
-                if self._spec_k else ("decode", self._slots, self._slab_len))
+        return (("verify", self._spec_k, self._total_slots, self._slab_len)
+                if self._spec_k else
+                ("decode", self._total_slots, self._slab_len))
 
     def _decode_fn(self):
         """THE decode program: one step over the whole slab, (tokens,
@@ -763,16 +856,18 @@ class GenerationEngine:
             return logits.argmax(-1), logits
 
         def build():
-            return GraphProgram(fn, [(self._slots,), (self._slots,)],
+            return GraphProgram(fn, [(self._total_slots,),
+                                     (self._total_slots,)],
                                 model.device, self._pool, reads=self._reads)
 
         return self._cache.get_or_build(
-            ("decode", self._slots, self._slab_len), build)
+            ("decode", self._total_slots, self._slab_len), build)
 
     def _fork_fn(self):
         """THE fork program: (src, dst) -> copy slot `src`'s slab rows,
         K and V, every layer, onto slot `dst`. One program serves every
-        (cached entry, session slot) pair."""
+        (cached entry, session slot) pair, and the park region's preempt
+        (slot -> park row) and resume (park row -> slot) copies."""
         model, ck, cv = self._model, self._ck, self._cv
 
         def fn(src, dst):
@@ -784,7 +879,7 @@ class GenerationEngine:
             return GraphProgram(fn, [(1,), (1,)], model.device, self._pool)
 
         return self._cache.get_or_build(
-            ("fork", self._slots, self._slab_len), build)
+            ("fork", self._total_slots, self._slab_len), build)
 
     def _suffix_prefill_fn(self, bucket):
         """The bucket's suffix-prefill program: (padded suffix, length,
@@ -802,7 +897,8 @@ class GenerationEngine:
                                 model.device, self._pool, reads=self._reads)
 
         return self._cache.get_or_build(
-            ("suffix_prefill", bucket, self._slots, self._slab_len), build)
+            ("suffix_prefill", bucket, self._total_slots, self._slab_len),
+            build)
 
     def _verify_fn(self):
         """THE verify program: k + 1 unrolled decode steps over the whole
@@ -816,16 +912,19 @@ class GenerationEngine:
             return logits.argmax(-1), logits
 
         def build():
-            return GraphProgram(fn, [(self._slots, k1), (self._slots,)],
+            return GraphProgram(fn, [(self._total_slots, k1),
+                                     (self._total_slots,)],
                                 model.device, self._pool, reads=self._reads)
 
         return self._cache.get_or_build(
-            ("verify", self._spec_k, self._slots, self._slab_len), build)
+            ("verify", self._spec_k, self._total_slots, self._slab_len),
+            build)
 
     # -- scheduler -----------------------------------------------------------
 
     def _has_work(self):
-        return self._live > 0 or len(self._queue) > 0
+        return (self._live > 0 or len(self._queue) > 0
+                or len(self._parked) > 0)
 
     @contextlib.contextmanager
     def _exclusive(self):
@@ -874,10 +973,14 @@ class GenerationEngine:
                 self._tick()
 
     def _tick(self):
-        """One scheduler tick (tick lock held), in lockstep order: sweep
-        deadlines, admit prefills into free slots, run ONE decode over the
-        slab. A tick never raises: a failure fails the live sessions in
-        band and zeroes the slab in place, so the captured graphs stay
+        """One scheduler tick (tick lock held). Lockstep order: sweep
+        deadlines (queue, slots, park region), admit prefills into free
+        slots (preempting for a higher class first), run ONE decode over
+        the slab and commit its tokens. Overlap order
+        (``MXNET_OVERLAP``): launch the decode first, do the sweeps and
+        the admission while it runs, then wait for its tokens and commit.
+        A tick never raises: a failure fails the live and parked sessions
+        in band and zeroes the slab in place, so the captured graphs stay
         valid and no session reads rows a failed program half wrote. The
         model's lock is held throughout, with this engine's weights bound
         (engines sharing the model tick one at a time)."""
@@ -895,17 +998,9 @@ class GenerationEngine:
         with tick_span:
             try:
                 self._bind_version(self._weights_version)
-                now = time.monotonic()
-                for req in self._queue.expire(now):
-                    self._fail_queued(req.payload, now)
-                for slot, sess in enumerate(self._sessions):
-                    if (sess is not None and sess.deadline is not None
-                            and now >= sess.deadline):
-                        self._evict(slot, "deadline", DeadlineExceededError(
-                            f"session deadline passed after "
-                            f"{sess.generated} generated token(s)"))
-                with tracing.span("generation.admit", cat="generation"):
-                    self._admit()
+                overlap = _staging.overlap_enabled()
+                if not overlap:
+                    self._sweep_and_admit()
                 decoded = self._live > 0
                 if obs and decoded and self._ck.is_cuda:
                     # device time of the decode, read in the observatory's
@@ -915,9 +1010,16 @@ class GenerationEngine:
                     events[0].record()
                 with tracing.span("generation.decode", cat="generation",
                                   live=self._live):
-                    self._decode()
+                    pending = self._decode_dispatch(overlap)
                 if events is not None:
                     events[1].record()
+                if overlap:
+                    # the host work of the tick, while the card decodes;
+                    # admitted prefills queue behind the decode on the
+                    # stream and join the NEXT tick's decode
+                    self._sweep_and_admit()
+                if pending is not None:
+                    self._decode_commit(pending)
                 if len(self._param_sets) > 1:
                     # a swap is draining: release versions whose last
                     # session just finished
@@ -929,6 +1031,9 @@ class GenerationEngine:
                 for slot, sess in enumerate(self._sessions):
                     if sess is not None:
                         self._evict(slot, "error", e)
+                # parked rows lived in the same slab
+                for park, rec in list(self._parked.items()):
+                    self._fail_parked(park, rec, e)
                 self._ck.zero_()
                 self._cv.zero_()
                 if self._prefix is not None:
@@ -958,6 +1063,22 @@ class GenerationEngine:
             # to sleep, so any tick that leaves work pending wakes it
             with self._work:
                 self._work.notify_all()
+
+    def _sweep_and_admit(self):
+        """The tick's host work: fail expired queued requests, evict live
+        sessions past their deadlines, sweep the park region, admit."""
+        now = time.monotonic()
+        for req in self._queue.expire(now):
+            self._fail_queued(req.payload, now)
+        for slot, sess in enumerate(self._sessions):
+            if (sess is not None and sess.deadline is not None
+                    and now >= sess.deadline):
+                self._evict(slot, "deadline", DeadlineExceededError(
+                    f"session deadline passed after "
+                    f"{sess.generated} generated token(s)"))
+        self._sweep_parked(now)
+        with tracing.span("generation.admit", cat="generation"):
+            self._admit()
 
     def _tick_telemetry(self, dt):
         telemetry.counter("serving.generation.ticks").inc()
@@ -1021,16 +1142,39 @@ class GenerationEngine:
         sessions outrank cached prefixes). None when the slab is full."""
         if free:
             return free.pop(0)
-        if self._prefix_claimable() and len(self._queue):
+        if not (self._prefix_claimable() and len(self._queue)):
+            return None
+        # the entry the queue's head would fork from stays pinned while
+        # the victim is picked: evicting it to seat that very session
+        # would turn its hit into a miss
+        head = self._queue.peek()
+        node = None
+        if head is not None:
+            node, m = self._prefix.match(head.payload.prompt,
+                                         version=self._weights_version)
+            if m < self._prefix_min:
+                node = None
+        if node is None:
             return self._prefix.evict_lru("slot_pressure")
-        return None
+        self._prefix.acquire(node)
+        try:
+            return self._prefix.evict_lru("slot_pressure")
+        finally:
+            self._prefix.release(node)
 
     def _admit(self):
-        """Move queued sessions into free slots (prefill), oldest first,
-        until the slab is full, the queue is empty or the tick budget is
-        spent: at least one admission per tick when a slot is free or
-        freeable by evicting a cached prefix."""
+        """Move queued sessions into free slots (prefill), oldest first
+        (QoS on: class and deadline order), until the slab is full, the
+        queue is empty or the tick budget is spent: at least one admission
+        per tick when a slot is free or freeable by evicting a cached
+        prefix. With QoS on, a full slab with a higher-class request at
+        the queue's head first parks the youngest batch session (one a
+        tick)."""
         free = self._free_slots()
+        if self._qos is not None and not free:
+            freed = self._preempt_for_priority()
+            if freed is not None:
+                free = [freed]
         if free or (self._prefix_claimable() and len(self._queue)):
             self._admit_into(free, time.perf_counter())
 
@@ -1039,11 +1183,20 @@ class GenerationEngine:
             slot = self._claim_slot(free)
             if slot is None:
                 return
+            if (self._qos is not None and self._parked
+                    and self._should_resume()):
+                # no queued request outranks the parked batch work: the
+                # oldest parked session takes this slot back
+                self._resume_into(slot)
+                if time.perf_counter() - t0 > self._tick_budget_s:
+                    return
+                continue
             batch, _ = self._queue.get_batch_nowait(1)
             if not batch:
                 free.append(slot)
                 return
             sess = batch[0].payload
+            sess.qos_rank = batch[0].qos_rank
             now = time.monotonic()
             if sess.deadline is not None and now >= sess.deadline:
                 self._fail_queued(sess, now)
@@ -1106,6 +1259,8 @@ class GenerationEngine:
             # pinned for the session's whole life: after a swap the tick
             # keeps decoding it under these weights
             sess.version = sess.stream.weights_version = self._weights_version
+            self._admit_seq += 1
+            sess.admit_seq = self._admit_seq
             self._sessions[slot] = sess
             self._lengths[slot] = n
             self._last_tok[slot] = tok
@@ -1125,7 +1280,7 @@ class GenerationEngine:
                 if self._prefix.insert(sess.prompt, cslot,
                                        version=sess.version) is not None:
                     free.pop(0)
-                    self._fork_fn()(slot, cslot)
+                    self._fork_fn().launch(slot, cslot)
             # the first token may already end the session; its slot goes
             # straight back on the free list
             self._maybe_finish(slot)
@@ -1145,7 +1300,7 @@ class GenerationEngine:
         padded[:ns] = suffix
         self._prefix.acquire(node)
         try:
-            self._fork_fn()(node.slot, slot)
+            self._fork_fn().launch(node.slot, slot)
             tok = int(self._suffix_prefill_fn(bucket)(padded, ns, slot,
                                                       m)[0])
         finally:
@@ -1160,47 +1315,73 @@ class GenerationEngine:
                 "serving.generation.prefix.cached_tokens_served").inc(m)
         return tok
 
-    def _decode(self):
-        """ONE step over the whole slab: every live session advances one
-        token (plain) or up to ``spec_k + 1`` (speculative verify); dead
-        slots ride along as masked garbage."""
-        pending = self._decode_dispatch()
-        if pending is not None:
-            self._decode_commit(pending)
+    def _token_pin(self, i, like):
+        """The i-th pinned host buffer for a cohort's tokens."""
+        while len(self._tok_pins) <= i:
+            self._tok_pins.append(torch.empty(
+                like.shape, dtype=like.dtype).pin_memory())
+        return self._tok_pins[i]
 
-    def _cohort_dispatch(self, run):
-        """``run(positions)`` once per live weights version, that
-        version's weights bound and the other cohorts' slots steered to
-        the safe row, the current weights bound again after. Returns
-        ``[(slots, their sessions, run's tokens)]``."""
+    def _cohort_dispatch(self, prog, tokens, overlap):
+        """Launch ``prog(tokens, positions)`` once per live weights
+        version, that version's weights bound and the other cohorts' slots
+        steered to the safe row, the current weights bound again after.
+        Lockstep: each cohort's tokens are read at once. Overlap: each
+        cohort's tokens are copied behind its replay into a pinned buffer
+        and one event is recorded after the last; the commit waits on it.
+        Returns ``([(slots, their sessions, tokens)], event or None)``."""
         cohorts = self._cohorts()
         mixed = len(cohorts) > 1
         pending = []
+        event = None
         try:
-            for version in sorted(cohorts):
+            for n, version in enumerate(sorted(cohorts)):
                 slots = cohorts[version]
                 self._bind_version(version)
-                toks = run(self._tick_positions(slots) if mixed
-                           else self._tick_positions())
-                # a slot evicted or re-admitted before the commit fails
-                # the identity check there and its token is dropped
+                pos = (self._tick_positions(slots) if mixed
+                       else self._tick_positions())
+                if not overlap:
+                    toks = prog(tokens, pos)
+                else:
+                    out = prog.launch(tokens, pos)
+                    if out.is_cuda:
+                        toks = self._token_pin(n, out)
+                        toks.copy_(out, non_blocking=True)
+                    else:
+                        toks = out.clone()
+                # a slot evicted, preempted or re-admitted before the
+                # commit fails the identity check there; its token drops
                 pending.append((slots, [self._sessions[s] for s in slots],
                                 toks))
         finally:
             self._bind_version(self._weights_version)
-        return pending
+        if overlap and self._ck.is_cuda:
+            event = torch.cuda.Event()
+            event.record()
+        return pending, event
 
-    def _decode_dispatch(self):
-        """Run the decode (or verify) program once per version cohort.
-        Returns the state for `_decode_commit`, or None when no slot is
-        live."""
+    def _decode_dispatch(self, overlap):
+        """Launch ONE step over the whole slab, once per version cohort:
+        every live session advances one token (plain) or up to ``spec_k +
+        1`` (speculative verify) at the commit; dead and park rows ride
+        along as masked garbage. Returns the state for `_decode_commit`,
+        or None when no slot is live."""
         if self._live == 0:
             return None
         if self._spec_k:
-            return self._spec_dispatch()
-        prog = self._decode_fn()
-        return "plain", self._cohort_dispatch(
-            lambda pos: prog(self._last_tok, pos))
+            return self._spec_dispatch(overlap)
+        return "plain", self._cohort_dispatch(self._decode_fn(),
+                                              self._last_tok.copy(), overlap)
+
+    @staticmethod
+    def _tokens(pending, event):
+        """Wait for the dispatched tokens (overlap: on the event) and
+        return them as host arrays."""
+        if event is not None:
+            event.synchronize()
+        return [(slots, snap, np.asarray(toks.numpy()
+                                         if torch.is_tensor(toks) else toks))
+                for slots, snap, toks in pending]
 
     def _decode_commit(self, state):
         """Deliver one token per still-live slot, advance its length and
@@ -1209,12 +1390,13 @@ class GenerationEngine:
         if kind == "spec":
             self._spec_commit(pending)
             return
-        live = self._live
-        for slots, snap, toks in pending:
+        live = 0
+        for slots, snap, toks in self._tokens(*pending):
             for slot, dispatched in zip(slots, snap):
                 sess = self._sessions[slot]
                 if sess is None or sess is not dispatched:
                     continue
+                live += 1
                 # the token we fed now occupies position lengths[slot]
                 self._lengths[slot] += 1
                 tok = int(toks[slot])
@@ -1227,7 +1409,7 @@ class GenerationEngine:
         if telemetry._enabled:
             telemetry.counter("serving.generation.decode_tokens").inc(live)
 
-    def _spec_dispatch(self):
+    def _spec_dispatch(self, overlap):
         """The draft proposes k tokens a slot, once, with its current
         parameters (proposals may be wrong for an old cohort; its verify
         corrects them), then the verify program runs per cohort."""
@@ -1236,9 +1418,8 @@ class GenerationEngine:
                            np.int64)                            # [S, k]
         tokens = np.concatenate([self._last_tok[:, None].astype(np.int64),
                                  props], axis=1)
-        prog = self._verify_fn()
-        return "spec", (props, self._cohort_dispatch(
-            lambda pos: prog(tokens, pos)))
+        return "spec", (props, self._cohort_dispatch(self._verify_fn(),
+                                                     tokens, overlap))
 
     def _spec_commit(self, state):
         """Each still-live slot takes the longest agreeing draft prefix
@@ -1248,13 +1429,13 @@ class GenerationEngine:
         before they could be."""
         props, pending = state
         k = self._spec_k
-        live = self._live
-        accepted = committed_total = 0
-        for slots, snap, toks in pending:
+        live = accepted = committed_total = 0
+        for slots, snap, toks in self._tokens(*pending):
             for slot, dispatched in zip(slots, snap):
                 sess = self._sessions[slot]
                 if sess is None or sess is not dispatched:
                     continue
+                live += 1
                 t, d = toks[slot], props[slot]
                 a = 0
                 while a < k and d[a] == t[a]:
@@ -1302,12 +1483,26 @@ class GenerationEngine:
         sess.generated += 1
         sess.stream._push(tok)
         self._tokens_window += 1
+        if self._qos is not None:
+            # the token-rate quota, charged as tokens are delivered (may
+            # drive the bucket negative: the tenant's NEXT admission waits)
+            self._qos.charge_tokens(sess.tenant, 1)
         if telemetry._enabled:
             telemetry.counter("serving.generation.tokens").inc()
+            spec = (self._qos.spec_for(sess.tenant)
+                    if self._qos is not None else None)
+            if spec is not None:
+                telemetry.counter(
+                    qos.labeled_metric("qos.tokens", spec)).inc()
+            # generated == 1: an adopted session's re-prefill delivers into
+            # a stream whose first token came on another replica
             if first and sess.generated == 1:
                 ttft = (time.monotonic() - sess.stream.submitted_at) * 1e6
                 telemetry.histogram("serving.generation.ttft_us").record(
                     ttft)
+                if spec is not None:
+                    telemetry.histogram(
+                        qos.labeled_metric("qos.ttft_us", spec)).record(ttft)
                 if sess.prefix_len:
                     telemetry.histogram(
                         "serving.generation.prefix.ttft_us").record(ttft)
@@ -1361,3 +1556,235 @@ class GenerationEngine:
         sess.stream._fail(DeadlineExceededError(
             f"session waited {now - sess.stream.submitted_at:.3f}s in "
             "queue, past its deadline"))
+
+    # -- QoS park region (preemption, resume, migration) ----------------------
+
+    def _sweep_parked(self, now):
+        """Deadline sweep over the park region: parking does not stop a
+        session's clock."""
+        for park, rec in list(self._parked.items()):
+            sess = rec["sess"]
+            if sess.deadline is not None and now >= sess.deadline:
+                self._fail_parked(
+                    park, rec, DeadlineExceededError(
+                        f"session deadline passed while parked after "
+                        f"{sess.generated} generated token(s)"),
+                    reason="deadline")
+
+    def _fail_parked(self, park, rec, exc, reason="error"):
+        """Terminal failure of a PARKED session: free its park row and fail
+        its stream in band (it is in neither the queue nor a slot)."""
+        del self._parked[park]
+        self._park_free.append(park)
+        sess = rec["sess"]
+        if telemetry._enabled:
+            telemetry.counter("serving.generation.evictions").inc()
+            telemetry.counter(f"serving.generation.evict_{reason}").inc()
+        if health._enabled:
+            health.event("generation_evict", engine=self.health_name,
+                         reason=reason, parked=True, tokens=sess.generated)
+        if sess.span is not None:
+            sess.span.set(error=repr(exc), reason=reason,
+                          parked=True).finish()
+        sess.stream._fail(exc)
+
+    def _preempt_for_priority(self):
+        """Park the YOUNGEST live batch session (the fewest sunk tokens by
+        admission order) when a higher-class request heads the queue and
+        no slot is free: THE fork program copies its rows into a free park
+        row, its host state moves aside, and its slot frees. One victim a
+        call. Returns the freed slot, or None when there is no park room,
+        no batch victim, or the head is itself batch (an AGED batch
+        request only reorders the queue, it never preempts).
+
+        Under the overlap order the decode in flight has already written
+        the victim's next row; its token is dropped at the commit, and the
+        recorded length and last token make the resumed decode compute
+        that position again, so the stream stays bit-exact."""
+        if not self._park_free:
+            return None
+        head = self._queue.peek()
+        if (head is None or head.qos_rank is None
+                or head.qos_rank >= qos.BATCH_RANK):
+            return None
+        victim = None
+        for slot in range(self._slots):
+            sess = self._sessions[slot]
+            if sess is None or sess.qos_rank != qos.BATCH_RANK:
+                continue
+            if (victim is None
+                    or sess.admit_seq > self._sessions[victim].admit_seq):
+                victim = slot
+        if victim is None:
+            return None
+        sess = self._sessions[victim]
+        park = self._park_free.pop()
+        try:
+            self._fork_fn().launch(victim, park)
+        except Exception:
+            # the victim is still live in its slot; the tick's handler
+            # fails it with the others
+            self._park_free.append(park)
+            raise
+        self._parked[park] = {"sess": sess,
+                              "length": int(self._lengths[victim]),
+                              "last_tok": int(self._last_tok[victim]),
+                              "parked_at": time.monotonic()}
+        # paused, not dead: the stream stays open; the slot's rows become
+        # masked garbage written at the safe row
+        self._sessions[victim] = None
+        self._lengths[victim] = 0
+        self._last_tok[victim] = 0
+        self._live -= 1
+        if self._draft is not None:
+            self._draft.on_evict(victim)
+        spec = self._qos.spec_for(sess.tenant)
+        if telemetry._enabled:
+            telemetry.counter("serving.generation.preemptions").inc()
+            telemetry.counter(qos.labeled_metric("qos.preempted", spec)).inc()
+        if health._enabled:
+            health.event("qos_preempt", engine=self.health_name,
+                         slot=victim, park=park, tenant=spec.name,
+                         tokens=sess.generated)
+        if sess.span is not None:
+            tracing.emit_span("generation.preempt", tracing.now_us(), 0.0,
+                              cat="generation", parent=sess.span,
+                              slot=victim, park=park)
+        return victim
+
+    def _should_resume(self):
+        """A free slot goes back to a parked session unless a HIGHER-class
+        request heads the queue (batch against batch, the parked session
+        wins: it has sunk work the queued one has not)."""
+        head = self._queue.peek()
+        return (head is None or head.qos_rank is None
+                or head.qos_rank >= qos.BATCH_RANK)
+
+    def _resume_into(self, slot):
+        """Un-park the OLDEST parked session into the free slot: THE fork
+        program copies its rows back, its host state is restored, and its
+        greedy decode continues bit-exact with an uninterrupted run (the
+        fork is a row copy; a slot's decode does not depend on its
+        index)."""
+        park = min(self._parked,
+                   key=lambda p: self._parked[p]["parked_at"])
+        rec = self._parked.pop(park)
+        sess = rec["sess"]
+        try:
+            self._fork_fn().launch(park, slot)
+        except Exception as e:
+            # the session is in neither the park region nor a slot now
+            self._park_free.append(park)
+            if sess.span is not None:
+                sess.span.set(error=repr(e), reason="error").finish()
+            sess.stream._fail(e)
+            raise
+        self._park_free.append(park)
+        sess.slot = slot
+        self._sessions[slot] = sess
+        self._lengths[slot] = rec["length"]
+        self._last_tok[slot] = rec["last_tok"]
+        self._live += 1
+        if self._draft is not None:
+            # the draft's context: the prompt and every delivered token
+            # but the pending last one
+            ctx = np.concatenate([
+                sess.prompt,
+                np.asarray(sess.stream.tokens[:-1], np.int32)])
+            self._draft.on_admit(slot, ctx, rec["last_tok"])
+        spec = self._qos.spec_for(sess.tenant)
+        if telemetry._enabled:
+            telemetry.counter(qos.labeled_metric("qos.resumed", spec)).inc()
+        if health._enabled:
+            health.event("qos_resume", engine=self.health_name, slot=slot,
+                         tenant=spec.name,
+                         parked_s=round(
+                             time.monotonic() - rec["parked_at"], 3))
+        if sess.span is not None:
+            tracing.emit_span("generation.resume", tracing.now_us(), 0.0,
+                              cat="generation", parent=sess.span, slot=slot,
+                              park=park)
+
+    def qos_demand(self):
+        """Fairness-weighted demand for the autoscale signal: every live
+        and parked session and every queued request, each weighted by its
+        tenant's QoS weight. None while QoS is off (callers then count
+        ``live_slots + queue_depth``)."""
+        if self._qos is None:
+            return None
+        d = 0.0
+        for sess in self._sessions:
+            if sess is not None:
+                d += self._qos.weight(sess.tenant)
+        for rec in self._parked.values():
+            d += self._qos.weight(rec["sess"].tenant)
+        return d + self._queue.weighted_depth()
+
+    def eject_parked(self, max_n=None):
+        """Take up to ``max_n`` parked sessions (oldest first) OUT of this
+        engine as host records for a peer's `adopt`: prompt, tokens so
+        far, budget, deadline, tenant and the LIVE stream (the client
+        keeps iterating it; only its engine changes). Their park rows free
+        at once. Takes the tick lock."""
+        out = []
+        with self._exclusive():
+            parks = sorted(self._parked,
+                           key=lambda p: self._parked[p]["parked_at"])
+            if max_n is not None:
+                parks = parks[:max_n]
+            for park in parks:
+                rec = self._parked.pop(park)
+                self._park_free.append(park)
+                sess = rec["sess"]
+                out.append({"prompt": sess.prompt,
+                            "tokens": list(sess.stream.tokens),
+                            "max_new_tokens": sess.max_new_tokens,
+                            "eos_id": sess.eos_id,
+                            "deadline": sess.deadline,
+                            "tenant": sess.tenant,
+                            "stream": sess.stream,
+                            "span": sess.span})
+        if out and telemetry._enabled:
+            telemetry.counter("serving.generation.qos.ejected").inc(len(out))
+        return out
+
+    def adopt(self, record):
+        """Admit a session ejected from a peer: queue its FULL context
+        (prompt and every token generated so far) for a prefill here and
+        deliver the rest of its budget into the ORIGINAL stream. Its
+        continuation equals a fresh submit of that context (it is one:
+        the same prefill and greedy decode), which in bf16 need not equal
+        the uninterrupted stream, since a prefill and token-by-token
+        decode need not round alike. The request skips the quotas (charged
+        at the first admission). Returns False when the context does not
+        fit this engine or its queue refuses (the caller tries elsewhere)."""
+        toks = [int(t) for t in record["tokens"]]
+        ctx = np.concatenate([np.asarray(record["prompt"], np.int32).ravel(),
+                              np.asarray(toks, np.int32)])
+        n = int(ctx.size)
+        remaining = int(record["max_new_tokens"]) - len(toks)
+        if (remaining < 1 or n > self._buckets[-1]
+                or n + remaining > self._max_len or self._closed):
+            return False
+        stream = record["stream"]
+        sess = _Session(ctx, record["max_new_tokens"], record["eos_id"],
+                        record["deadline"], stream, tenant=record["tenant"])
+        sess.generated = len(toks)
+        sess.span = record.get("span")
+        req = Request([ctx], 1, stream._future, deadline=record["deadline"],
+                      payload=sess, tenant=record["tenant"])
+        req.qos_exempt = True
+        try:
+            self._queue.put(req)
+        except Exception:  # noqa: BLE001 - refused: the caller keeps it
+            return False
+        # the stream's caller-runs assist drives THIS engine from now on
+        stream._engine = self
+        if telemetry._enabled:
+            telemetry.counter("serving.generation.qos.adopted").inc()
+        if health._enabled:
+            self._beacon.arm()
+        with self._work:
+            self.sessions_submitted += 1
+            self._work.notify_all()
+        return True

@@ -25,25 +25,35 @@ and re-admitted once its probe passes, each transition journaled
 (``engine_drain`` / ``engine_undrain``); a fleet with no ready replica
 falls back to load order over all of them.
 
-`scale_to` grows the fleet from a factory (each new replica warmed before
-it takes traffic) or drains surplus replicas in background threads. The
-router registers itself as a fleet of the health layer's autoscale signal
-(`health.register_fleet`), and `bind_autoscale` wires that signal's
-changes (`health.on_autoscale`) to `scale_to`. Placements count into the
-``serving.generation.routed*`` series.
+With a QoS registry active (`serving.qos`), class placement sits between
+the two tiers: an interactive or standard session avoids replicas that
+run batch work (its first token should not queue behind a flood it would
+only preempt), and a batch session packs onto them. `rebalance_parked`
+moves preempted sessions out of a replica's park region to a peer, which
+re-prefills their whole context (`GenerationEngine.eject_parked` /
+`adopt`).
 
-Not ported yet, each raising NotImplementedError: QoS-class placement,
-`rebalance_parked` and `rolling_swap` with its SLO gate (ROADMAP.md queue
-A, item A.2).
+`scale_to` grows the fleet from a factory (each new replica warmed before
+it takes traffic, and brought onto the fleet's current weights) or drains
+surplus replicas in background threads. The router registers itself as a
+fleet of the health layer's autoscale signal (`health.register_fleet`),
+and `bind_autoscale` wires that signal's changes (`health.on_autoscale`)
+to `scale_to`. `rolling_swap` flips the fleet to new weights a replica at
+a time under the scale lock, reading the SLO tracker's worst short-window
+burn after each flip and rolling every flipped replica back when it
+exceeds ``MXNET_ROLLOUT_SLO_GATE``. Placements count into the
+``serving.generation.routed*`` series, migrations into ``qos.migrated``.
 """
 from __future__ import annotations
 
 import itertools
 import threading
+import time
 import weakref
 
 from ... import health, telemetry
-from ...base import MXNetError
+from ...base import MXNetError, getenv
+from .. import qos
 from ..admission import QueueFullError, ServerClosedError
 
 __all__ = ["GenerationRouter"]
@@ -80,6 +90,11 @@ class GenerationRouter:
         self._all_unready = False
         self._draining = []         # (engine, closer thread) during shrink
         self._closed = False
+        # weight rollout: the fleet's current and previous WeightSets stay
+        # pinned here, so rolling_swap always has a rollback target and a
+        # replica grown later joins on the current version
+        self._ws_current = None
+        self._ws_previous = None
         health.register_fleet(self)
 
     @property
@@ -131,8 +146,10 @@ class GenerationRouter:
         least loaded (rotating tie-break; READY replicas only when the
         health layer is on and any is ready); fail over across replicas on
         `QueueFullError` or `ServerClosedError` and re-raise only when
-        every candidate refuses. Keyword arguments go to
-        `GenerationEngine.submit`."""
+        every candidate refuses. With QoS on, the class of the ``tenant``
+        keyword orders the replicas between affinity and load: fewest live
+        batch sessions first for interactive and standard work, most for
+        batch work. Keyword arguments go to `GenerationEngine.submit`."""
         engines = self.engines
         n = len(engines)
         k = next(self._rr)
@@ -140,10 +157,17 @@ class GenerationRouter:
                       if health._enabled else None)
         matches = [e.prefix_match_len(prompt) for e in engines]
         best = max(matches)
+        reg = qos.active()
+        rank = reg.rank(kwargs.get("tenant")) if reg is not None else None
 
         def _key(i):
             j = (i + k) % n
-            return (-matches[j], engines[j].load, i)
+            if rank is None:
+                return (-matches[j], engines[j].load, i)
+            b = engines[j].batch_live
+            if rank < qos.BATCH_RANK:
+                return (-matches[j], b, engines[j].load, i)
+            return (-matches[j], engines[j].load, -b, i)
 
         last_exc = None
         for i in sorted(range(n), key=_key):
@@ -177,9 +201,51 @@ class GenerationRouter:
         return list(self.submit(prompt, **kwargs))
 
     def rebalance_parked(self, max_n=None):
-        raise NotImplementedError(
-            "GenerationRouter.rebalance_parked needs the QoS park region "
-            "(ROADMAP.md queue A, item A.2)")
+        """Migrate parked (preempted) sessions to peer replicas: eject
+        each source's park records (`GenerationEngine.eject_parked`) and
+        `adopt` them on the least loaded OTHER replica, which re-prefills
+        the session's whole context while its original stream keeps
+        delivering, greedy-equal to a fresh submit of that context. A
+        record no peer takes goes back to the source's own queue; only
+        when that refuses too does the stream fail in band. Each engine's
+        tick lock is taken in turn, never two at once (engines over one
+        model tick under the model's lock). Returns the number of
+        sessions moved to a peer."""
+        engines = self.engines
+        if len(engines) < 2:
+            return 0
+        migrated = 0
+        for src in engines:
+            if src.parked_count == 0:
+                continue
+            for rec in src.eject_parked(max_n):
+                placed = None
+                peers = sorted((e for e in engines if e is not src),
+                               key=lambda e: e.load)
+                for dst in peers:
+                    if dst.adopt(rec):
+                        placed = dst
+                        migrated += 1
+                        break
+                if placed is None and not src.adopt(rec):
+                    exc = QueueFullError(
+                        "no replica could adopt the preempted session")
+                    rec["stream"]._fail(exc)
+                    if rec.get("span") is not None:
+                        rec["span"].set(error=repr(exc),
+                                        reason="migrate").finish()
+                    continue
+                if placed is not None:
+                    if telemetry._enabled:
+                        telemetry.counter(
+                            "serving.generation.qos.migrated").inc()
+                    if health._enabled:
+                        health.event("qos_migrate",
+                                     source=src.health_name,
+                                     target=placed.health_name,
+                                     tenant=rec.get("tenant") or "default",
+                                     tokens=len(rec["tokens"]))
+        return migrated
 
     def scale_to(self, n, reason="manual", warm=True):
         """Resize the fleet to ``n`` replicas (clamped to ``[min_engines,
@@ -208,6 +274,11 @@ class GenerationRouter:
                 eng = self._factory()
                 if warm:
                     eng.warm()
+                if self._ws_current is not None:
+                    # the factory builds on the params the fleet started
+                    # with; after a roll the fleet serves a newer version
+                    eng.swap_weights(self._ws_current,
+                                     version=self._ws_current.version)
                 grown.append(eng)
             with self._lock:
                 self._engines.extend(grown)
@@ -248,13 +319,123 @@ class GenerationRouter:
 
         return health.on_autoscale(_actuate)
 
+    @staticmethod
+    def _swap_burn():
+        """The worst short-window SLO burn rate over the objectives, or
+        None with the health layer off or no objective holding data: the
+        rollout gate (a burn above 1 spends the error budget faster than
+        the SLO allows)."""
+        if not health._enabled:
+            return None
+        tracker = health.tracker()
+        if tracker is None:
+            return None
+        report = tracker.evaluate()
+        burns = [o.get("burn_short") for o in report.get("objectives", [])
+                 if o.get("burn_short") is not None]
+        return max(burns) if burns else None
+
+    def _pin_baseline(self):
+        """The first roll of this fleet: replica 0's live weights as the
+        rollback target (the router was handed engines, not a WeightSet)."""
+        from ..rollout import WeightSet
+
+        engines = self.engines
+        if not engines:
+            return None
+        version, params, draft = engines[0].weights_snapshot()
+        return WeightSet(version, params, draft_params=draft,
+                         source="fleet-baseline")
+
     def rolling_swap(self, weights, draft_params=None, version=None,
                      observe_s=None, gate=None, rollback=True,
                      reason="publish"):
-        raise NotImplementedError(
-            "GenerationRouter.rolling_swap and its SLO gate are not ported "
-            "yet (ROADMAP.md queue A, item A.2); swap each engine with "
-            "GenerationEngine.swap_weights")
+        """Flip the fleet to new weights one replica at a time, gated on
+        the SLO burn tracker.
+
+        ``weights`` is a `rollout.WeightSet` or a plain name -> array dict.
+        After each replica flips (`GenerationEngine.swap_weights`: between
+        its ticks, nothing captured), the router waits ``observe_s``
+        seconds (default ``MXNET_ROLLOUT_POLL_S``) and reads the worst
+        short-window burn; a burn above ``gate`` (default
+        ``MXNET_ROLLOUT_SLO_GATE``) stops the roll and, with
+        ``rollback``, swaps every flipped replica back to the pinned
+        previous version (``rollout_rollback`` event,
+        ``rollout.rollbacks``). Runs under the scale lock, so a roll never
+        interleaves with a grow or a drain. Returns a report dict."""
+        if self._closed:
+            raise MXNetError("rolling_swap on a closed router")
+        from ..rollout import WeightSet
+
+        if gate is None:
+            gate = float(getenv("MXNET_ROLLOUT_SLO_GATE"))
+        if observe_s is None:
+            observe_s = float(getenv("MXNET_ROLLOUT_POLL_S"))
+        with self._scale_lock:
+            if self._ws_current is None:
+                self._ws_current = self._pin_baseline()
+            if isinstance(weights, WeightSet):
+                target = weights
+                if version is None:
+                    version = target.version
+            else:
+                if version is None:
+                    version = (self._ws_current.version
+                               if self._ws_current is not None else 0) + 1
+                target = WeightSet(version, dict(weights),
+                                   draft_params=draft_params, source=reason)
+            previous = self._ws_current
+            engines = self.engines
+            report = {"version": int(version), "replicas": len(engines),
+                      "swapped": 0, "noops": 0, "rolled_back": False,
+                      "burn": None,
+                      "previous_version": (previous.version
+                                           if previous is not None else None)}
+            flipped = []
+            breach = None
+            for i, eng in enumerate(engines):
+                v = eng.swap_weights(target, draft_params=draft_params,
+                                     version=version)
+                if v is None:
+                    report["noops"] += 1
+                    continue
+                flipped.append(eng)
+                report["swapped"] += 1
+                if health._enabled:
+                    health.event("rollout_roll", engine=eng.health_name,
+                                 index=i, version=int(version),
+                                 replicas=len(engines))
+                if observe_s > 0:
+                    time.sleep(observe_s)
+                burn = self._swap_burn()
+                if burn is not None:
+                    report["burn"] = float(burn)
+                    if burn > gate:
+                        breach = float(burn)
+                        break
+            if breach is not None and rollback and previous is not None:
+                # the same in-place swap, so the rollback captures nothing
+                for eng in flipped:
+                    eng.swap_weights(previous, version=previous.version)
+                report["rolled_back"] = True
+                telemetry.counter("rollout.rollbacks").inc()
+                if health._enabled:
+                    health.event("rollout_rollback", version=int(version),
+                                 restored=int(previous.version),
+                                 burn=breach, gate=float(gate),
+                                 replicas_hit=len(flipped))
+                # _ws_current stays `previous`: a rollback of a rollback
+                # converges on the same pinned version
+                return report
+            if report["swapped"]:
+                if (self._ws_previous is not None
+                        and self._ws_previous is not previous):
+                    self._ws_previous.release()
+                self._ws_previous = previous
+                self._ws_current = target.acquire()
+                telemetry.counter("rollout.rolls").inc()
+                telemetry.gauge("rollout.fleet_version").set(int(version))
+            return report
 
     def warm(self, buckets=None):
         """Warm every replica; sums the builds (``serving.warmup``

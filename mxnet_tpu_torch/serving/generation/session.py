@@ -30,8 +30,12 @@ _TOK, _END, _ERR = 0, 1, 2
 class GenerationStream:
     """Iterator of generated tokens for one submitted prompt."""
 
-    def __init__(self, engine, prompt_len, max_new_tokens, deadline=None):
-        self._engine = engine
+    def __init__(self, engine, prompt_len, max_new_tokens, deadline=None,
+                 tenant=None):
+        self._engine = engine       # reassigned when a parked session
+        #                             migrates to a peer replica (the
+        #                             caller-runs assist then drives the
+        #                             adopting engine's ticks)
         self._q = queue.Queue()
         self._future = Future()
         self._stop = False          # iterator side: terminal item consumed
@@ -41,6 +45,7 @@ class GenerationStream:
         self.deadline = deadline
         self.submitted_at = time.monotonic()
         self.first_token_at = None
+        self.tenant = tenant        # QoS tenant name (None = default class)
         self.cached_prefix_len = 0  # prompt tokens forked from the cache
         self.weights_version = None  # pinned at admission (swap_weights)
 

@@ -178,9 +178,9 @@ class CheckpointDraft(Draft):
                 "for speculative scratch); lower MXNET_GENERATION_MAX_LEN / "
                 "MXNET_GENERATION_SPEC_K or train a longer draft")
         self._slab_len = need
-        self._dk, self._dv = self._model.init_cache(engine.max_slots, need)
-        self._len = np.zeros(engine.max_slots, np.int32)
-        self._pending = [[] for _ in range(engine.max_slots)]
+        self._dk, self._dv = self._model.init_cache(engine.total_slots, need)
+        self._len = np.zeros(engine.total_slots, np.int32)
+        self._pending = [[] for _ in range(engine.total_slots)]
         # the draft's own slab, beside the engine's in the census
         memory.register_provider("kv_cache", self, lambda d: [d._dk, d._dv])
 
@@ -201,11 +201,11 @@ class CheckpointDraft(Draft):
                                 eng._pool)
 
         return eng.cache.get_or_build(
-            ("draft_prefill", bucket, eng.max_slots, self._slab_len), build)
+            ("draft_prefill", bucket, eng.total_slots, self._slab_len), build)
 
     def _step_fn(self, k):
         model, dk, dv, eng = self._model, self._dk, self._dv, self._eng
-        n_slots = eng.max_slots
+        n_slots = eng.total_slots
 
         def fn(tokens, counts, positions):
             # phase 1: ingest the committed block (k + 1 unrolled decode
@@ -242,8 +242,8 @@ class CheckpointDraft(Draft):
         for b in eng.prefill_buckets:
             self._prefill_fn(b)(np.zeros(b, np.int64), 1, 0)
         k = eng.spec_k
-        zeros = np.zeros(eng.max_slots, np.int64)
-        self._step_fn(k)(np.zeros((eng.max_slots, k + 1), np.int64), zeros,
+        zeros = np.zeros(eng.total_slots, np.int64)
+        self._step_fn(k)(np.zeros((eng.total_slots, k + 1), np.int64), zeros,
                          zeros)
         # warm garbage lands in rows the next real prefill or ingest
         # overwrites before attending (the frontier argument); lengths
@@ -272,7 +272,7 @@ class CheckpointDraft(Draft):
         self._dk.zero_()
         self._dv.zero_()
         self._len[:] = 0
-        self._pending = [[] for _ in range(self._eng.max_slots)]
+        self._pending = [[] for _ in range(self._eng.total_slots)]
 
     def swap_params(self, params):
         """Flip the draft to new weights at once, written into its

@@ -23,8 +23,9 @@ watched directory. The port of `mxnet_tpu/serving/rollout.py`.
 With telemetry on: ``rollout.publishes``, ``publish_us``,
 ``publish_duplicate``, ``publish_errors``, ``ingests``, ``rejects`` (and
 ``reject_<reason>``), ``apply_errors`` and the version gauges.
-`GenerationEngine.swap_weights` takes a WeightSet too. Not ported yet:
-`GenerationRouter.rolling_swap` (ROADMAP.md queue A, item A.2).
+`GenerationEngine.swap_weights` takes a WeightSet too, and
+`GenerationRouter.rolling_swap` rolls one through a fleet of engines a
+replica at a time behind the SLO burn gate (``MXNET_ROLLOUT_SLO_GATE``).
 """
 from __future__ import annotations
 
@@ -54,6 +55,11 @@ register_env("MXNET_ROLLOUT_DIR", "",
 register_env("MXNET_ROLLOUT_POLL_S", 2.0,
              "seconds between rollout-directory polls of a "
              "RolloutWatcher subscriber thread")
+register_env("MXNET_ROLLOUT_SLO_GATE", 1.0,
+             "rolling_swap burn gate: after each replica flips, a short-"
+             "window SLO burn rate above this triggers automatic "
+             "journaled rollback of the whole fleet to the pinned "
+             "previous version")
 register_env("MXNET_ROLLOUT_KEEP", 4,
              "retain only the newest K published versions in the rollout "
              "directory (payload + manifest pairs; 0 = keep all)")

@@ -354,7 +354,7 @@ class Executor:
             if value is not None:
                 raise NotImplementedError(
                     f"Executor.fused_step({what}=...) is not ported yet "
-                    "(ROADMAP.md queue A, item 5)")
+                    "(ROADMAP.md queue A, item A.7)")
         upd = [(i, n) for i, n in enumerate(param_names)
                if self._grad_req.get(n, "null") != "null"]
         indices = [i for i, _ in upd]

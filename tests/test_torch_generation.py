@@ -291,7 +291,10 @@ def test_positions_stay_in_the_slab(lm):
     eng = GenerationEngine(lm, max_slots=3, max_len=20, buckets=(8,),
                            start=False)
     s = eng.submit([1, 2, 3], max_new_tokens=4)
-    eng._tick_once()                    # admit into slot 0 and decode once
+    # admit into slot 0 and decode once (the overlap order admits after
+    # the tick's decode, so that takes two ticks there, one in lockstep)
+    while len(s.tokens) < 2:
+        eng._tick_once()
     assert eng.live_slots == 1
     assert list(eng._tick_positions()) == [4, 19, 19]
     eng._lengths[0] = 20
@@ -475,6 +478,8 @@ def test_decode_failure_fails_live_sessions(lm):
                            tick_budget_ms=60_000, start=False)
     live = [eng.submit([1, 2], max_new_tokens=5) for _ in range(2)]
     queued = eng.submit([3, 4], max_new_tokens=2)
+    eng._tick_once()                    # both live, the third queued
+    assert eng.live_slots == 2 and eng.queue_depth == 1
     real = eng._decode_fn
     eng._decode_fn = lambda: (_ for _ in ()).throw(RuntimeError("boom"))
     eng._tick_once()

@@ -175,17 +175,18 @@ def test_router_scale_to(lm48, journal):
 
 
 def test_router_waits_for_later_items(lm48):
-    """QoS rebalancing and the burn-gated rolling swap are not ported yet
-    and name their queue item (A.2); the autoscale hook is (A.1): it
-    returns the callback it registered, which resizes the fleet."""
+    """QoS rebalancing and the burn-gated rolling swap are ported (A.2): a
+    one-replica fleet has no peer to migrate to, and a roll with no
+    weights raises the swap's own error; the autoscale hook (A.1) returns
+    the callback it registered, which resizes the fleet."""
     from mxnet_tpu_torch import health
 
     _, _, lm = lm48
     router = GenerationRouter([GenerationEngine(lm, max_slots=1, max_len=48,
                                                 buckets=(8,), start=False)])
-    for call in (router.rebalance_parked, lambda: router.rolling_swap({})):
-        with pytest.raises(NotImplementedError, match="item A.2"):
-            call()
+    assert router.rebalance_parked() == 0
+    with pytest.raises(MXNetError):
+        router.rolling_swap({})
     cb = router.bind_autoscale()
     try:
         assert cb in health._autoscale_cbs

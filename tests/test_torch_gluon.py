@@ -584,8 +584,10 @@ def test_resize_iter_databatch_and_datadesc():
     assert mx.io.DataDesc.get_batch_axis("TNC") == 1
     with pytest.raises(TypeError):
         mx.io.DataBatch(mx.nd.ones((1,), ctx=CPU))
-    with pytest.raises(NotImplementedError, match="item A.3"):
-        mx.io.PrefetchingIter([it])
+    with CPU:
+        it.reset()
+        prefetched = mx.io.PrefetchingIter([it])
+        assert [b.data[0].shape for b in prefetched] == [(2, 2)] * 3
 
 
 # -- metric --------------------------------------------------------------------

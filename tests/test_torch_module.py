@@ -137,6 +137,23 @@ def test_fit_matches_jax(params):
     assert any(not np.allclose(got[k], INIT[k]) for k in got)
 
 
+@pytest.mark.parametrize("fused", [True, False], ids=["fused", "eager"])
+def test_fit_over_float64_sources_binds_float32(fused):
+    """float64 sources (`bench.py`'s overlap MLP): `NDArrayIter` cuts
+    float32 batches and now says so in `provide_data`, so `fit` binds
+    float32 inputs and trains as the JAX package does (ROADMAP C.6: the
+    parent port bound float64 inputs beside float32 weights and raised)."""
+    def float64_iter(pkg):
+        X, Y = _data()
+        return pkg.io.NDArrayIter(X.astype(np.float64), Y.astype(np.float64),
+                                  batch_size=8, shuffle=False)
+
+    m, got = _fit(mx, SGD_MOM, fused=fused, it=float64_iter)
+    _, want = _fit(jmx, SGD_MOM, it=float64_iter)
+    assert m._exec.arg_dict["data"].dtype == np.float32
+    _close(got, want)
+
+
 @pytest.mark.parametrize("params", [
     SGD_MOM, SGD, dict(SGD_MOM, lr_scheduler=_sched),
     dict(SGD_MOM, clip_gradient=0.05, rescale_grad=0.5)],

@@ -348,11 +348,52 @@ def test_fork_falls_back_when_suffix_bucket_overhangs(lm64):
         assert plain.generate(hit_p, max_new_tokens=1) == out
 
 
-def test_refcount_safe_eviction_under_churn(lm64, journal):
+@pytest.mark.parametrize("overlap", ["0", "1"], ids=["lockstep", "overlap"])
+def test_pressure_eviction_spares_the_heads_prefix(lm64, monkeypatch,
+                                                   overlap):
+    """A session needing a slot when only cached prefixes hold them
+    evicts an entry it does not share: the entry the queue's head would
+    fork from stays pinned while the victim is picked, so the head hits.
+    Four slots, one tick: P (system prompt + tail) and Q (unrelated)
+    admit and cache themselves; R (system prompt + another tail) then
+    evicts Q's newer entry, not P's older one, and forks P's rows,
+    giving the plain engine's stream."""
+    monkeypatch.setenv("MXNET_OVERLAP", overlap)
+    _, _, lm = lm64
+    rng = np.random.RandomState(21)
+    sysp = rng.randint(1, VOCAB, 8).astype(np.int32)
+    p = np.concatenate([sysp, rng.randint(1, VOCAB, 2).astype(np.int32)])
+    q = rng.randint(1, VOCAB, 7).astype(np.int32)
+    while q[0] == sysp[0]:
+        q[0] = (q[0] % (VOCAB - 1)) + 1
+    r = np.concatenate([sysp, rng.randint(1, VOCAB, 3).astype(np.int32)])
+    # one tick admits all three, however slow the host
+    eng = _engine(lm, start=False, tick_budget_ms=60_000)
+    sp, sq, sr = (eng.submit(x, max_new_tokens=6) for x in (p, q, r))
+    eng._tick_once()
+    assert sp.cached_prefix_len == sq.cached_prefix_len == 0
+    assert sr.cached_prefix_len == len(sysp), "the head's prefix was evicted"
+    assert (eng.prefix_hits, eng.prefix_misses) == (1, 2)
+    # P's entry, in the slot after P's own
+    assert eng.prefix_cache.entries() == [(len(p), 1, 0)]
+    out = _tick_until(eng, sr)
+    eng.close()
+    with GenerationEngine(lm, max_slots=4, max_len=48,
+                          buckets=(8, 16)) as plain:
+        assert plain.generate(r, max_new_tokens=6) == out
+
+
+@pytest.mark.parametrize("overlap", ["0", "1"], ids=["lockstep", "overlap"])
+def test_refcount_safe_eviction_under_churn(lm64, journal, monkeypatch,
+                                            overlap):
     """40 sessions (half sharing a prefix) from 4 threads through a
     4-slot slab with the cache competing for slots: every session
     completes, pressure evicts, refcounts return to zero, no cached slot
-    is a live one, and the retained hot prefix keeps hitting."""
+    is a live one, and the retained hot prefix keeps hitting. In both
+    tick orders (``MXNET_OVERLAP``); the overlap order is the JAX suite's
+    default, where eviction and admission run while a decode is in
+    flight."""
+    monkeypatch.setenv("MXNET_OVERLAP", overlap)
     _, _, lm = lm64
     rng = np.random.RandomState(11)
     sysp = rng.randint(1, VOCAB, 8).astype(np.int32)
