@@ -113,8 +113,15 @@ Phases, each printed as one JSON line:
            and on the CPU agrees (losses, gradients, weights, momenta and
            moving stats); (c) every case of the op table (`op_cases`, one or
            more for each name the port registers) forward and backward on
-           the card against the CPU, and Dropout's training statistics;
-           (d) no kernel launched;
+           the card against the CPU (the random ops' by shape and dtype),
+           Dropout's training statistics, and the random ops' draws on the
+           card and on the CPU (`random_draw_checks`: each distribution's
+           mean and variance from 10^6 draws within 5 standard errors of
+           the closed form, multinomial frequencies and log-probabilities,
+           ``shuffle`` a permutation, zipfian draws distinct with the
+           CPU's tries, ``randint`` in range), and every random op inside
+           a hybridized block's captured graph drawing anew at each
+           replay (`random_in_graph`); (d) no kernel launched;
   gluon    slice 7's path, after nd: `gluon_train` (`bench.py:584-652`'s
            `_measure_framework` loop, the same function the CPU test runs
            on the JAX package) on the model zoo's `resnet50_v1(classes=1000)`
@@ -159,8 +166,9 @@ Phases, each printed as one JSON line:
            the fixed gammas; (b) the small symbolic ResNet (`MODULE_SMALL`)
            two steps on the card and on the CPU agree within 1e-4 (outputs,
            weights, momenta, moving stats); (c) five captured steps against
-           five eager ones on the card, at rtol 3e-5 / atol 3e-6; (d) the
-           same under a `FactorScheduler`; (e) no capture after the warm-up
+           five eager ones on the card, at rtol 3e-5 / atol 3e-6, with SGD
+           and (slice 13) with Adam on `bench.py`'s MLP, whose five steps
+           are one capture and four replays; (d) the same under a `FactorScheduler`; (e) no capture after the warm-up
            epoch, and short last batches pad into the graph there is; (f)
            `save_checkpoint` on the card, `Module.load` on the CPU: the
            same symbol text and one forward within 1e-4; (g) no kernel
@@ -242,6 +250,30 @@ Phases, each printed as one JSON line:
            probe outputs bit-equal; generation: the full-width engine and
            the generate phase's burst, streams equal across modes and to
            the generate phase's. No kernel launched;
+  gan      slice 13's path, after overlap (`gan_phase`): the published
+           DCGAN (`dcgan_nets` at 64 x 64 x 3: nz 100, ngf = ndf = 64,
+           batch 64; two `Trainer`s on Adam, lr 2e-4, beta1 0.5; both nets
+           hybridized; fp32, TF32 off) trained by `example/gluon/
+           dcgan.py`'s loop on its synthetic blob images with
+           `mx.nd.random.normal` noise: 3 warm-up iterations and 20 timed.
+           Prints the median iteration, img/s, the host's enqueue time,
+           the iteration's FLOP bound (its convolutions and transposed
+           convolutions, 9 D and 4 G forwards) against the observatory's
+           measured fp32 peak and its share, the instances captured per
+           net and signature, host launch calls and the idle share of one
+           more iteration under torch.profiler, peak memory and the card
+           line; then `example/gluon/dcgan.py` itself at its defaults with
+           only its imports changed, and its two figures. Checks, each
+           raising: (a) finite losses, every BatchNorm moving stat moved;
+           (b) the small DCGAN (`GAN_SMALL`) stepped twice on the card and
+           on the CPU from numpy weights and noise, under cuDNN's
+           deterministic algorithms, agrees within 1e-4 (losses, weights,
+           both Adam moments, moving stats); (c) no capture after the
+           warm-up, and netD's recorded signature whose data needs no
+           gradient holds two instances; the example's
+           ``d-real-minus-fake`` above 0.15; (e) no kernel launched.
+           ((d), the new ops on the card, runs in the nd phase's check
+           (c).);
   kernels  each kernel against its plain PyTorch version on the card, at the
            shapes the main path gives it and at extra cases (every head dim
            and dtype variant of K1 and K2), with times (`cuda_ms`: many calls
@@ -264,10 +296,11 @@ non-zero and prints no last line; so does a machine without a CUDA card.
 training path (the nd and gluon paths at both dtypes, the module path
 fused and eager, taken before its small-model checks, too), of one call
 of each form of the fused update, with the host's launch calls, of 20
-decode ticks over a full slab, and of a window of the serve phase's
-full-width batcher traffic (before its small checks), by kernel, to
-OUT.json; each profile must hold every launch of the port's kernels that
-its step made. A run not over after `--deadline` seconds (default 1100)
+decode ticks over a full slab, of a window of the serve phase's
+full-width batcher traffic (before its small checks), and of the gan
+phase's one more iteration (taken in every run, for its host launch
+calls), by kernel, to OUT.json; each profile must hold every launch of
+the port's kernels that its step made. A run not over after `--deadline` seconds (default 1100)
 dumps every thread's stack and exits 1.
 """
 from __future__ import annotations
@@ -2512,7 +2545,178 @@ def _op_case_groups():
          + [_u(5, dtype="float16")] * 2 + [_u(5)] * 2,
          dict(_MULTI, momentum=0.9, clip_gradient=0.3), False),
     ]
-    return cases
+    return cases + _training_op_cases() + _RANDOM_CASES
+
+
+_ROIS = [[0, 0, 0, 3, 3], [1, 1, 1, 5, 4], [0, 2.5, 0.5, 5, 5]]
+_W16, _W32 = _u(3, 4, dtype="float16"), _u(3, 4)
+_POS34 = _u(3, 4, **_POS)
+
+
+def _training_op_cases():
+    """Slice 13's deterministic names: the rest of the nn ops, four vision
+    ops, CTCLoss and the update ops of the other optimizers."""
+    return [
+        # nn
+        ("Deconvolution", [_u(2, 3, 4, 4), _u(3, 2, 3, 3), _u(2)],
+         {"kernel": (3, 3), "stride": (2, 2), "pad": (1, 1), "adj": (1, 1),
+          "num_filter": 2, "no_bias": False}, True),
+        ("Deconvolution:group", [_u(2, 4, 3, 3), _u(4, 1, 2, 2)],
+         {"kernel": (2, 2), "stride": (2, 2), "num_filter": 2,
+          "num_group": 2}, True),
+        ("Deconvolution:1d_dilate", [_u(2, 2, 5), _u(2, 3, 3)],
+         {"kernel": (3,), "dilate": (2,), "pad": (1,), "num_filter": 3},
+         True),
+        ("UpSampling", [_u(1, 2, 3, 3)], {"scale": 2}, True),
+        ("UpSampling:concat", [_u(1, 2, 4, 4), _u(1, 1, 2, 2)],
+         {"scale": 2, "num_args": 2}, True),
+        ("UpSampling:bilinear", [_u(1, 2, 3, 3), _u(2, 1, 4, 4)],
+         {"scale": 2, "sample_type": "bilinear", "num_args": 2,
+          "num_filter": 2}, True),
+        ("LRN", [_u(2, 5, 3, 3)], {"nsize": 3, "alpha": 0.01}, True),
+        ("LeakyReLU", [_u(3, 4)], {"slope": 0.1}, True),
+        ("LeakyReLU:prelu", [_u(2, 3, 4), _u(3)], {"act_type": "prelu"},
+         True),
+        ("LeakyReLU:elu", [_u(3, 4)], {"act_type": "elu", "slope": 0.7},
+         True),
+        ("LeakyReLU:selu", [_u(3, 4)], {"act_type": "selu"}, True),
+        ("LeakyReLU:gelu", [_u(3, 4)], {"act_type": "gelu"}, True),
+        ("LeakyReLU:rrelu_predict", [_u(3, 4)],
+         {"act_type": "rrelu", "_train": False}, True),
+        ("SoftmaxActivation", [_u(2, 3, 4)], {}, True),
+        ("SoftmaxActivation:channel", [_u(2, 3, 4)], {"mode": "channel"},
+         True),
+        ("InstanceNorm", [_u(2, 3, 4, 4), _u(3), _u(3)], {"eps": 1e-5},
+         True),
+        ("_contrib_SyncBatchNorm", _BN_INPUTS,
+         {"eps": 1e-5, "fix_gamma": False, "_train": True}, (0, 1, 2)),
+        ("LinearRegressionOutput", [_u(3, 4), _u(3, 4)],
+         {"grad_scale": 0.5}, (0,)),
+        ("MAERegressionOutput", [_u(3, 4), _u(3, 4)], {}, (0,)),
+        ("LogisticRegressionOutput", [_u(3, 4), _u(3, 4, lo=0.0)], {},
+         (0,)),
+        ("MakeLoss", [_u(3, 4)], {"grad_scale": 1.0}, True),
+        ("BilinearSampler", [_u(1, 2, 4, 5), _u(1, 2, 3, 3, lo=-1.1,
+                                                 hi=1.1)], {}, True),
+        ("GridGenerator", [_u(2, 6)], {"target_shape": (3, 4)}, True),
+        ("GridGenerator:warp", [_u(1, 2, 3, 4)],
+         {"transform_type": "warp", "target_shape": (3, 4)}, True),
+        ("IdentityAttachKLSparseReg", [_u(3, 4)], {}, True),
+        # vision
+        ("ROIPooling", [_u(2, 3, 6, 6), _c(_ROIS)],
+         {"pooled_size": (2, 2), "spatial_scale": 1.0}, (0,)),
+        ("SpatialTransformer", [_u(2, 2, 5, 5), _u(2, 6, lo=-0.6, hi=0.6)],
+         {"target_shape": (4, 4), "transform_type": "affine",
+          "sampler_type": "bilinear"}, True),
+        ("Correlation", [_u(1, 2, 5, 5), _u(1, 2, 5, 5)],
+         {"max_displacement": 1, "pad_size": 1}, True),
+        ("Correlation:abs_window", [_u(1, 2, 6, 6), _u(1, 2, 6, 6)],
+         {"kernel_size": 3, "max_displacement": 2, "stride2": 2,
+          "pad_size": 2, "is_multiply": False}, True),
+        ("SVMOutput", [_u(4, 3), _c([0.0, 2.0, 1.0, 2.0])],
+         {"margin": 0.5, "regularization_coefficient": 0.7}, (0,)),
+        ("SVMOutput:linear", [_u(4, 3), _c([1.0, 0.0, 2.0, 1.0])],
+         {"use_linear": True}, (0,)),
+        # CTC: (T, N, C) activations; blank first (padding 0) or last (-1)
+        ("CTCLoss ctc_loss _contrib_CTCLoss _contrib_ctc_loss",
+         [_u(6, 2, 4), _c([[1.0, 2.0, 0.0], [3.0, 3.0, 1.0]])], {}, (0,)),
+        ("CTCLoss:last", [_u(6, 2, 4), _c([[0.0, 1.0, -1.0],
+                                           [2.0, 2.0, 1.0]])],
+         {"blank_label": "last"}, (0,)),
+        ("CTCLoss:lengths", [_u(6, 2, 4), _c([[1.0, 2.0, 3.0],
+                                              [2.0, 1.0, 1.0]]),
+                             _c([5.0, 4.0]), _c([2.0, 3.0])],
+         {"use_data_lengths": True, "use_label_lengths": True}, (0,)),
+        ("CTCLoss:no_alignment", [_u(2, 2, 4), _c([[1.0, 1.0, 2.0],
+                                                   [3.0, 0.0, 0.0]])], {},
+         (0,)),
+        # updates: weight, gradient, states (fp16 weights with fp32 masters)
+        ("nag_mom_update", [_W32, _u(3, 4), _u(3, 4)],
+         {"lr": 0.1, "momentum": 0.9, "wd": 0.01, "rescale_grad": 0.5},
+         False),
+        ("mp_nag_mom_update", [_W16, _u(3, 4, dtype="float16"), _u(3, 4),
+                               _W32], {"lr": 0.1, "momentum": 0.9}, False),
+        ("adam_update", [_W32, _u(3, 4), _u(3, 4), _POS34],
+         {"lr": 0.01, "wd": 1e-3, "clip_gradient": 0.3}, False),
+        ("ftml_update", [_W32, _u(3, 4), _u(3, 4), _POS34, _u(3, 4)],
+         {"lr": 0.1, "t": 2, "clip_grad": 0.5}, False),
+        ("rmsprop_update", [_W32, _u(3, 4), _POS34],
+         {"lr": 0.05, "clip_weights": 0.8}, False),
+        ("rmspropalex_update", [_W32, _u(3, 4), _POS34,
+                                _u(3, 4, lo=-0.1, hi=0.1), _u(3, 4)],
+         {"lr": 0.05, "wd": 0.01}, False),
+        ("ftrl_update", [_W32, _u(3, 4), _u(3, 4), _POS34],
+         {"lr": 0.1, "lamda1": 0.05, "wd": 0.01}, False),
+        ("signsgd_update", [_W32, _u(3, 4)], {"lr": 0.1, "wd": 0.01},
+         False),
+        ("signum_update", [_W32, _u(3, 4), _u(3, 4)],
+         {"lr": 0.1, "momentum": 0.9, "wd_lh": 0.01}, False),
+        ("_contrib_adamw_update contrib_adamw_update",
+         [_W32, _u(3, 4), _u(3, 4), _POS34],
+         {"lr": 0.01, "eta": 0.5, "wd": 0.01}, False),
+        ("_contrib_mp_adamw_update",
+         [_W16, _u(3, 4, dtype="float16"), _u(3, 4), _POS34, _W32],
+         {"lr": 0.01, "wd": 0.01}, False),
+        ("_adamw_update", [_W32, _u(3, 4), _u(3, 4), _POS34, _c([0.5])],
+         {"lr": 0.01, "wd": 0.01}, False),
+        ("_adamw_update:skip", [_W32, _u(3, 4), _u(3, 4), _POS34,
+                                _c([float("inf")])], {"lr": 0.01}, False),
+        ("_mp_adamw_update", [_W16, _u(3, 4, dtype="float16"), _u(3, 4),
+                              _POS34, _W32, _c([0.5])],
+         {"lr": 0.01, "clip_gradient": 0.2}, False),
+        ("_sparse_adagrad_update", [_W32, _u(3, 4), _POS34],
+         {"lr": 0.1, "wd": 0.01}, False),
+        ("_contrib_group_adagrad_update contrib_group_adagrad_update",
+         [_W32, _u(3, 4), _u(3, **_POS)], {"lr": 0.1}, False),
+    ]
+
+
+# The random ops (slice 13): a case each, compared by shape and dtype
+# (torch's streams are not threefry's, and the card's are not the CPU's);
+# their values are held by `random_draw_checks`.
+_RANDOM_CASES = [
+    ("_random_uniform random_uniform uniform", [],
+     {"low": -1.0, "high": 2.0, "shape": (2, 3)}, False),
+    ("_random_normal random_normal normal", [],
+     {"loc": 1.0, "scale": 2.0, "shape": (2, 3)}, False),
+    ("_random_gamma random_gamma", [],
+     {"alpha": 2.0, "beta": 0.5, "shape": (4,)}, False),
+    ("_random_exponential random_exponential", [],
+     {"lam": 2.0, "shape": (4,)}, False),
+    ("_random_poisson random_poisson", [], {"lam": 3.0, "shape": (4,)},
+     False),
+    ("_random_negative_binomial random_negative_binomial", [],
+     {"k": 3, "p": 0.4, "shape": (4,)}, False),
+    ("_random_generalized_negative_binomial "
+     "random_generalized_negative_binomial", [],
+     {"mu": 2.0, "alpha": 0.5, "shape": (4,)}, False),
+    ("_random_randint random_randint randint", [],
+     {"low": -2, "high": 5, "shape": (4,)}, False),
+    ("_sample_uniform sample_uniform",
+     [_u(2, lo=-1.0, hi=0.0), _u(2, lo=1.0, hi=2.0)], {"shape": (3,)},
+     False),
+    ("_sample_normal sample_normal", [_u(2), _u(2, **_POS)],
+     {"shape": (3,)}, False),
+    ("_sample_gamma sample_gamma", [_u(2, **_POS), _u(2, **_POS)],
+     {"shape": (3,)}, False),
+    ("_sample_exponential sample_exponential", [_u(2, **_POS)],
+     {"shape": (3,)}, False),
+    ("_sample_poisson sample_poisson", [_u(2, lo=1.0, hi=3.0)],
+     {"shape": (3,)}, False),
+    ("_sample_negative_binomial sample_negative_binomial",
+     [_c([2.0, 3.0]), _c([0.4, 0.6])], {"shape": (3,)}, False),
+    ("_sample_generalized_negative_binomial "
+     "sample_generalized_negative_binomial",
+     [_u(2, **_POS), _u(2, **_POS)], {"shape": (3,)}, False),
+    ("_sample_multinomial sample_multinomial",
+     [_c([[0.2, 0.3, 0.5], [0.6, 0.3, 0.1]])],
+     {"shape": (4,), "get_prob": True}, False),
+    ("_shuffle shuffle", [_u(5, 2)], {}, False),
+    ("_sample_unique_zipfian", [], {"range_max": 50, "shape": (2, 4)},
+     False),
+]
+RANDOM_OPS = frozenset(name for names, *_ in _RANDOM_CASES
+                       for name in names.split())
 
 
 def op_cases():
@@ -2611,9 +2815,10 @@ def assert_op_case_close(case, got, want, tols=OP_TOL):
             rtol, atol = tols.get(str(a.dtype), (0, 0))
             ok = np.allclose(a.astype(np.float64), b.astype(np.float64),
                              rtol=rtol, atol=atol, equal_nan=True)
-            check(ok, f"{case[0]} {what} {k}: max err "
-                  f"{np.abs(a.astype(np.float64) - b).max()} over rtol "
-                  f"{rtol} atol {atol}")
+            if not ok:
+                check(ok, f"{case[0]} {what} {k}: max err "
+                      f"{np.abs(a.astype(np.float64) - b).max()} over rtol "
+                      f"{rtol} atol {atol}")
 
 
 def dropout_keep_rate(mx, ctx, n=200, p=0.5):
@@ -2641,6 +2846,162 @@ def dropout_keep_rate(mx, ctx, n=200, p=0.5):
                           axes=(0,)).asnumpy()
     check(np.all(z == z[:1]), "Dropout axes: mask not shared along axis 0")
     return kept
+
+
+# The random ops' statistics (slice 13): draws of each distribution on a
+# device, their mean and variance against the closed form within
+# RANDOM_SE standard errors (of the mean: sqrt(var / n); of the variance:
+# sqrt((m4 - var^2) / n), from the draws' fourth moment).
+RANDOM_DRAWS = 10 ** 6
+RANDOM_SE = 5.0
+# (op, parameter arrays (one distribution a row) or None, attrs,
+#  [(mean, variance)] a row)
+RANDOM_MOMENTS = {
+    "_random_uniform": (None, {"low": -1.0, "high": 3.0}, [(1.0, 16 / 12)]),
+    "_random_normal": (None, {"loc": 1.0, "scale": 2.0}, [(1.0, 4.0)]),
+    "_random_gamma": (None, {"alpha": 2.0, "beta": 0.5}, [(1.0, 0.5)]),
+    "_random_exponential": (None, {"lam": 2.0}, [(0.5, 0.25)]),
+    "_random_poisson": (None, {"lam": 3.0}, [(3.0, 3.0)]),
+    "_random_negative_binomial": (None, {"k": 3, "p": 0.4},
+                                  [(4.5, 11.25)]),
+    "_random_generalized_negative_binomial": (
+        None, {"mu": 2.0, "alpha": 0.5}, [(2.0, 4.0)]),
+    "_random_randint": (None, {"low": -2, "high": 5}, [(1.0, 4.0)]),
+    "_sample_uniform": ([[-1.0, 0.0], [1.0, 4.0]], {},
+                        [(0.0, 4 / 12), (2.0, 16 / 12)]),
+    "_sample_normal": ([[0.0, 5.0], [1.0, 0.5]], {},
+                       [(0.0, 1.0), (5.0, 0.25)]),
+    "_sample_gamma": ([[1.0, 3.0], [2.0, 0.5]], {},
+                      [(2.0, 4.0), (1.5, 0.75)]),
+    "_sample_exponential": ([[1.0, 4.0]], {}, [(1.0, 1.0), (0.25, 0.0625)]),
+    "_sample_poisson": ([[2.0, 7.0]], {}, [(2.0, 2.0), (7.0, 7.0)]),
+    "_sample_negative_binomial": ([[2.0, 5.0], [0.5, 0.3]], {},
+                                  [(2.0, 4.0), (35 / 3, 350 / 9)]),
+    "_sample_generalized_negative_binomial": (
+        [[1.0, 3.0], [0.2, 1.0]], {}, [(1.0, 1.2), (3.0, 12.0)]),
+}
+
+
+def random_moments(mx, ctx, name, n=RANDOM_DRAWS):
+    """Check one distribution's draws on ctx (`RANDOM_MOMENTS`); returns
+    [(mean, variance)] a row, measured."""
+    import numpy as np
+
+    params, attrs, want = RANDOM_MOMENTS[name]
+    fn = getattr(mx.nd.op, name)
+    if params is None:
+        draws = fn(shape=(n,), ctx=ctx, **attrs).asnumpy()[None]
+    else:
+        draws = fn(*[mx.nd.array(p, ctx=ctx) for p in params],
+                   shape=(n // len(want),), **attrs).asnumpy()
+    check(draws.dtype == (np.int32 if name == "_random_randint"
+                          else np.float32), f"{name}: dtype {draws.dtype}")
+    if name == "_random_randint":
+        check(draws.min() >= attrs["low"] and draws.max() < attrs["high"],
+              f"randint on {ctx}: a draw outside [low, high)")
+    got = []
+    for row, (mean, var) in zip(draws.astype(np.float64), want):
+        m, v = row.mean(), row.var()
+        se_var = math.sqrt(max(((row - m) ** 4).mean() - v * v, 0.0)
+                           / row.size)
+        check(abs(m - mean) <= RANDOM_SE * math.sqrt(var / row.size)
+              and abs(v - var) <= RANDOM_SE * se_var,
+              f"{name} on {ctx}: mean {m} variance {v}, want {mean} {var} "
+              f"within {RANDOM_SE} standard errors")
+        got.append((float(m), float(v)))
+    return got
+
+
+def random_draw_checks(mx, ctx, n=RANDOM_DRAWS):
+    """Check the random ops' draws on ctx: each distribution's moments
+    (`random_moments`), multinomial frequencies within RANDOM_SE standard
+    errors and its ``get_prob`` the log-probability of each draw,
+    ``shuffle`` a permutation, and zipfian draws distinct in range with
+    the CPU's tries. Returns the measured moments."""
+    import numpy as np
+
+    out = {name: random_moments(mx, ctx, name, n) for name in RANDOM_MOMENTS}
+    p = np.array([[0.2, 0.3, 0.5]], np.float32)
+    idx, lp = mx.nd.random.multinomial(mx.nd.array(p, ctx=ctx), shape=(n,),
+                                       get_prob=True)
+    idx, lp = idx.asnumpy()[0], lp.asnumpy()[0]
+    check(idx.dtype == np.int32, f"multinomial dtype {idx.dtype}")
+    freq = np.bincount(idx, minlength=3) / n
+    check(np.all(np.abs(freq - p[0]) <= RANDOM_SE * np.sqrt(
+        p[0] * (1 - p[0]) / n)), f"multinomial on {ctx}: {freq}")
+    check(np.allclose(lp, np.log(p[0])[idx], rtol=1e-5, atol=1e-6),
+          "multinomial get_prob is not the draws' log-probability")
+    out["_sample_multinomial"] = freq.tolist()
+    perm = mx.nd.shuffle(mx.nd.arange(n, ctx=ctx)).asnumpy()
+    check(np.array_equal(np.sort(perm), np.arange(n, dtype=perm.dtype))
+          and not np.array_equal(perm, np.arange(n)),
+          f"shuffle on {ctx} is not a permutation")
+    samples, tries = mx.nd.op._sample_unique_zipfian(
+        range_max=1000, shape=(4, 50), ctx=ctx)
+    samples, tries = samples.asnumpy(), tries.asnumpy()
+    check(all(len(set(r)) == 50 for r in samples) and samples.min() >= 0
+          and samples.max() < 1000, "zipfian draws repeat or leave range")
+    _, cpu_tries = mx.nd.op._sample_unique_zipfian(range_max=1000,
+                                                    shape=(4, 50),
+                                                    ctx=mx.cpu())
+    check(np.array_equal(tries, cpu_tries.asnumpy()),
+          f"zipfian tries {tries} on {ctx}, {cpu_tries.asnumpy()} on cpu")
+    out["_sample_unique_zipfian_tries"] = tries.tolist()
+    return out
+
+
+def _random_draws(F, x):
+    """Every random op of the frontend once, inside a hybrid block's
+    function: the ``_random_*`` by number parameters, the ``_sample_*``
+    one distribution a row of ``x``, multinomial, shuffle, zipfian."""
+    ones = F.ones_like(x)
+    s = (3,)
+    zipf, tries = F.op._sample_unique_zipfian(range_max=50, shape=(2, 4))
+    return [F.random.uniform(-1, 1, shape=s), F.random.normal(0, 1, shape=s),
+            F.random.gamma(2.0, 1.0, shape=s),
+            F.random.exponential(2.0, shape=s),
+            F.random.poisson(3.0, shape=s),
+            F.random.negative_binomial(3, 0.4, shape=s),
+            F.random.generalized_negative_binomial(2.0, 0.5, shape=s),
+            F.random.randint(0, 9, shape=s),
+            F.random.uniform(x, x + 1), F.random.normal(x, ones),
+            F.random.gamma(ones * 2, ones), F.random.exponential(ones),
+            F.random.poisson(ones * 3),
+            F.random.negative_binomial(ones * 2, ones * 0.5),
+            F.random.generalized_negative_binomial(ones, ones * 0.5),
+            F.random.multinomial(F.softmax(x)), F.random.shuffle(x), zipf,
+            tries]
+
+
+def random_in_graph(mx, ctx, calls=3):
+    """The random ops in a hybridized block on ctx (on a card, captured in
+    its CUDA graph with the device's generator): every call draws anew
+    (the continuous draws all change), the shapes and dtypes are an eager
+    call's, ``shuffle`` permutes its rows and the zipfian tries equal an
+    eager call's. Returns the count of outputs a call."""
+    import numpy as np
+
+    x = np.random.RandomState(0).uniform(-1, 1, (4, 5)).astype(np.float32)
+    with ctx:
+        xs = mx.nd.array(x)
+        eager = [o.asnumpy() for o in _random_draws(mx.nd, xs)]
+        net = mx.gluon.nn.HybridLambda(_random_draws)
+        net.hybridize()
+        runs = [[o.asnumpy() for o in net(xs)] for _ in range(calls)]
+    for run in runs:
+        check([(o.shape, o.dtype) for o in run]
+              == [(o.shape, o.dtype) for o in eager],
+              f"random ops in a graph on {ctx}: shapes or dtypes differ")
+        check(sorted(map(tuple, run[16])) == sorted(map(tuple, x)),
+              f"shuffle in a graph on {ctx} is not a permutation")
+        check(np.array_equal(run[18], eager[18]),
+              f"zipfian tries in a graph on {ctx}: {run[18]}, eager "
+              f"{eager[18]}")
+    continuous = (0, 1, 2, 3, 8, 9, 10, 11)
+    for a, b in zip(runs, runs[1:]):
+        check(all(not np.array_equal(a[i], b[i]) for i in continuous),
+              f"random ops in a graph on {ctx} repeat a call's draws")
+    return len(eager)
 
 
 def nd_train(torch, mx, ctx, dtype, units, widths, classes, batch, size,
@@ -2750,21 +3111,46 @@ def nd_small_card_vs_cpu(torch, mx):
             "max_abs_err": worst, "tol": ND_SMALL_TOL}
 
 
+def assert_random_case_alike(case, got, want):
+    """Raise unless two runs of a random op's case give outputs of the
+    same shapes and dtypes and leave the inputs as they were."""
+    import numpy as np
+
+    check(len(got[0]) == len(want[0]), f"{case[0]}: output counts")
+    for a, b in zip(got[0], want[0]):
+        check(a.shape == b.shape and a.dtype == b.dtype,
+              f"{case[0]}: {a.dtype}{a.shape} vs {b.dtype}{b.shape}")
+    for a, b in zip(got[2], want[2]):
+        check(np.array_equal(a, b), f"{case[0]}: an input changed")
+
+
 def nd_ops_card_vs_cpu(mx):
     """Check (c): every case of the op table, forward and backward, on the
-    card against the CPU; and Dropout's training mode by its statistics on
-    both."""
+    card against the CPU (the random ops' by shape and dtype); Dropout's
+    training mode by its statistics on both; and the random ops' draws by
+    theirs (`random_draw_checks`, 10^6 draws a distribution)."""
     cases = op_cases()
     for case in cases:
         arrays = op_case_arrays(case)
-        assert_op_case_close(case, port_op_case(mx, case, arrays, mx.gpu(0)),
-                             port_op_case(mx, case, arrays, mx.cpu()))
+        got, want = (port_op_case(mx, case, arrays, ctx)
+                     for ctx in (mx.gpu(0), mx.cpu()))
+        if case[1] in RANDOM_OPS:
+            assert_random_case_alike(case, got, want)
+        else:
+            assert_op_case_close(case, got, want)
     kept = {str(ctx): dropout_keep_rate(mx, ctx)
             for ctx in (mx.gpu(0), mx.cpu())}
+    mx.random.seed(0)
+    draws = {str(ctx): random_draw_checks(mx, ctx)
+             for ctx in (mx.gpu(0), mx.cpu())}
     names = {case[1] for case in cases}
     return {"cases": len(cases), "ops": len(names),
+            "random_ops": len(names & RANDOM_OPS),
             "with_grad": sum(1 for c in cases if op_case_grad_inputs(c)),
-            "dropout_kept": kept, "tol": OP_TOL}
+            "dropout_kept": kept, "random_draws": draws,
+            "random_outputs_in_a_graph": random_in_graph(mx, mx.gpu(0)),
+            "random_bound": f"{RANDOM_SE} standard errors of "
+                            f"{RANDOM_DRAWS} draws", "tol": OP_TOL}
 
 
 def nd_phase(torch, smi):
@@ -3215,19 +3601,22 @@ MODULE_SMALL = {"units": [1, 1, 1, 1], "num_stages": 4,
                 "image_shape": (3, 64, 64), "batch": 4}
 # captured against eager steps: `test_fused_step.py:116`'s bounds
 MODULE_FUSED_TOL = {"rtol": 3e-5, "atol": 3e-6}
+# (c) with Adam (slice 13): its fused update in the captured step
+MODULE_ADAM_OPT = {"learning_rate": 0.01, "beta1": 0.5, "wd": 1e-4}
 MODULE_NOISE_INITS = 6  # sets of weights the noise reading draws
 
 
 def module_train(mx, sym_fn, data, label, *, batch, epochs, fused,
                  ctx=None, arg_params=None, aux_params=None, hook=None,
-                 optimizer_params=None):
+                 optimizer_params=None, optimizer="sgd"):
     """`bench.py:684-768`'s `_measure_module` loop, written only against
     the package `mx` it is given (`mxnet_tpu` or `mxnet_tpu_torch`): a
     `mx.mod.Module` over ``sym_fn()`` bound to an `NDArrayIter` over
     ``data`` and ``label`` (unshuffled), its parameters from
     `mx.init.Xavier()` or from ``arg_params`` / ``aux_params`` (numpy
     arrays by name), SGD (lr 0.1, momentum 0.9, wd 1e-4, unless
-    ``optimizer_params`` says otherwise); then ``epochs`` epochs of
+    ``optimizer`` and ``optimizer_params`` say otherwise); then ``epochs``
+    epochs of
     ``if not mod.fused_step(b): mod.forward_backward(b); mod.update()``,
     each step paced by reading a weight its update wrote. ``fused`` sets
     `MXNET_FUSED_STEP` for the run; everything is made on ``ctx``
@@ -3251,7 +3640,7 @@ def module_train(mx, sym_fn, data, label, *, batch, epochs, fused,
                             for k, v in arg_params.items()},
                 aux_params={k: mx.nd.array(v)
                             for k, v in (aux_params or {}).items()})
-        mod.init_optimizer(optimizer="sgd", optimizer_params=tuple(
+        mod.init_optimizer(optimizer=optimizer, optimizer_params=tuple(
             (optimizer_params or MODULE_OPT).items()))
         paced = mod._exec.arg_dict[mod._param_names[-1]]
         outputs = []
@@ -3282,16 +3671,19 @@ def module_small_sym(mx):
 
 def module_state(run):
     """numpy copies of a `module_train` run: each step's first output, the
-    arguments and aux states by name, and each momentum by its
-    parameter's name."""
+    arguments and aux states by name, and each optimizer state by its
+    parameter's name (a state of several tensors, Adam's mean and var, as
+    ``name 0``, ``name 1``)."""
     mod = run["mod"]
     arg, aux = mod.get_params()
     moms = {}
     for i, name in enumerate(mod._param_names):
         state = mod._updater.states.get(i)
-        if state is not None:
-            moms[name] = _to_numpy(state[0] if isinstance(state, tuple)
-                                   else state)
+        if isinstance(state, tuple):
+            moms.update({f"{name} {j}": _to_numpy(t)
+                         for j, t in enumerate(state) if t is not None})
+        elif state is not None:
+            moms[name] = _to_numpy(state)
     return {"outputs": [o.asnumpy() for o in run["outputs"]],
             "params": {k: v.asnumpy() for k, v in {**arg, **aux}.items()},
             "moms": moms}
@@ -3489,12 +3881,35 @@ def module_small_batches(seed, n):
                          MODULE_SMALL["num_classes"])
 
 
-def module_small_run(mx, ctx, init, n, *, fused=True, opt=None, seed=0):
+def module_small_run(mx, ctx, init, n, *, fused=True, opt=None, seed=0,
+                     optimizer="sgd"):
     data, label = module_small_batches(seed, n)
     return module_train(mx, module_small_sym(mx), data, label,
                         batch=MODULE_SMALL["batch"], epochs=1, fused=fused,
                         ctx=ctx, arg_params=init[0], aux_params=init[1],
-                        optimizer_params=opt)
+                        optimizer_params=opt, optimizer=optimizer)
+
+
+def module_adam_run(mx, ctx, fused, steps=5):
+    """``steps`` Adam steps (`MODULE_ADAM_OPT`) of `bench.py`'s MLP
+    (`serve_mlp_symbol`) from Xavier weights drawn on the CPU after seed 0.
+    An MLP, not the small ResNet: Adam divides each step by the root of
+    its second moment, so a parameter whose gradient nearly cancels (the
+    ResNet's first BatchNorm gamma, ~1e-5) takes a step of ~lr whatever
+    the sign of its rounding noise, and captured and eager part by ~lr
+    there however exact the update is."""
+    import numpy as np
+
+    m = SERVE_MLP
+    arg, _ = serve_mlp_module(mx, mx.cpu(), seed=0).get_params()
+    rng = np.random.RandomState(5)
+    n = steps * m["batch"]
+    data = rng.uniform(-1, 1, (n, m["dim"])).astype(np.float32)
+    label = rng.randint(0, m["classes"], n).astype(np.float32)
+    return module_train(mx, lambda: serve_mlp_symbol(mx), data, label,
+                        batch=m["batch"], epochs=1, fused=fused, ctx=ctx,
+                        arg_params={k: v.asnumpy() for k, v in arg.items()},
+                        optimizer="adam", optimizer_params=MODULE_ADAM_OPT)
 
 
 def module_dropout(mx, ctx, steps=3, p=0.5):
@@ -3606,6 +4021,18 @@ def module_checks(mx, workdir):
         d = module_compare("module small captured vs eager, FactorScheduler",
                            module_state(sched_runs[True]),
                            module_state(sched_runs[False]), MODULE_FUSED_TOL)
+        # slice 13: Adam's fused update, its bias-corrected rate read from
+        # the device at each replay; one capture for the five steps
+        adam_runs = {fused: module_adam_run(mx, card, fused)
+                     for fused in (True, False)}
+        adam = module_compare("module MLP captured vs eager, Adam",
+                              module_state(adam_runs[True]),
+                              module_state(adam_runs[False]),
+                              MODULE_FUSED_TOL)
+    steps = adam_runs[True]["mod"]._exec._steps
+    check(steps.misses == 1 and steps.hits == 4,
+          f"module Adam: {steps.misses} captures, {steps.hits} replays")
+    adam.update(captures=steps.misses, replays=steps.hits)
     d["lr_after"] = sched_runs[True]["mod"]._optimizer.lr_scheduler(
         sched_runs[True]["mod"]._optimizer.num_update)
     # (e): a short last batch pads into the captured graph: 5 rows in an
@@ -3647,6 +4074,8 @@ def module_checks(mx, workdir):
     return {"small": MODULE_SMALL, "b": dict(b, tol=ND_SMALL_TOL),
             "c": dict(c, tol=MODULE_FUSED_TOL),
             "d": dict(d, tol=MODULE_FUSED_TOL),
+            "c_adam": dict(adam, optimizer=MODULE_ADAM_OPT,
+                           tol=MODULE_FUSED_TOL),
             "e": {"captures_5_rows_in_batch_4": after_iter,
                   "captures_after_1_row_batch": after_short,
                   "output_rows": short_rows},
@@ -4966,6 +5395,379 @@ def overlap_phase(torch, smi, workdir, state):
             "kernel_launches": launches}
 
 
+# --- the gan phase (slice 13): a full-width DCGAN ----------------------------
+
+# the published DCGAN (Radford, Metz and Chintala 2016; the defaults of
+# MXNet's example/gluon/dc_gan/dcgan.py): 64 x 64 x 3, batch 64
+GAN_FULL = {"nz": 100, "ngf": 64, "ndf": 64, "nc": 3, "size": 64,
+            "batch": 64}
+GAN_OPT = {"learning_rate": 2e-4, "beta1": 0.5}  # example/gluon/dcgan.py
+GAN_WARMUP, GAN_TIMED = 3, 20
+GAN_POOL = 4  # batches of real images, made once and cycled
+# check (b): the example's widths at batch 8, two D/G iterations
+GAN_SMALL = {"nz": 16, "ngf": 16, "ndf": 16, "nc": 1, "size": 16,
+             "batch": 8, "iters": 2}
+GAN_MARGIN = 0.15  # d-real-minus-fake, test_examples.py:114-121
+GAN_EXAMPLE = "example/gluon/dcgan.py"
+
+
+def dcgan_nets(mx, nz, ngf, ndf, nc, size):
+    """`example/gluon/dcgan.py`'s generator and discriminator, written only
+    against the package ``mx`` it is given, for ``size`` x ``size`` images
+    (a power of two, 16 or more): the generator goes from the noise's 1 x 1
+    through 4 x 4 up to ``size`` by stride-2 `Conv2DTranspose` layers with
+    BatchNorm and relu, widths ngf * 2^k down to ngf, then to ``nc``
+    channels and tanh; the discriminator mirrors it with `Conv2D`,
+    `LeakyReLU(0.2)` and BatchNorm (none on its first layer) down to a
+    1-channel `Conv2D(4, 1, 0)`. At 16 it is the example's three-layer net
+    (``nz`` is the noise's channel count, which the first layer infers)."""
+    nn = mx.gluon.nn
+    stages = int(round(math.log2(size // 4)))
+    check(size == 4 * 2 ** stages and stages >= 2,
+          f"dcgan_nets: size {size} is not a power of two >= 16")
+    netG = nn.HybridSequential()
+    with netG.name_scope():
+        for i in range(stages):
+            first = i == 0
+            netG.add(nn.Conv2DTranspose(ngf * 2 ** (stages - 1 - i), 4,
+                                        1 if first else 2, 0 if first else 1,
+                                        use_bias=False))
+            netG.add(nn.BatchNorm())
+            netG.add(nn.Activation("relu"))
+        netG.add(nn.Conv2DTranspose(nc, 4, 2, 1, use_bias=False))
+        netG.add(nn.Activation("tanh"))
+    netD = nn.HybridSequential()
+    with netD.name_scope():
+        netD.add(nn.Conv2D(ndf, 4, 2, 1, use_bias=False))
+        netD.add(nn.LeakyReLU(0.2))
+        for i in range(1, stages):
+            netD.add(nn.Conv2D(ndf * 2 ** i, 4, 2, 1, use_bias=False))
+            netD.add(nn.BatchNorm())
+            netD.add(nn.LeakyReLU(0.2))
+        netD.add(nn.Conv2D(1, 4, 1, 0, use_bias=False))
+    return netG, netD
+
+
+def dcgan_real_images(n, size=16, nc=1, seed=0):
+    """`example/gluon/dcgan.py`'s `real_images` at any size and channel
+    count: noise near -1 with a bright centred blob (at 16 x 16 x 1 the
+    example's own draws)."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    x = rng.rand(n, nc, size, size).astype(np.float32) * 0.2 - 1.0
+    lo, hi = 5 * size // 16, 11 * size // 16
+    x[:, :, lo:hi, lo:hi] += 1.6
+    return np.clip(x, -1, 1)
+
+
+def dcgan_iteration(mx, nets, trainers, loss_fn, real, noise, labels):
+    """One iteration of the example's loop: the D step (D on the real
+    batch and on the generated one, detached, under one `record()`), then
+    the G step. Returns (errD, errG, D's outputs on real, on fake)."""
+    netG, netD = nets
+    trainerG, trainerD = trainers
+    real_label, fake_label = labels
+    bs = real.shape[0]
+    with mx.autograd.record():
+        out_real = netD(real).reshape((-1,))
+        err_real = loss_fn(out_real, real_label)
+        fake = netG(noise)
+        out_fake = netD(fake.detach()).reshape((-1,))
+        err_fake = loss_fn(out_fake, fake_label)
+        errD = err_real + err_fake
+    errD.backward()
+    trainerD.step(bs)
+    with mx.autograd.record():
+        out = netD(netG(noise)).reshape((-1,))
+        errG = loss_fn(out, real_label)
+    errG.backward()
+    trainerG.step(bs)
+    return errD, errG, out_real, out_fake
+
+
+def dcgan_setup(mx, ctx, cfg, weights_seed=None, hybridize=True):
+    """The nets (hybridized unless told not), their Adam trainers, the
+    loss and the labels on ctx. Weights: `mx.init.Normal(0.02)`, or with
+    ``weights_seed`` every convolution's drawn from numpy's N(0, 0.02)
+    (the same on any package and device; BatchNorm keeps its initial
+    gamma 1, beta 0 and stats)."""
+    import numpy as np
+
+    nets = dcgan_nets(mx, cfg["nz"], cfg["ngf"], cfg["ndf"], cfg["nc"],
+                      cfg["size"])
+    with ctx:
+        for net in nets:
+            net.initialize(mx.init.Normal(0.02), ctx=ctx)
+        # the deferred shapes, then the numpy weights
+        fake = nets[0](mx.nd.zeros((1, cfg["nz"], 1, 1), ctx=ctx))
+        nets[1](fake)
+        if weights_seed is not None:
+            rng = np.random.RandomState(weights_seed)
+            for net in nets:
+                for name, p in sorted(
+                        net._collect_params_with_prefix().items()):
+                    if name.endswith("weight"):
+                        p.set_data(mx.nd.array(rng.normal(
+                            0, 0.02, p.shape).astype(np.float32), ctx=ctx))
+        for net in nets:
+            if hybridize:
+                net.hybridize()
+        trainers = tuple(mx.gluon.Trainer(net.collect_params(), "adam",
+                                          dict(GAN_OPT)) for net in nets)
+        bs = cfg["batch"]
+        labels = (mx.nd.ones((bs,), ctx=ctx), mx.nd.zeros((bs,), ctx=ctx))
+    return nets, trainers, mx.gluon.loss.SigmoidBinaryCrossEntropyLoss(), \
+        labels
+
+
+def dcgan_adam_moments(trainer):
+    """{parameter index: [mean, var]} of a gluon Trainer's Adam states,
+    numpy, on either package."""
+    upd = getattr(trainer, "_updater", None) or trainer._updaters[0]
+    return {i: [_to_numpy(t) for t in s] for i, s in upd.states.items()}
+
+
+def dcgan_state(mx, nets, trainers):
+    """The nets' parameters (weights and BatchNorm stats) by structural
+    name and both trainers' Adam moments, numpy."""
+    out = {}
+    for tag, net, trainer in zip("GD", nets, trainers):
+        for name, p in net._collect_params_with_prefix().items():
+            out[f"{tag} {name}"] = p.data().asnumpy()
+        for i, (m, v) in dcgan_adam_moments(trainer).items():
+            out[f"{tag} adam mean {i}"], out[f"{tag} adam var {i}"] = m, v
+    return out
+
+
+def dcgan_small_run(mx, ctx, cfg=GAN_SMALL, seed=0, hybridize=True):
+    """Check (b)'s run and the CPU test's: the DCGAN of ``cfg`` from the
+    weights of ``seed``, stepped ``cfg["iters"]`` iterations on numpy's
+    real images and noise. Returns (losses [errD, errG] an iteration,
+    `dcgan_state`)."""
+    import numpy as np
+
+    nets, trainers, loss_fn, labels = dcgan_setup(
+        mx, ctx, cfg, weights_seed=seed, hybridize=hybridize)
+    bs = cfg["batch"]
+    real = dcgan_real_images(bs * cfg["iters"], cfg["size"], cfg["nc"],
+                             seed + 1)
+    rng = np.random.RandomState(seed + 2)
+    losses = []
+    for it in range(cfg["iters"]):
+        noise = rng.normal(0, 1, (bs, cfg["nz"], 1, 1)).astype(np.float32)
+        errD, errG, _, _ = dcgan_iteration(
+            mx, nets, trainers, loss_fn,
+            mx.nd.array(real[it * bs:(it + 1) * bs], ctx=ctx),
+            mx.nd.array(noise, ctx=ctx), labels)
+        losses.append([errD.asnumpy(), errG.asnumpy()])
+    return losses, dcgan_state(mx, nets, trainers)
+
+
+def dcgan_flop(cfg):
+    """One iteration's FLOP in the convolutions and transposed
+    convolutions, from the shapes: each call that is backpropagated counts
+    3 x its forward (data and weight gradients), the D step's generator
+    call 1 x; so 9 D forwards and 4 G forwards. Returns (iteration, G
+    forward, D forward)."""
+    b, size = cfg["batch"], cfg["size"]
+    stages = int(round(math.log2(size // 4)))
+    g_chans = [cfg["nz"]] + [cfg["ngf"] * 2 ** (stages - 1 - i)
+                             for i in range(stages)] + [cfg["nc"]]
+    g = 0
+    for i in range(stages + 1):
+        hw_in = 1 if i == 0 else 4 * 2 ** (i - 1)
+        g += 2 * b * g_chans[i] * hw_in ** 2 * g_chans[i + 1] * 16
+    d_chans = [cfg["nc"]] + [cfg["ndf"] * 2 ** i for i in range(stages)] \
+        + [1]
+    d = 0
+    for i in range(stages + 1):
+        hw_out = 1 if i == stages else size // 2 ** (i + 1)
+        d += 2 * b * d_chans[i + 1] * hw_out ** 2 * d_chans[i] * 16
+    return 9 * d + 4 * g, g, d
+
+
+def dcgan_signatures(net):
+    """A hybridized net's captured instances by signature: the train and
+    recording flags, whether its data input needs a gradient, and the
+    instance count."""
+    return [{"train": key[0], "recording": key[1],
+             "data_requires_grad": key[2][-1][3], "instances": n}
+            for key, n in net._cached_op.instances().items()]
+
+
+def run_dcgan_example(argv, ctx=None):
+    """`example/gluon/dcgan.py` run through the port with only its imports
+    changed (``mxnet_tpu`` -> ``mxnet_tpu_torch``), on ``ctx`` (default: the
+    port's default context, the card). Returns its two figures
+    (``blob-minus-border``, ``d-real-minus-fake``)."""
+    import io
+    import re
+
+    import mxnet_tpu_torch as mx
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        GAN_EXAMPLE)
+    with open(path) as f:
+        src = f.read()
+    src, n = re.subn(r"^(import|from) mxnet_tpu\b", r"\1 mxnet_tpu_torch",
+                     src, flags=re.M)
+    check(n == 3, f"{GAN_EXAMPLE}: {n} imports of mxnet_tpu, want 3")
+    ns = {"__name__": "dcgan_example", "__file__": path}
+    exec(compile(src, path, "exec"), ns)
+    out, old_argv = io.StringIO(), sys.argv
+    sys.argv = [path] + list(argv)
+    try:
+        with contextlib.redirect_stdout(out), ctx or mx.current_context():
+            ns["main"]()
+    finally:
+        sys.argv = old_argv
+    figures = dict(line.split(":", 1) for line in out.getvalue().split()
+                   if ":" in line)
+    return {k: float(v) for k, v in figures.items()}
+
+
+def gan_full_width(torch, mx, smi):
+    """The published DCGAN on the card (`GAN_FULL`, `GAN_OPT`): both nets
+    hybridized, fp32 (TF32 off), `GAN_WARMUP` iterations then `GAN_TIMED`
+    timed ones of the example's loop (its four reads of each iteration
+    included); checks (a) and (c). Returns the line and a function that
+    runs one more iteration."""
+    import numpy as np
+
+    from mxnet_tpu_torch import observatory
+
+    cfg = GAN_FULL
+    bs = cfg["batch"]
+    ctx = mx.gpu(0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mx.random.seed(0)
+    nets, trainers, loss_fn, labels = dcgan_setup(mx, ctx, cfg)
+    stats0 = {k: v for k, v in dcgan_state(mx, nets, trainers).items()
+              if "running" in k}
+    pool = [mx.nd.array(x, ctx=ctx) for x in np.split(dcgan_real_images(
+        bs * GAN_POOL, cfg["size"], cfg["nc"], seed=1), GAN_POOL)]
+    state = {"i": 0}
+
+    def one():
+        real = pool[state["i"] % GAN_POOL]
+        state["i"] += 1
+        noise = mx.nd.random.normal(0, 1, shape=(bs, cfg["nz"], 1, 1),
+                                    ctx=ctx)
+        return dcgan_iteration(mx, nets, trainers, loss_fn, real, noise,
+                               labels)
+
+    def reads(res):
+        errD, errG, out_real, out_fake = res
+        return [float(errD.mean().asnumpy()), float(errG.mean().asnumpy()),
+                float(out_real.sigmoid().mean().asnumpy()),
+                float(out_fake.sigmoid().mean().asnumpy())]
+
+    losses, wall, host = [], [], []
+    captures = None
+    for i in range(GAN_WARMUP + GAN_TIMED):
+        if i == GAN_WARMUP:
+            captures = [net._cached_op.captures for net in nets]
+        t0 = time.perf_counter()
+        res = one()
+        t1 = time.perf_counter()
+        losses.append(reads(res))
+        t2 = time.perf_counter()
+        if i >= GAN_WARMUP:
+            host.append(t1 - t0)
+            wall.append(t2 - t0)
+    after = [net._cached_op.captures for net in nets]
+    peak = torch.cuda.max_memory_allocated()
+    # (a): finite losses, every moving stat moved
+    check(all(math.isfinite(v) for row in losses for v in row),
+          f"gan: a non-finite loss in {losses}")
+    moved = dcgan_state(mx, nets, trainers)
+    unmoved = [k for k, v in stats0.items() if np.array_equal(moved[k], v)]
+    check(not unmoved, f"gan: moving stats unchanged: {unmoved}")
+    # (c): every capture in the warm-up
+    check(after == captures, f"gan: captures {captures} after the warm-up, "
+          f"{after} after the timed iterations")
+    sigs = {"netG": dcgan_signatures(nets[0]),
+            "netD": dcgan_signatures(nets[1])}
+    check(any(not s["data_requires_grad"] and s["recording"]
+              and s["instances"] == 2 for s in sigs["netD"]),
+          f"gan: netD's recorded no-grad signature does not hold two "
+          f"instances: {sigs['netD']}")
+    flop, g_flop, d_flop = dcgan_flop(cfg)
+    iter_ms = statistics.median(wall) * 1e3
+    peak_fp32 = observatory.peaks()["matmul_flops"]["float32"]
+    bound_ms = flop / peak_fp32 * 1e3
+    return {"config": dict(cfg, **GAN_OPT, optimizer="adam",
+                           dtype="float32, TF32 off"),
+            "source": "Radford, Metz and Chintala 2016; MXNet "
+                      "example/gluon/dc_gan/dcgan.py defaults",
+            "warmup": GAN_WARMUP, "timed": GAN_TIMED,
+            "losses_d_g_dreal_dfake": losses,
+            "iteration_ms": [w * 1e3 for w in wall],
+            "median_iteration_ms": iter_ms,
+            "img_per_s": bs / iter_ms * 1e3,
+            "median_host_ms": statistics.median(host) * 1e3,
+            "iteration_flop": flop, "g_forward_flop": g_flop,
+            "d_forward_flop": d_flop, "peak_fp32_flops": peak_fp32,
+            "bound_ms": bound_ms, "bound_by": "operations",
+            "bound_share": bound_ms / iter_ms,
+            "sheet_bound_share": flop / PEAK_FLOPS["float32"] * 1e3
+            / iter_ms,
+            "captures_g_d": after, "signatures": sigs,
+            "peak_mem_gb": peak / 1e9, "card": smi}, one
+
+
+def gan_phase(torch, smi):
+    """Slice 13's path: the full-width DCGAN (`gan_full_width`, checks (a)
+    and (c)), one more iteration under torch.profiler (host launch calls,
+    idle share), the repo's example at its defaults through the port (its
+    ``d-real-minus-fake`` above `GAN_MARGIN`), and check (b): the small
+    DCGAN on the card against the CPU under cuDNN's deterministic
+    algorithms. (e): no kernel launch. (d), the new ops' cases and the
+    random ops' draws, runs in the nd phase. Returns the line and the
+    profile."""
+    import numpy as np
+
+    import mxnet_tpu_torch as mx
+
+    reset_launches()
+    full, one_more = gan_full_width(torch, mx, smi)
+    launches = read_launches()
+    check(not any(launches.values()),
+          f"the gan path launched kernels: {launches}")
+    profile = profile_step(torch, one_more, must_run=("convolution",))
+    full["host_launch_calls"] = profile["host_launch_calls"]
+    full["idle_share"] = profile["idle_share"]
+    full["profile"] = profile_summary(profile)
+    example = run_dcgan_example([], ctx=mx.gpu(0))
+    check(example.get("d-real-minus-fake", -1) > GAN_MARGIN,
+          f"gan: the example's figures {example}, want d-real-minus-fake "
+          f"> {GAN_MARGIN}")
+    with cudnn_deterministic():
+        card = dcgan_small_run(mx, mx.gpu(0))
+    cpu = dcgan_small_run(mx, mx.cpu())
+    worst = 0.0
+    pairs = [(f"losses {i}", np.asarray(a, np.float64),
+              np.asarray(b, np.float64))
+             for i, (a, b) in enumerate(zip(card[0], cpu[0]))]
+    pairs += [(k, v, cpu[1][k]) for k, v in card[1].items()]
+    for what, a, b in pairs:
+        err = float(np.abs(a - b).max())
+        worst = max(worst, err)
+        check(np.allclose(a, b, **ND_SMALL_TOL),
+              f"gan small card vs CPU: {what} max err {err} over "
+              f"{ND_SMALL_TOL}")
+    return {"full_width": full, "kernel_launches": launches,
+            "example": dict(example, margin=GAN_MARGIN,
+                            argv="defaults: nz 16, ngf = ndf = 16, 16 x 16 "
+                                 "x 1, batch 32, 256 examples, 3 epochs"),
+            "small_card_vs_cpu": {"config": GAN_SMALL,
+                                  "compared": len(pairs),
+                                  "max_abs_err": worst,
+                                  "tol": ND_SMALL_TOL}}, profile
+
+
 def profiler_phase(torch, lm_state, smi):
     """``mx.profiler`` on the card: one full-width train step (bf16, 8 x
     2048) between `profiler.start` and `dump`, under a span, with
@@ -5496,6 +6298,8 @@ def main(argv=None):
         overlap = overlap_phase(torch, smi, workdir, generated)
     del generated
     progress("overlap")
+    gan, gan_profile = gan_phase(torch, smi)
+    progress("gan")
     kernels = kernels_phase(torch, fa, gcm, {
         "train": train["kernel_launches"],
         "ring": ring["kernel_launches"],
@@ -5506,7 +6310,8 @@ def main(argv=None):
         "gluon": gluon["kernel_launches"],
         "module": module["kernel_launches"],
         "serve": serve["kernel_launches"],
-        "overlap": overlap["kernel_launches"]})
+        "overlap": overlap["kernel_launches"],
+        "gan": gan["kernel_launches"]})
     emit(kernels=kernels)
     emit(train=train, small_reference=small)
     emit(ring=ring, small_reference=small_ring)
@@ -5520,6 +6325,7 @@ def main(argv=None):
     emit(serve=serve)
     emit(observe=observe)
     emit(overlap=overlap)
+    emit(gan=gan)
     if args.profile:
         def one_more_step(state_of_path):
             _, step, state, tokens, targets = state_of_path
@@ -5538,7 +6344,7 @@ def main(argv=None):
                                              name.startswith("update") else (
                 "convolution", "batchnorm"))
                for name, step in gluon_steps.items()},
-            **module_profiles, **serve_profiles}
+            **module_profiles, **serve_profiles, "gan": gan_profile}
         with open(args.profile, "w") as f:
             json.dump(profiles, f, indent=1)
         emit(profile={"path": args.profile, **{

@@ -13,9 +13,11 @@ points run on ``cuda`` unless the caller passes ``device="cpu"``, and raise
 when no card is present.
 
 Ported so far: the NDArray runtime, the op registry with the elementwise,
-broadcast, reduction, shape, indexing, creation, ResNet and SGD op families,
-and autograd on torch's engine (`ndarray`, `ops`, `autograd`, `random`,
-`context`); `models.transformer.TransformerLM` (dense forward, loss and
+broadcast, reduction, shape, indexing, creation, neural-network, random,
+CTC and optimizer-update op families, and autograd on torch's engine
+(`ndarray`, `ops`, `autograd`, `random`, `context`); every optimizer of
+the JAX package (`optimizer`, SGD, NAG and Adam with a fused multi-tensor
+update); `models.transformer.TransformerLM` (dense forward, loss and
 the Adam train step) with the flash-attention forward kernel
 (`ops.flash_attention`); data-parallel training through the kvstore
 (`gluon.Trainer`, `kvstore`, `parallel.dist`, `optimizer`, `model`) with

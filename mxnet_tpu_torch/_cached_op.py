@@ -9,12 +9,12 @@ autograd records) runs the function twice eagerly on a side stream (the
 set-up that a capture must not see: cuDNN's algorithm choice, workspace),
 then captures it once as a `torch.cuda.CUDAGraph`, and under recording
 captures its backward too: `torch.autograd.grad` of the outputs that need
-a gradient against static cotangent buffers. Each signature's graphs have
-their own memory pool. Every later call copies its inputs into the graph's
-static input buffers, replays the forward graph and returns copies of its
-outputs; under recording it is one node of torch's autograd graph (one
-`torch.autograd.Function`), whose backward copies the cotangents in and
-replays the backward graph. This is the pattern of
+a gradient against static cotangent buffers. Each instance's graphs (see
+below) have their own memory pool. Every later call copies its inputs into
+the graph's static input buffers, replays the forward graph and returns
+copies of its outputs; under recording it is one node of torch's autograd
+graph (one `torch.autograd.Function`), whose backward copies the
+cotangents in and replays the backward graph. This is the pattern of
 `torch.cuda.make_graphed_callables`. A capture that fails raises; nothing
 falls back to eager calls. On the CPU a call runs the function eagerly,
 op by op, as the JAX package's eager path does.
@@ -33,12 +33,22 @@ first call moves them once.
 A generator of the port's (`mxnet_tpu_torch.random`) is registered with
 each graph, so a replay draws new random numbers (Dropout).
 
-A replay overwrites the activations that the previous call's backward
-needs, so calling the op again under `record()` before that backward raises
-when the backward runs, as the reference's static_alloc CachedOp reuses
-its buffers.
+A replay overwrites the activations that its call's backward needs, so
+each signature keeps a small pool of captured instances (`_Pool`), each
+with its own graphs, static buffers and memory pool. A call under
+`record()` takes an instance whose backward is not pending, and captures
+a new one when every instance has a pending backward; the backward
+replays its own call's instance and then frees it, and an instance whose
+recorded output is dropped without a backward is freed when that
+output's autograd node is released. So a block called twice under one
+`record()` before its backward (the DCGAN discriminator on the real and
+the generated batch) holds two instances of one signature, and later
+iterations capture nothing, as the JAX package's traced program runs that
+loop.
 """
 from __future__ import annotations
+
+import threading
 
 import torch
 
@@ -65,9 +75,22 @@ class CachedOp:
     @property
     def graphs(self):
         """The CUDA graphs captured: a forward, and under recording a
-        backward, for each signature."""
+        backward, for each instance of each signature."""
         return sum(1 + (p.bwd_graph is not None)
-                   for p in self._cache.values())
+                   for pool in self._cache.values() for p in pool.instances)
+
+    @property
+    def captures(self):
+        """Instances captured, over every signature."""
+        return sum(len(pool.instances) for pool in self._cache.values())
+
+    def instances(self):
+        """{signature: instances captured}; a signature is (train,
+        recording, ((shape, dtype, device, requires_grad) of each
+        input))."""
+        return {key: len(pool.instances)
+                for key, pool in zip(self._cache.keys(),
+                                     self._cache.values())}
 
     def __call__(self, *inputs):
         from .ndarray.ndarray import NDArray
@@ -75,48 +98,117 @@ class CachedOp:
         tensors = [a._data for a in inputs if isinstance(a, NDArray)]
         if len(tensors) != len(inputs):
             raise TypeError("CachedOp inputs must be NDArrays")
-        if not tensors or not tensors[0].is_cuda:
+        if not tensors or not _graphed(tensors[0]):
             return self._fn(*inputs)
         train = bool(autograd.is_training())
         recording = autograd.is_recording()
         key = (train, recording, tuple(
             (tuple(t.shape), t.dtype, t.device, t.requires_grad)
             for t in tensors))
-        prog = self._cache.get_or_build(key, lambda: _GraphProgram(
-            self._fn, inputs, self._n_state, train, recording))
+
+        def build(owner=None):
+            return _GraphProgram(self._fn, inputs, self._n_state, train,
+                                 recording, owner=owner)
+
+        pool = self._cache.get_or_build(key, lambda: _Pool(build))
+        prog, generation = pool.take(recording)
         if recording:
             for a in inputs:
                 autograd._note_input(a)
-            outs = _Replay.apply(prog, *tensors)
+            outs = _Replay.apply(_Held(pool, prog, generation), *tensors)
         else:
             outs = prog.forward(tensors)
         out_nds = [NDArray(o) for o in outs]
         return out_nds[0] if len(out_nds) == 1 else out_nds
 
 
-class _Replay(torch.autograd.Function):
-    """One node of the autograd graph for one replay of a program."""
+def _graphed(tensor):
+    """Whether a call on ``tensor`` replays captured graphs (a CUDA
+    tensor) or runs the function eagerly."""
+    return tensor.is_cuda
+
+
+class _Pool:
+    """The captured instances of one signature. A recorded call holds its
+    instance until its backward has run or its autograd node is
+    released; an instance nobody holds serves the next call."""
+
+    def __init__(self, build):
+        self._build = build
+        # reentrant: a hold released by the collector inside `take`
+        self._lock = threading.RLock()
+        self.instances = [build()]  # counted by the cache's build
+
+    def take(self, recording):
+        """An instance for one call and the generation that the call
+        writes into it: a free one, else a new capture. A recorded call
+        holds it until `release`."""
+        with self._lock:
+            prog = next((p for p in self.instances if not p.held), None)
+            if prog is not None:
+                return self._hold(prog, recording)
+        prog = self._build(owner=self)
+        with self._lock:
+            self.instances.append(prog)
+            return self._hold(prog, recording)
 
     @staticmethod
-    def forward(ctx, prog, *tensors):
+    def _hold(prog, recording):
+        prog.generation += 1
+        prog.held = recording
+        return prog, prog.generation
+
+    def release(self, prog, generation):
+        """Free ``prog`` if the call of ``generation`` still holds it."""
+        with self._lock:
+            if prog.generation == generation:
+                prog.held = False
+
+
+class _Held:
+    """One recorded call's hold on its instance, kept on the autograd
+    node's context: when the node is released without a backward, so is
+    the instance."""
+
+    __slots__ = ("pool", "prog", "generation")
+
+    def __init__(self, pool, prog, generation):
+        self.pool, self.prog, self.generation = pool, prog, generation
+
+    def __del__(self):
+        self.pool.release(self.prog, self.generation)
+
+
+class _Replay(torch.autograd.Function):
+    """One node of the autograd graph for one replay of an instance."""
+
+    @staticmethod
+    def forward(ctx, held, *tensors):
+        prog = held.prog
         outs = prog.forward(tensors)
-        ctx.prog, ctx.generation = prog, prog.generation
+        ctx.held = held
         ctx.mark_non_differentiable(*[
             o for i, o in enumerate(outs) if i not in prog.diff_outs])
         return tuple(outs)
 
     @staticmethod
     def backward(ctx, *cts):
-        return (None,) + ctx.prog.backward(ctx.generation, cts)
+        held = ctx.held
+        grads = held.prog.backward(held.generation, cts)
+        held.pool.release(held.prog, held.generation)
+        return (None,) + grads
 
 
 class _GraphProgram:
     """The forward (and under recording the backward) of ``fn`` at one
-    signature, captured as CUDA graphs from ``inputs``."""
+    signature, captured as CUDA graphs from ``inputs``: one instance of a
+    `_Pool`. ``generation`` counts the calls that took it and ``held``
+    says whether a recorded call's backward is still to come."""
 
-    def __init__(self, fn, inputs, n_state, train, recording):
+    def __init__(self, fn, inputs, n_state, train, recording, owner=None):
         self.fn, self.train, self.recording = fn, train, recording
         self.generation = 0
+        self.held = False
         tensors = [a._data for a in inputs]
         self.device = tensors[0].device
         self.n_state = n_state
@@ -128,7 +220,7 @@ class _GraphProgram:
             .requires_grad_(t.requires_grad) for i, t in enumerate(tensors)]
         self.pool = torch.cuda.graph_pool_handle()
         self.gen = _random.generator(self.device)
-        with capture_stream(self.device) as stream:
+        with capture_stream(self.device, owner) as stream:
             self.mutated = self._warm_up()
             self.fwd_graph, self.static_outs = capture_on(
                 stream, self._run, self.pool, self.gen)
@@ -206,7 +298,6 @@ class _GraphProgram:
             for t, s in moved:
                 t.copy_(s)
             outs = [o.detach().clone() for o in self.static_outs]
-        self.generation += 1
         return outs
 
     def backward(self, generation, cts):
@@ -215,9 +306,9 @@ class _GraphProgram:
         buffers, which the next replay overwrites."""
         if generation != self.generation:
             raise MXNetError(
-                "a hybridized block was called again under record() before "
-                "the backward of an earlier call; its captured graph keeps "
-                "the activations of the latest call only")
+                "the backward of a hybridized block's call ran after its "
+                "instance served a later call (a second backward of a "
+                "graph whose first one freed it)")
         if self.bwd_graph is None:
             return (None,) * len(self.static_ins)
         with torch.no_grad():

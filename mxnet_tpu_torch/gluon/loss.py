@@ -1,9 +1,7 @@
 """gluon losses: the port of `mxnet_tpu/gluon/loss.py` (parity
 `python/mxnet/gluon/loss.py`). Each loss is a HybridBlock that returns one
-value per sample (the mean over every axis but ``batch_axis``).
-
-`CTCLoss` runs the CTCLoss op (`ops/ctc.py`), which the port has not yet
-(ROADMAP.md queue A, item A.4): constructing one raises NotImplementedError.
+value per sample (the mean over every axis but ``batch_axis``); CTCLoss
+runs the CTCLoss op (`ops/ctc.py`). Every loss of the JAX file is ported.
 """
 from __future__ import annotations
 
@@ -155,12 +153,35 @@ class KLDivLoss(Loss):
 
 
 class CTCLoss(Loss):
-    """Connectionist temporal classification: not ported yet."""
+    """Connectionist temporal classification (Graves et al. 2006): the
+    negative log-likelihood of each label under the unnormalized
+    activations ``pred`` (``layout`` NTC or TNC), the blank the last
+    class, labels padded with -1 (``label_layout`` NT or TN). The optional
+    ``pred_lengths`` and ``label_lengths`` are each sample's lengths."""
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "CTCLoss runs the CTCLoss op (ops/ctc.py), which the port has not "
-            "yet (ROADMAP.md queue A, item A.4)")
+    def __init__(self, layout="NTC", label_layout="NT", weight=None,
+                 **kwargs):
+        if layout not in ("NTC", "TNC"):
+            raise ValueError(
+                f"Only 'NTC' and 'TNC' layouts are supported. Got: {layout}")
+        if label_layout not in ("NT", "TN"):
+            raise ValueError("Only 'NT' and 'TN' label layouts are "
+                             f"supported. Got: {label_layout}")
+        self._layout = layout
+        self._label_layout = label_layout
+        super().__init__(weight, label_layout.find("N"), **kwargs)
+
+    def hybrid_forward(self, F, pred, label, pred_lengths=None,
+                       label_lengths=None, sample_weight=None):
+        if self._layout == "NTC":
+            pred = F.swapaxes(pred, 0, 1)
+        if self._batch_axis == 1:
+            label = F.swapaxes(label, 0, 1)
+        loss = F.CTCLoss(pred, label, pred_lengths, label_lengths,
+                         use_data_lengths=pred_lengths is not None,
+                         use_label_lengths=label_lengths is not None,
+                         blank_label="last")
+        return _apply_weighting(F, loss, self._weight, sample_weight)
 
 
 class HuberLoss(Loss):

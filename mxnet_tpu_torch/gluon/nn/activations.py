@@ -1,10 +1,6 @@
 """gluon.nn activation layers: the port of
-`mxnet_tpu/gluon/nn/activations.py`.
-
-`LeakyReLU`, `PReLU`, `ELU`, `SELU` and `GELU` run the LeakyReLU op, which
-the port has not yet (ROADMAP.md queue A, item 1): constructing one raises
-NotImplementedError.
-"""
+`mxnet_tpu/gluon/nn/activations.py`. `LeakyReLU`, `PReLU`, `ELU`, `SELU`
+and `GELU` run the LeakyReLU op's act types."""
 from __future__ import annotations
 
 from ..block import HybridBlock
@@ -29,31 +25,64 @@ class Activation(HybridBlock):
         return f"{self.__class__.__name__}({self._act_type})"
 
 
-class _NeedsLeakyReLU(HybridBlock):
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            f"{type(self).__name__} runs the LeakyReLU op, which the port "
-            "has not yet (ROADMAP.md queue A, item 1)")
+class LeakyReLU(HybridBlock):
+    """x for x >= 0, else ``alpha`` * x."""
+
+    def __init__(self, alpha, **kwargs):
+        if alpha < 0:
+            raise ValueError(
+                "Slope coefficient for LeakyReLU must be no less than 0.")
+        super().__init__(**kwargs)
+        self._alpha = alpha
+
+    def hybrid_forward(self, F, x):
+        return F.LeakyReLU(x, act_type="leaky", slope=self._alpha,
+                           name="fwd")
+
+    def __repr__(self):
+        return f"{self.__class__.__name__}({self._alpha})"
 
 
-class LeakyReLU(_NeedsLeakyReLU):
-    pass
+class PReLU(HybridBlock):
+    """A leaky ReLU whose slope ``alpha`` is learned (He et al. 2015)."""
+
+    def __init__(self, alpha_initializer=None, **kwargs):
+        from ... import initializer
+
+        super().__init__(**kwargs)
+        if alpha_initializer is None:
+            alpha_initializer = initializer.Constant(0.25)
+        with self.name_scope():
+            self.alpha = self.params.get("alpha", shape=(1,),
+                                         init=alpha_initializer)
+
+    def hybrid_forward(self, F, x, alpha):
+        return F.LeakyReLU(x, alpha, act_type="prelu", name="fwd")
 
 
-class PReLU(_NeedsLeakyReLU):
-    pass
+class ELU(HybridBlock):
+    """x for x >= 0, else ``alpha`` * (exp(x) - 1)."""
+
+    def __init__(self, alpha=1.0, **kwargs):
+        super().__init__(**kwargs)
+        self._alpha = alpha
+
+    def hybrid_forward(self, F, x):
+        return F.LeakyReLU(x, act_type="elu", slope=self._alpha)
 
 
-class ELU(_NeedsLeakyReLU):
-    pass
+class SELU(HybridBlock):
+    """The scaled ELU of Klambauer et al. (2017)."""
+
+    def hybrid_forward(self, F, x):
+        return F.LeakyReLU(x, act_type="selu", name="fwd")
 
 
-class SELU(_NeedsLeakyReLU):
-    pass
+class GELU(HybridBlock):
+    """The Gaussian error linear unit, x * Phi(x) (the erf form)."""
 
-
-class GELU(_NeedsLeakyReLU):
-    pass
+    def hybrid_forward(self, F, x):
+        return F.LeakyReLU(x, act_type="gelu", name="fwd")
 
 
 class Swish(HybridBlock):

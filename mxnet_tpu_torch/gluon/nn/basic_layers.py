@@ -1,11 +1,9 @@
 """gluon.nn basic layers: the port of `mxnet_tpu/gluon/nn/basic_layers.py`
 (Sequential, HybridSequential, Dense, Dropout, Embedding, BatchNorm,
-LayerNorm, Flatten, Lambda, HybridLambda).
+InstanceNorm, LayerNorm, Flatten, Lambda, HybridLambda).
 
 `Embedding` with ``sparse_grad=True`` gives a dense gradient: sparse
-storage is not ported (ROADMAP.md queue A, item 8). `InstanceNorm` runs an
-op the port has not yet (item 1): constructing one raises
-NotImplementedError.
+storage is not ported (ROADMAP.md queue A, item A.7).
 """
 from __future__ import annotations
 
@@ -227,12 +225,42 @@ class BatchNorm(HybridBlock):
 
 
 class InstanceNorm(HybridBlock):
-    """Instance normalization: runs the InstanceNorm op, not ported yet."""
+    """Instance normalization over ``axis`` (Ulyanov et al. 2016): each
+    sample's channels normalized over their other axes; ``gamma`` is
+    learned only with ``scale``, ``beta`` only with ``center``."""
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "InstanceNorm runs the InstanceNorm op, which the port has not "
-            "yet (ROADMAP.md queue A, item 1)")
+    def __init__(self, axis=1, epsilon=1e-5, center=True, scale=False,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 in_channels=0, **kwargs):
+        super().__init__(**kwargs)
+        self._axis = axis
+        self._epsilon = epsilon
+        with self.name_scope():
+            self.gamma = self.params.get(
+                "gamma", grad_req="write" if scale else "null",
+                shape=(in_channels,), init=gamma_initializer,
+                allow_deferred_init=True)
+            self.beta = self.params.get(
+                "beta", grad_req="write" if center else "null",
+                shape=(in_channels,), init=beta_initializer,
+                allow_deferred_init=True)
+
+    def infer_shape(self, x, *args):
+        c = x.shape[self._axis]
+        self.gamma.shape = (c,)
+        self.beta.shape = (c,)
+
+    def hybrid_forward(self, F, x, gamma, beta):
+        if self._axis == 1:
+            return F.InstanceNorm(x, gamma, beta, name="fwd",
+                                  eps=self._epsilon)
+        x = x.swapaxes(1, self._axis)
+        return F.InstanceNorm(x, gamma, beta, name="fwd",
+                              eps=self._epsilon).swapaxes(1, self._axis)
+
+    def __repr__(self):
+        return (f"{self.__class__.__name__}(eps={self._epsilon}, "
+                f"axis={self._axis}, in_channels={self.gamma.shape[0]})")
 
 
 class LayerNorm(HybridBlock):

@@ -1,11 +1,8 @@
 """gluon.nn convolution and pooling layers: the port of
-`mxnet_tpu/gluon/nn/conv_layers.py` (Conv1D/2D/3D, the max, average and
+`mxnet_tpu/gluon/nn/conv_layers.py` (Conv1D/2D/3D, their transposes
+Conv1D/2D/3DTranspose over the Deconvolution op, the max, average and
 global pooling layers in 1, 2 and 3 dims, ReflectionPad2D), NCHW-family
 layouts only.
-
-The transposed convolutions run the Deconvolution op, which the port has
-not yet (ROADMAP.md queue A, item 1): constructing one raises
-NotImplementedError.
 """
 from __future__ import annotations
 
@@ -30,13 +27,16 @@ def _to_tuple(v, n):
 
 
 class _Conv(HybridBlock):
-    """A convolution with an optional bias and activation; the weight is
-    (channels, in_channels / groups, *kernel)."""
+    """A convolution (``op_name`` Convolution, weight (channels,
+    in_channels / groups, *kernel)) or a transposed one (Deconvolution,
+    weight (in_channels, channels / groups, *kernel), ``adj`` its output
+    padding), with an optional bias and activation."""
 
     def __init__(self, channels, kernel_size, strides, padding, dilation,
                  groups, layout, in_channels=0, activation=None,
                  use_bias=True, weight_initializer=None,
-                 bias_initializer="zeros", prefix=None, params=None):
+                 bias_initializer="zeros", op_name="Convolution", adj=None,
+                 prefix=None, params=None):
         super().__init__(prefix=prefix, params=params)
         ndim = len(kernel_size)
         if layout != _LAYOUTS[ndim]:
@@ -52,9 +52,12 @@ class _Conv(HybridBlock):
                 "pad": _to_tuple(padding, ndim), "num_filter": channels,
                 "num_group": groups, "no_bias": not use_bias,
                 "layout": layout}
-            wshape = (channels, in_channels // groups if in_channels else 0) \
-                + tuple(kernel_size)
-            self.weight = self.params.get("weight", shape=wshape,
+            if adj is not None:
+                self._kwargs["adj"] = tuple(adj)
+            self._op_name = op_name
+            self.weight = self.params.get("weight",
+                                          shape=self._weight_shape(
+                                              in_channels),
                                           init=weight_initializer,
                                           allow_deferred_init=True)
             self.bias = self.params.get(
@@ -63,16 +66,22 @@ class _Conv(HybridBlock):
             self.act = Activation(activation, prefix=activation + "_") \
                 if activation is not None else None
 
+    def _weight_shape(self, in_channels):
+        groups = self._kwargs["num_group"]
+        if self._op_name == "Convolution":
+            io = (self._channels, in_channels // groups)
+        else:
+            io = (in_channels, self._channels // groups)
+        return io + tuple(self._kwargs["kernel"])
+
     def infer_shape(self, x, *args):
         in_channels = x.shape[1]
-        self.weight.shape = (self._channels,
-                             in_channels // self._kwargs["num_group"]) \
-            + self._kwargs["kernel"]
+        self.weight.shape = self._weight_shape(in_channels)
         self._in_channels = in_channels
 
     def hybrid_forward(self, F, x, weight, bias=None):
         args = (x, weight) if bias is None else (x, weight, bias)
-        act = F.Convolution(*args, name="fwd", **self._kwargs)
+        act = getattr(F, self._op_name)(*args, name="fwd", **self._kwargs)
         if self.act is not None:
             act = self.act(act)
         return act
@@ -88,6 +97,8 @@ class _Conv(HybridBlock):
             s += ", padding={pad}"
         if k["dilate"] != (1,) * n:
             s += ", dilation={dilate}"
+        if k.get("adj", (0,) * n) != (0,) * n:
+            s += ", output_padding={adj}"
         if k["num_group"] != 1:
             s += ", groups={num_group}"
         if self.bias is None:
@@ -124,23 +135,34 @@ def _conv_class(ndim):
 Conv1D, Conv2D, Conv3D = (_conv_class(n) for n in (1, 2, 3))
 
 
-class _ConvTranspose(HybridBlock):
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            f"{type(self).__name__} runs the Deconvolution op, which the port "
-            "has not yet (ROADMAP.md queue A, item 1)")
+def _conv_transpose_class(ndim):
+    class ConvTranspose(_Conv):
+        def __init__(self, channels, kernel_size, strides=1, padding=0,
+                     output_padding=0, dilation=1, groups=1,
+                     layout=_LAYOUTS[ndim], activation=None, use_bias=True,
+                     weight_initializer=None, bias_initializer="zeros",
+                     in_channels=0, **kwargs):
+            kernel_size = _to_tuple(kernel_size, ndim)
+            output_padding = _to_tuple(output_padding, ndim)
+            if len(kernel_size) != ndim or len(output_padding) != ndim:
+                raise ValueError(f"kernel_size and output_padding must be "
+                                 f"numbers or lists of {ndim} ints")
+            super().__init__(channels, kernel_size, strides, padding,
+                             dilation, groups, layout, in_channels,
+                             activation, use_bias, weight_initializer,
+                             bias_initializer, op_name="Deconvolution",
+                             adj=output_padding, **kwargs)
+            self.outpad = output_padding
+
+    name = f"Conv{ndim}DTranspose"
+    ConvTranspose.__name__ = ConvTranspose.__qualname__ = name
+    ConvTranspose.__doc__ = (f"A {ndim}-d transposed convolution "
+                             f"({_LAYOUTS[ndim]}).")
+    return ConvTranspose
 
 
-class Conv1DTranspose(_ConvTranspose):
-    pass
-
-
-class Conv2DTranspose(_ConvTranspose):
-    pass
-
-
-class Conv3DTranspose(_ConvTranspose):
-    pass
+Conv1DTranspose, Conv2DTranspose, Conv3DTranspose = (
+    _conv_transpose_class(n) for n in (1, 2, 3))
 
 
 class _Pooling(HybridBlock):

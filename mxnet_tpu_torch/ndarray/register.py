@@ -17,6 +17,7 @@ import torch
 from .. import autograd
 from .. import profiler as _prof
 from .. import random as _random
+from ..base import MXNetError
 from ..context import Context
 from ..ops import registry as _reg
 from .ndarray import NDArray, _device
@@ -165,10 +166,13 @@ def _make_op_func(op_name, func_name):
 
 
 def populate_op_namespaces(root_module_name="mxnet_tpu_torch.ndarray",
-                           make_func=_make_op_func):
+                           make_func=_make_op_func, tensor_type=NDArray):
     """Create the nd top level and nd.op / nd._internal / nd.linalg /
     nd.random / nd.contrib / nd.image from the registry: the analogue of
-    the reference's import-time codegen (`_init_ops`)."""
+    the reference's import-time codegen (`_init_ops`). ``_random_x`` is
+    ``random.x`` and ``_sample_x`` ``random.sample_x``; ``random.x`` of a
+    distribution with both takes MXNet's route (`_random_frontend`) for
+    arguments of ``tensor_type``."""
     root = sys.modules[root_module_name]
     sub = {}
     for ns in ("op", "_internal", "linalg", "random", "contrib", "image"):
@@ -181,13 +185,58 @@ def populate_op_namespaces(root_module_name="mxnet_tpu_torch.ndarray",
 
     prefixes = (("_linalg_", "linalg"), ("_random_", "random"),
                 ("_contrib_", "contrib"), ("_image_", "image"))
+    made = {}
     for name in _reg.list_ops():
-        f = make_func(name, name.lstrip("_"))
+        f = made[name] = make_func(name, name.lstrip("_"))
         setattr(sub["op"], name, f)
         for prefix, ns in prefixes:
             if name.startswith(prefix):
                 setattr(sub[ns], name[len(prefix):], f)
+        if name.startswith("_sample_"):
+            setattr(sub["random"], name[1:], f)
         if name.startswith("_"):
             setattr(sub["_internal"], name, f)
         elif not hasattr(root, name):
             setattr(root, name, f)
+    _random_frontend(sub["random"], made, tensor_type)
+    # the legacy top-level names (``mx.nd.uniform``)
+    for legacy in ("uniform", "normal", "randint"):
+        setattr(root, legacy, getattr(sub["random"], legacy))
+
+
+def _random_frontend(random, made, tensor_type):
+    """MXNet's `random.x(params..., shape=, dtype=, ctx=, out=)`: number
+    parameters draw through ``_random_x`` (one distribution), array
+    parameters through ``_sample_x`` (one distribution a row), and a mix
+    raises. ``multinomial`` and ``shuffle`` are MXNet's names of
+    ``_sample_multinomial`` and ``_shuffle``."""
+    for name in ("uniform", "normal", "gamma", "exponential", "poisson",
+                 "negative_binomial", "generalized_negative_binomial"):
+        scalar, rows = made["_random_" + name], made["_sample_" + name]
+        params = _op_attr_params(_reg.get_op("_random_" + name))[0]
+        params = params[:params.index("shape")]
+        setattr(random, name, _dispatcher(name, scalar, rows, params,
+                                          tensor_type))
+    random.multinomial = made["_sample_multinomial"]
+    random.shuffle = made["_shuffle"]
+
+
+def _dispatcher(name, scalar, rows, params, tensor_type):
+    def fn(*args, **kwargs):
+        given = list(args[:len(params)]) + [kwargs[p] for p in
+                                            params[len(args):] if p in kwargs]
+        arrays = [isinstance(v, tensor_type) for v in given]
+        if not any(arrays):
+            return scalar(*args, **kwargs)
+        if not all(arrays) or len(given) != len(params):
+            raise MXNetError(
+                f"random.{name}: the distribution's parameters "
+                f"{params} must all be arrays or all be numbers")
+        rest = {k: v for k, v in kwargs.items() if k not in params}
+        return rows(*given, **rest)
+
+    fn.__name__ = name
+    fn.__doc__ = (f"Draws of the {name} distribution: `_random_{name}` for "
+                  f"number parameters, `_sample_{name}` (one distribution "
+                  f"a row) for arrays.")
+    return fn

@@ -15,6 +15,9 @@ from . import indexing       # noqa: F401
 from . import linalg         # noqa: F401
 from . import init_ops       # noqa: F401
 from . import nn             # noqa: F401
+from . import vision         # noqa: F401
+from . import random_ops     # noqa: F401
+from . import ctc            # noqa: F401
 from . import optimizer_ops  # noqa: F401
 from . import subgraph_ops   # noqa: F401
 

@@ -24,10 +24,12 @@ class Op:
     """A registered operator."""
 
     __slots__ = ("name", "fn", "num_outputs", "mutate_aux", "wrap_kwargs",
-                 "doc", "needs_rng", "needs_mode", "_schema_cache")
+                 "doc", "needs_rng", "needs_mode", "tensor_opts",
+                 "_schema_cache")
 
     def __init__(self, name, fn, num_outputs=1, mutate_aux=None,
-                 wrap_kwargs=None, needs_rng=False, needs_mode=False):
+                 wrap_kwargs=None, needs_rng=False, needs_mode=False,
+                 tensor_opts=()):
         self.name = name
         self.fn = fn
         self.num_outputs = num_outputs  # int or callable(attrs) -> int
@@ -43,6 +45,10 @@ class Op:
         # a static tuple, or callable(attrs) -> tuple
         self.mutate_aux = mutate_aux
         self.wrap_kwargs = wrap_kwargs  # canonicalize attrs before the call
+        # optional tensor inputs after the required ones (CTCLoss's
+        # lengths), in the fn's positional order: a Symbol node records
+        # which it was given (``__opt_in__``)
+        self.tensor_opts = tuple(tensor_opts)
         self._schema_cache = None
         self.doc = fn.__doc__
 
@@ -56,13 +62,14 @@ class Op:
 
 
 def register(name, aliases=(), num_outputs=1, mutate_aux=None,
-             wrap_kwargs=None, needs_rng=False, needs_mode=False):
+             wrap_kwargs=None, needs_rng=False, needs_mode=False,
+             tensor_opts=()):
     """Decorator: register a torch fn as operator ``name`` (+ aliases)."""
 
     def deco(fn):
         op = Op(name, fn, num_outputs=num_outputs, mutate_aux=mutate_aux,
                 wrap_kwargs=wrap_kwargs, needs_rng=needs_rng,
-                needs_mode=needs_mode)
+                needs_mode=needs_mode, tensor_opts=tensor_opts)
         _OPS[name] = op
         for a in aliases:
             _OPS[a] = op
@@ -154,13 +161,15 @@ def invoke(name, *tensors, **attrs):
 
 def infer(name, *specs, **attrs):
     """Output (shape, dtype) pairs of op ``name`` for inputs given as
-    (shape, dtype) pairs, from a run on ``meta`` tensors: the role of the
-    JAX package's ``jax.eval_shape``. An op whose output shape depends on
-    its input values cannot run there and raises."""
+    (shape, dtype) pairs (None for an absent optional input), from a run
+    on ``meta`` tensors: the role of the JAX package's ``jax.eval_shape``.
+    An op whose output shape depends on its input values cannot run there
+    and raises."""
     from ..base import torch_dtype
 
-    tensors = [torch.empty(tuple(shape), dtype=torch_dtype(dtype),
-                           device="meta") for shape, dtype in specs]
+    tensors = [None if spec is None else
+               torch.empty(tuple(spec[0]), dtype=torch_dtype(spec[1]),
+                           device="meta") for spec in specs]
     op = get_op(name)
     if op.needs_rng:
         tensors.insert(0, None)

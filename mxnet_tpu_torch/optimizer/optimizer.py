@@ -1,8 +1,10 @@
 """Optimizers: the port of `mxnet_tpu/optimizer/optimizer.py` (the
-`Optimizer` base, `SGD`, `Adam`, `Test`, `Updater`, `get_updater`) and of the
-update arithmetic of `mxnet_tpu/ops/optimizer_ops.py` (`_rescale`,
-`sgd_update`, `sgd_mom_update`, `mp_sgd_update`, `mp_sgd_mom_update`,
-`adam_update`).
+`Optimizer` base, SGD, Signum, FTML, DCASGD, NAG, SGLD, Adam, AdamW,
+AdaGrad, RMSProp, AdaDelta, Ftrl, Adamax, Nadam, LBSGD, Test, `Updater`,
+`get_updater`). SGD's update arithmetic is its own copy of
+`mxnet_tpu/ops/optimizer_ops.py`'s; the other optimizers call the
+registered update ops (`ops/optimizer_ops.py`) as plain functions, as the
+JAX package's call them through `mx.nd`.
 
 The update functions are plain functions on tensors that return the new
 weight and states, computed in fp32 and cast back to each input's dtype, as
@@ -18,11 +20,13 @@ multi-tensor update over the whole group written in place (the
 buffers); else, for SGD's NDArray weights, through the aggregated
 ``multi_sgd_*`` ops in chunks of `MXNET_OPTIMIZER_AGGREGATION_SIZE`
 (default 4), which rebind the weights as the JAX package's ops do; else one
-parameter at a time. Not ported: the other optimizers and row-sparse (lazy)
-updates.
+parameter at a time. SGD, NAG and Adam have a fused update, as in the JAX
+package; the others update one parameter at a time. Not ported:
+row-sparse (lazy) updates (ROADMAP.md queue A, item A.7).
 """
 from __future__ import annotations
 
+import logging
 import math
 import os
 import pickle
@@ -31,12 +35,15 @@ import warnings
 import torch
 
 from ..base import getenv, register_env
+from ..ops import optimizer_ops as _ops
 
 register_env("MXNET_FUSED_STEP", True,
              "update a group of parameters as one multi-tensor update "
              "(0: the aggregated or per-parameter updates)")
 
-__all__ = ["Optimizer", "SGD", "Adam", "Test", "Updater", "get_updater",
+__all__ = ["Optimizer", "SGD", "Signum", "FTML", "DCASGD", "NAG", "SGLD",
+           "Adam", "AdamW", "AdaGrad", "RMSProp", "AdaDelta", "Ftrl",
+           "Adamax", "Nadam", "LBSGD", "Test", "Updater", "get_updater",
            "register", "create", "sgd_update", "sgd_mom_update",
            "mp_sgd_update", "mp_sgd_mom_update", "adam_update"]
 
@@ -97,17 +104,7 @@ def mp_sgd_mom_update(weight, grad, mom, weight32, lr=0.01, momentum=0.0,
     return new_w32.to(weight.dtype), new_mom, new_w32
 
 
-def adam_update(weight, grad, mean, var, lr=0.01, beta1=0.9, beta2=0.999,
-                epsilon=1e-8, wd=0.0, rescale_grad=1.0, clip_gradient=-1.0):
-    """Returns (new weight, new mean, new var)."""
-    g = _rescale(grad, rescale_grad, clip_gradient, wd, weight)
-    b1, b2 = float(beta1), float(beta2)
-    new_mean = b1 * mean.float() + (1 - b1) * g
-    new_var = b2 * var.float() + (1 - b2) * torch.square(g)
-    new_w = weight.float() - float(lr) * new_mean / (
-        torch.sqrt(new_var) + float(epsilon))
-    return (new_w.to(weight.dtype), new_mean.to(mean.dtype),
-            new_var.to(var.dtype))
+adam_update = _ops._adam_update  # the registered ``adam_update``
 
 
 # -- optimizers ---------------------------------------------------------------
@@ -198,8 +195,9 @@ class Optimizer:
                      groups=None):
         """Update every weight of a group at once, in place: ``weights``,
         ``grads`` and the state trees are tensors, ``lrs`` and ``wds`` one
-        float per weight. Optimizers with ``fused_update_supported``
-        implement it; SGD's also takes its hyperparameters as tensors."""
+        float per weight, or 0-dim device tensors with ``groups`` (what a
+        captured step reads, `Executor.fused_step`). Optimizers with
+        ``fused_update_supported`` implement it: SGD, NAG and Adam."""
         raise NotImplementedError(
             f"{type(self).__name__} has no fused update")
 
@@ -406,37 +404,13 @@ class SGD(Optimizer):
         tensors on the weights' device, which a captured CUDA graph reads
         at each replay (`Executor.fused_step`); then ``groups`` gives one
         key per weight, equal for the weights that share (lr, wd)."""
-        if groups is None:
-            groups = list(zip(lrs, wds))
-        sets = {}
-        for w, g, s, lr, wd, key in zip(weights, grads, states, lrs, wds,
-                                        groups):
-            mom, w32 = s if isinstance(s, tuple) else (s, w)
-            sets.setdefault((key, mom is not None), (lr, wd, []))[2].append(
-                (w, g, mom, w32))
         clip = float(self.clip_gradient) if self.clip_gradient else 0.0
-        on_device = isinstance(rescale_grad, torch.Tensor)
-        for (_, has_mom), (lr, wd, items) in sets.items():
+        for (_, has_mom), (lr, wd, items) in _fused_sets(
+                weights, grads, states, lrs, wds, groups,
+                lambda w, s: s if isinstance(s, tuple) else (s, w)):
             ws, gs, moms, w32s = (list(t) for t in zip(*items))
-            if on_device:
-                g = list(torch._foreach_mul(_f32_views(gs), rescale_grad))
-            else:
-                rescale = float(rescale_grad)
-                if rescale != 1.0 and all(t.dtype == torch.float32
-                                          for t in gs):
-                    g = list(torch._foreach_mul(gs, rescale))
-                else:
-                    g = _f32_copies(gs)
-                    if rescale != 1.0:
-                        torch._foreach_mul_(g, rescale)
-            if clip > 0:
-                torch._foreach_clamp_min_(g, -clip)
-                torch._foreach_clamp_max_(g, clip)
             w32 = _f32_views(w32s)
-            if on_device:
-                torch._foreach_add_(g, torch._foreach_mul(w32, wd))
-            elif wd:
-                torch._foreach_add_(g, w32, alpha=float(wd))
+            g = _fused_grads(gs, w32, rescale_grad, clip, wd)
             if has_mom:
                 m32 = _f32_views(moms)
                 torch._foreach_mul_(m32, float(self.momentum))
@@ -446,8 +420,56 @@ class SGD(Optimizer):
             else:
                 _add_scaled(w32, g, lr)
             _write_back(w32s, w32)
-            if any(w is not m for w, m in zip(ws, w32s)):  # masters
-                torch._foreach_copy_(ws, w32s)
+            _copy_masters(ws, w32s)
+
+
+def _fused_sets(weights, grads, states, lrs, wds, groups, split):
+    """The weights of a fused update grouped by (hyperparameter key,
+    whether a momentum-like state exists): ``[((key, has_state), (lr, wd,
+    [(weight, grad, state, fp32 weight or master)]))]``. ``split(w, s)``
+    gives a weight's (state, fp32 weight or master); ``groups`` (one key
+    per weight, equal for the weights that share (lr, wd)) defaults to the
+    (lr, wd) pairs themselves."""
+    if groups is None:
+        groups = list(zip(lrs, wds))
+    sets = {}
+    for w, g, s, lr, wd, key in zip(weights, grads, states, lrs, wds,
+                                    groups):
+        st, w32 = split(w, s)
+        sets.setdefault((key, st is not None), (lr, wd, []))[2].append(
+            (w, g, st, w32))
+    return sets.items()
+
+
+def _fused_grads(gs, w32, rescale_grad, clip, wd):
+    """The update's fp32 gradients of a set: ``gs`` times
+    ``rescale_grad``, clipped to +-``clip`` when positive, plus ``wd`` times
+    the fp32 weights ``w32`` (the reference's order). ``rescale_grad`` and
+    ``wd`` are floats or 0-dim device tensors."""
+    if isinstance(rescale_grad, torch.Tensor):
+        g = list(torch._foreach_mul(_f32_views(gs), rescale_grad))
+    else:
+        rescale = float(rescale_grad)
+        if rescale != 1.0 and all(t.dtype == torch.float32 for t in gs):
+            g = list(torch._foreach_mul(gs, rescale))
+        else:
+            g = _f32_copies(gs)
+            if rescale != 1.0:
+                torch._foreach_mul_(g, rescale)
+    if clip > 0:
+        torch._foreach_clamp_min_(g, -clip)
+        torch._foreach_clamp_max_(g, clip)
+    if isinstance(wd, torch.Tensor):
+        torch._foreach_add_(g, torch._foreach_mul(w32, wd))
+    elif wd:
+        torch._foreach_add_(g, w32, alpha=float(wd))
+    return g
+
+
+def _copy_masters(ws, w32s):
+    """Each low-precision weight from its fp32 master, where it has one."""
+    if any(w is not m for w, m in zip(ws, w32s)):
+        torch._foreach_copy_(ws, w32s)
 
 
 def _add_scaled(ts, g, lr):
@@ -515,9 +537,230 @@ def _write_back(ts, f32):
         torch._foreach_copy_(ts, f32)
 
 
+def _zeros(weight, dtype=None):
+    return torch.zeros(weight.shape, dtype=dtype or weight.dtype,
+                       device=weight.device)
+
+
+def _write(pairs):
+    """Copy each (destination, value) in place."""
+    for dst, value in pairs:
+        dst.copy_(value)
+
+
+def _clip_of(opt):
+    """The clip_gradient attribute an update op takes, when set."""
+    return {"clip_gradient": opt.clip_gradient} if opt.clip_gradient else {}
+
+
+@register
+class Signum(Optimizer):
+    """signSGD (momentum 0) and Signum: the sign of the (momentum of the)
+    gradient, with the decoupled decay ``wd_lh``."""
+
+    def __init__(self, learning_rate=0.01, momentum=0.9, wd_lh=0.0,
+                 **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.momentum = momentum
+        self.wd_lh = wd_lh
+
+    def create_state(self, index, weight):
+        return _zeros(weight) if self.momentum != 0.0 else None
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        kwargs = {"rescale_grad": self.rescale_grad,
+                  "lr": self._get_lr(index), "wd": self._get_wd(index),
+                  **_clip_of(self)}
+        if self.momentum > 0:
+            kwargs["momentum"] = self.momentum
+        if self.wd_lh:
+            kwargs["wd_lh"] = self.wd_lh
+        if state is not None:
+            w, m = _ops._signum_update(weight, grad, state, **kwargs)
+            _write([(state, m), (weight, w)])
+        else:
+            weight.copy_(_ops._signsgd_update(weight, grad, **kwargs))
+
+
+@register
+class FTML(Optimizer):
+    """Follow the moving leader; the state is (d, v, z)."""
+
+    def __init__(self, beta1=0.6, beta2=0.999, epsilon=1e-8, **kwargs):
+        super().__init__(**kwargs)
+        self.beta1 = beta1
+        self.beta2 = beta2
+        self.epsilon = epsilon
+
+    def create_state(self, index, weight):
+        return (_zeros(weight), _zeros(weight), _zeros(weight))
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        kwargs = {"lr": self._get_lr(index), "wd": self._get_wd(index),
+                  "t": self._index_update_count[index], "beta1": self.beta1,
+                  "beta2": self.beta2, "epsilon": self.epsilon,
+                  "rescale_grad": self.rescale_grad}
+        if self.clip_gradient:
+            kwargs["clip_grad"] = self.clip_gradient
+        w, d, v, z = _ops._ftml_update(weight, grad, *state, **kwargs)
+        _write(zip(state, (d, v, z)))
+        weight.copy_(w)
+
+
+@register
+class DCASGD(Optimizer):
+    """Delay-compensated asynchronous SGD; the state is (momentum or None,
+    the previous weight). A momentum state takes part wherever it exists
+    (the JAX package's ``if mom:`` raises for one of more than one
+    element)."""
+
+    def __init__(self, momentum=0.0, lamda=0.04, **kwargs):
+        super().__init__(**kwargs)
+        self.momentum = momentum
+        self.lamda = lamda
+
+    def create_state(self, index, weight):
+        return (None if self.momentum == 0.0 else _zeros(weight),
+                weight.detach().clone())
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        lr, wd = self._get_lr(index), self._get_wd(index)
+        grad = grad * self.rescale_grad
+        if self.clip_gradient is not None:
+            grad = torch.clamp(grad, -self.clip_gradient, self.clip_gradient)
+        mom, previous = state
+        step = -lr * (grad + wd * weight
+                      + self.lamda * grad * grad * (weight - previous))
+        if mom is not None:
+            mom.mul_(self.momentum).add_(step)
+            step = mom
+        previous.copy_(weight)
+        weight.add_(step)
+
+
+@register
+class NAG(Optimizer):
+    """Nesterov accelerated gradient. Its multi-precision master is for
+    fp16 weights only (the JAX package's rule); the multi-precision state
+    is ``(momentum or None, master)``."""
+
+    def __init__(self, momentum=0.0, **kwargs):
+        super().__init__(**kwargs)
+        self.momentum = momentum
+
+    def create_state(self, index, weight):
+        return _zeros(weight) if self.momentum != 0.0 else None
+
+    def _mp(self, weight):
+        return self.multi_precision and weight.dtype == torch.float16
+
+    def create_state_multi_precision(self, index, weight):
+        weight = _tensor(weight)
+        if self._mp(weight):
+            master = weight.detach().float()
+            return (self.create_state(index, master), master)
+        return self.create_state(index, weight)
+
+    def _update_impl(self, index, weight, grad, state, multi_precision):
+        self._update_count(index)
+        kwargs = {"rescale_grad": self.rescale_grad,
+                  "lr": self._get_lr(index), "wd": self._get_wd(index),
+                  **_clip_of(self)}
+        if self.momentum > 0:
+            kwargs["momentum"] = self.momentum
+        if not multi_precision:
+            if state is not None:
+                w, m = _ops._nag_mom_update(weight, grad, state, **kwargs)
+                state.copy_(m)
+            else:
+                w = sgd_update(weight, grad, **kwargs)
+            weight.copy_(w)
+            return
+        mom, master = state
+        if mom is not None:
+            w, m, w32 = _ops._mp_nag_mom_update(weight, grad, mom, master,
+                                                **kwargs)
+            mom.copy_(m)
+        else:
+            w, w32 = mp_sgd_update(weight, grad, master, **kwargs)
+        _write([(master, w32), (weight, w)])
+
+    def update(self, index, weight, grad, state):
+        self._update_impl(index, weight, grad, state, False)
+
+    def update_multi_precision(self, index, weight, grad, state):
+        self._update_impl(index, weight, grad, state, self._mp(weight))
+
+    fused_update_supported = True
+
+    def _fused_static_key(self):
+        return super()._fused_static_key() + (self.momentum,)
+
+    @torch.no_grad()
+    def fused_update(self, weights, grads, states, lrs, wds, rescale_grad,
+                     groups=None):
+        """`nag_mom_update` / `mp_nag_mom_update` / `sgd_update`'s
+        arithmetic over a group, in place, as `SGD.fused_update`: m =
+        momentum m + g, w -= lr (g + momentum m) where a momentum state
+        exists, else w -= lr g."""
+        clip = float(self.clip_gradient) if self.clip_gradient else 0.0
+        mom = float(self.momentum)
+
+        def split(w, s):
+            return s if self._mp(w) else (s, w)
+
+        for (_, has_mom), (lr, wd, items) in _fused_sets(
+                weights, grads, states, lrs, wds, groups, split):
+            ws, gs, moms, w32s = (list(t) for t in zip(*items))
+            w32 = _f32_views(w32s)
+            g = _fused_grads(gs, w32, rescale_grad, clip, wd)
+            if has_mom:
+                m32 = _f32_views(moms)
+                torch._foreach_mul_(m32, mom)
+                torch._foreach_add_(m32, g)
+                torch._foreach_add_(g, m32, alpha=mom)
+                _write_back(moms, m32)
+            _add_scaled(w32, g, lr)
+            _write_back(w32s, w32)
+            _copy_masters(ws, w32s)
+
+
+@register
+class SGLD(Optimizer):
+    """Stochastic gradient Langevin dynamics: half a gradient step plus
+    N(0, lr) noise, drawn from the weight's device generator."""
+
+    def create_state(self, index, weight):
+        return None
+
+    def update(self, index, weight, grad, state):
+        from .. import random as _random
+
+        self._update_count(index)
+        lr, wd = self._get_lr(index), self._get_wd(index)
+        grad = grad * self.rescale_grad
+        if self.clip_gradient is not None:
+            grad = torch.clamp(grad, -self.clip_gradient, self.clip_gradient)
+        weight.add_(-lr / 2 * (grad + wd * weight))
+        noise = torch.empty(weight.shape, dtype=torch.float32,
+                            device=weight.device).normal_(
+            0.0, math.sqrt(lr), generator=_random.generator(weight.device))
+        weight.add_(noise.to(weight.dtype))
+
+
+def _adam_lr(opt, lr, index):
+    """``lr`` with Adam's bias correction at ``index``'s update count."""
+    t = opt._index_update_count[index]
+    return lr * math.sqrt(1. - opt.beta2 ** t) / (1. - opt.beta1 ** t)
+
+
 @register
 class Adam(Optimizer):
-    """Adam, with the bias correction folded into the learning rate."""
+    """Adam, with the bias correction folded into the learning rate. The
+    multi-precision state is the base class's ``(master, (mean, var))``."""
 
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-8, lazy_update=True, **kwargs):
@@ -533,22 +776,346 @@ class Adam(Optimizer):
 
     def update(self, index, weight, grad, state):
         self._update_count(index)
-        lr = self._get_lr(index)
-        wd = self._get_wd(index)
-        t = self._index_update_count[index]
-        coef1 = 1. - self.beta1 ** t
-        coef2 = 1. - self.beta2 ** t
-        lr *= math.sqrt(coef2) / coef1
         kwargs = {"beta1": self.beta1, "beta2": self.beta2,
                   "epsilon": self.epsilon, "rescale_grad": self.rescale_grad,
-                  "lr": lr, "wd": wd}
-        if self.clip_gradient:
-            kwargs["clip_gradient"] = self.clip_gradient
+                  "lr": _adam_lr(self, self._get_lr(index), index),
+                  "wd": self._get_wd(index), **_clip_of(self)}
         mean, var = state
         w, m, v = adam_update(weight, grad, mean, var, **kwargs)
-        mean.copy_(m)
-        var.copy_(v)
+        _write([(mean, m), (var, v), (weight, w)])
+
+    fused_update_supported = True
+
+    def _fused_static_key(self):
+        return super()._fused_static_key() + (self.beta1, self.beta2,
+                                              self.epsilon)
+
+    def _fused_hyperparams(self, indices):
+        """The bias correction folded into each rate on the host, in
+        float64: the rate the per-parameter update gives `adam_update`."""
+        lrs, wds = super()._fused_hyperparams(indices)
+        return [_adam_lr(self, lr, i) for lr, i in zip(lrs, indices)], wds
+
+    @torch.no_grad()
+    def fused_update(self, weights, grads, states, lrs, wds, rescale_grad,
+                     groups=None):
+        """`adam_update`'s arithmetic over a group, in place, as
+        `SGD.fused_update` (the rates already corrected,
+        `_fused_hyperparams`): mean and var moved by beta1 and beta2, w -=
+        lr mean / (sqrt(var) + epsilon), in fp32 on the weight or its
+        master."""
+        clip = float(self.clip_gradient) if self.clip_gradient else 0.0
+        b1, b2, eps = float(self.beta1), float(self.beta2), \
+            float(self.epsilon)
+
+        def split(w, s):
+            master, moments = (s if isinstance(s[1], tuple) else (w, s))
+            return moments, master
+
+        for _, (lr, wd, items) in _fused_sets(
+                weights, grads, states, lrs, wds, groups, split):
+            ws, gs, moments, w32s = (list(t) for t in zip(*items))
+            means = [m for m, _ in moments]
+            variances = [v for _, v in moments]
+            w32 = _f32_views(w32s)
+            g = _fused_grads(gs, w32, rescale_grad, clip, wd)
+            m32, v32 = _f32_views(means), _f32_views(variances)
+            torch._foreach_mul_(m32, b1)
+            torch._foreach_add_(m32, g, alpha=1 - b1)
+            torch._foreach_mul_(v32, b2)
+            torch._foreach_addcmul_(v32, g, g, value=1 - b2)
+            denom = torch._foreach_sqrt(v32)
+            torch._foreach_add_(denom, eps)
+            _add_scaled(w32, torch._foreach_div(m32, denom), lr)
+            _write_back(means, m32)
+            _write_back(variances, v32)
+            _write_back(w32s, w32)
+            _copy_masters(ws, w32s)
+
+
+@register
+class AdamW(Optimizer):
+    """Adam with decoupled weight decay (`contrib/adamw.cc`), the whole
+    step scaled by ``eta``."""
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, eta=1.0, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.beta1 = beta1
+        self.beta2 = beta2
+        self.epsilon = epsilon
+        self.eta = eta
+
+    def create_state(self, index, weight):
+        return (_zeros(weight), _zeros(weight))
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        kwargs = {"beta1": self.beta1, "beta2": self.beta2,
+                  "epsilon": self.epsilon, "rescale_grad": self.rescale_grad,
+                  "lr": _adam_lr(self, self._get_lr(index), index),
+                  "wd": self._get_wd(index), "eta": self.eta,
+                  **_clip_of(self)}
+        mean, var = state
+        w, m, v = _ops._adamw_update(weight, grad, mean, var, **kwargs)
+        _write([(mean, m), (var, v), (weight, w)])
+
+
+@register
+class AdaGrad(Optimizer):
+    """AdaGrad; its fp32 state is the sum of squared gradients."""
+
+    def __init__(self, eps=1e-7, **kwargs):
+        super().__init__(**kwargs)
+        self.float_stable_eps = eps
+
+    def create_state(self, index, weight):
+        return _zeros(weight, torch.float32)
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        lr, wd = self._get_lr(index), self._get_wd(index)
+        grad = grad * self.rescale_grad
+        if self.clip_gradient is not None:
+            grad = torch.clamp(grad, -self.clip_gradient, self.clip_gradient)
+        state.add_(torch.square(grad))
+        div = grad / torch.sqrt(state + self.float_stable_eps)
+        weight.add_((div + weight * wd) * -lr)
+
+
+@register
+class RMSProp(Optimizer):
+    """RMSProp; ``centered`` takes Graves' (2013) form, with the state
+    (n, g, delta) in place of (n,)."""
+
+    def __init__(self, learning_rate=0.001, gamma1=0.9, gamma2=0.9,
+                 epsilon=1e-8, centered=False, clip_weights=None, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.gamma1 = gamma1
+        self.gamma2 = gamma2
+        self.centered = centered
+        self.epsilon = epsilon
+        self.clip_weights = clip_weights
+
+    def create_state(self, index, weight):
+        return tuple(_zeros(weight, torch.float32)
+                     for _ in range(3 if self.centered else 1))
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        kwargs = {"gamma1": self.gamma1, "epsilon": self.epsilon,
+                  "rescale_grad": self.rescale_grad,
+                  "lr": self._get_lr(index), "wd": self._get_wd(index),
+                  **_clip_of(self)}
+        if self.centered:
+            kwargs["gamma2"] = self.gamma2
+        if self.clip_weights:
+            kwargs["clip_weights"] = self.clip_weights
+        if self.centered:
+            w, *new = _ops._rmspropalex_update(weight, grad, *state,
+                                               **kwargs)
+        else:
+            w, *new = _ops._rmsprop_update(weight, grad, *state, **kwargs)
+        _write(zip(state, new))
         weight.copy_(w)
+
+
+@register
+class AdaDelta(Optimizer):
+    """AdaDelta; the fp32 state is (accumulated g^2, accumulated
+    delta^2)."""
+
+    def __init__(self, rho=0.90, epsilon=1e-5, **kwargs):
+        super().__init__(**kwargs)
+        self.rho = rho
+        self.epsilon = epsilon
+
+    def create_state(self, index, weight):
+        return (_zeros(weight, torch.float32), _zeros(weight, torch.float32))
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        wd = self._get_wd(index)
+        grad = grad * self.rescale_grad
+        if self.clip_gradient is not None:
+            grad = torch.clamp(grad, -self.clip_gradient, self.clip_gradient)
+        acc_g, acc_delta = state
+        acc_g.mul_(self.rho).add_((1. - self.rho) * grad * grad)
+        delta = torch.sqrt(acc_delta + self.epsilon) / \
+            torch.sqrt(acc_g + self.epsilon) * grad
+        acc_delta.mul_(self.rho).add_((1. - self.rho) * delta * delta)
+        weight.sub_(delta + wd * weight)
+
+
+@register
+class Ftrl(Optimizer):
+    """FTRL-proximal; the fp32 state is (z, n)."""
+
+    def __init__(self, lamda1=0.01, learning_rate=0.1, beta=1, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.lamda1 = lamda1
+        self.beta = beta
+
+    def create_state(self, index, weight):
+        return (_zeros(weight, torch.float32), _zeros(weight, torch.float32))
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        kwargs = {"lamda1": self.lamda1, "beta": self.beta,
+                  "rescale_grad": self.rescale_grad,
+                  "lr": self._get_lr(index), "wd": self._get_wd(index),
+                  **_clip_of(self)}
+        w, z, n = _ops._ftrl_update(weight, grad, *state, **kwargs)
+        _write(zip(state, (z, n)))
+        weight.copy_(w)
+
+
+@register
+class Adamax(Optimizer):
+    """AdaMax, Adam under the infinity norm."""
+
+    def __init__(self, learning_rate=0.002, beta1=0.9, beta2=0.999,
+                 **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.beta1 = beta1
+        self.beta2 = beta2
+
+    def create_state(self, index, weight):
+        return (_zeros(weight), _zeros(weight))
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        lr, wd = self._get_lr(index), self._get_wd(index)
+        lr /= (1. - self.beta1 ** self._index_update_count[index])
+        grad = grad * self.rescale_grad + wd * weight
+        if self.clip_gradient is not None:
+            grad = torch.clamp(grad, -self.clip_gradient, self.clip_gradient)
+        m_t, u_t = state
+        m_t.mul_(self.beta1).add_((1. - self.beta1) * grad)
+        u_t.copy_(torch.maximum(self.beta2 * u_t, torch.abs(grad)))
+        weight.sub_(lr * m_t / u_t)
+
+
+@register
+class Nadam(Optimizer):
+    """Nesterov Adam, with the momentum schedule of Dozat (2016); the
+    schedule's running product is the optimizer's, over every index."""
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, schedule_decay=0.004, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.beta1 = beta1
+        self.beta2 = beta2
+        self.epsilon = epsilon
+        self.schedule_decay = schedule_decay
+        self.m_schedule = 1.
+
+    def create_state(self, index, weight):
+        return (_zeros(weight), _zeros(weight))
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        lr, wd = self._get_lr(index), self._get_wd(index)
+        t = self._index_update_count[index]
+        grad = grad * self.rescale_grad + wd * weight
+        if self.clip_gradient is not None:
+            grad = torch.clamp(grad, -self.clip_gradient, self.clip_gradient)
+        momentum_t = self.beta1 * (1. - 0.5 * pow(0.96, t
+                                                  * self.schedule_decay))
+        momentum_t_1 = self.beta1 * (1. - 0.5 * pow(
+            0.96, (t + 1) * self.schedule_decay))
+        self.m_schedule = self.m_schedule * momentum_t
+        m_schedule_next = self.m_schedule * momentum_t_1
+        m_t, v_t = state
+        m_t.mul_(self.beta1).add_((1. - self.beta1) * grad)
+        v_t.mul_(self.beta2).add_((1. - self.beta2) * grad * grad)
+        grad_prime = grad / (1. - self.m_schedule)
+        m_t_prime = m_t / (1. - m_schedule_next)
+        v_t_prime = v_t / (1. - pow(self.beta2, t))
+        m_t_bar = (1. - momentum_t) * grad_prime + momentum_t_1 * m_t_prime
+        weight.sub_(lr * m_t_bar / (torch.sqrt(v_t_prime) + self.epsilon))
+
+
+@register
+class LBSGD(Optimizer):
+    """Large-batch SGD: the rate scaled by a warm-up schedule
+    (``linear``, ``power2``, ``sqrt``) up to ``batch_scale``, or by the
+    LARS trust ratio (``lars``, read on the host each update).
+    ``begin_epoch`` and ``num_epochs`` are the reference's arguments and
+    change nothing, as in the JAX package."""
+
+    def __init__(self, momentum=0.0, multi_precision=False,
+                 warmup_strategy="linear", warmup_epochs=5, batch_scale=1,
+                 updates_per_epoch=32, begin_epoch=0, num_epochs=60,
+                 **kwargs):
+        super().__init__(**kwargs)
+        logging.info("Running Large-Batch SGD Algorithm")
+        logging.info("(Batch_scale=%f, warmup_epochs=%d, warmup_strategy=%s, "
+                     "updates_per_epoch=%d)", batch_scale, warmup_epochs,
+                     warmup_strategy, updates_per_epoch)
+        self.momentum = momentum
+        self.multi_precision = multi_precision
+        self.warmup_strategy = warmup_strategy
+        self.warmup_epochs = warmup_epochs
+        self.batch_scale = batch_scale
+        self.updates_per_epoch = updates_per_epoch
+
+    def create_state(self, index, weight):
+        dtype = torch.float32 if self.multi_precision \
+            and weight.dtype == torch.float16 else None
+        mom = _zeros(weight, dtype) if self.momentum != 0.0 else None
+        if dtype is not None:
+            return (mom, weight.detach().float())
+        return mom
+
+    def _get_lbmult(self, nup):
+        nwup = self.warmup_epochs * self.updates_per_epoch
+        maxmult = float(self.batch_scale)
+        if nup >= nwup:
+            return maxmult
+        if nwup <= 1:
+            return 1.0
+        if self.warmup_strategy == "linear":
+            return 1.0 + (maxmult - 1) * nup / nwup
+        if self.warmup_strategy == "power2":
+            return 1.0 + (maxmult - 1) * (nup * nup) / (nwup * nwup)
+        if self.warmup_strategy == "sqrt":
+            return 1.0 + (maxmult - 1) * math.sqrt(float(nup) / nwup)
+        return 1.0
+
+    def _get_lars(self, weight, g, wd):
+        """The LARS trust ratio of one weight, within [0.01, 100]."""
+        weight2 = float((weight * weight).sum())
+        grad2 = float((g * g).sum())
+        lars = math.sqrt(weight2 / (grad2 + wd * weight2 + 1e-18))
+        return min(max(lars, 0.01), 100)
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        lr, wd = self._get_lr(index), self._get_wd(index)
+        if self.warmup_strategy == "lars":
+            lr *= self._get_lars(weight, grad, wd)
+        else:
+            lr *= self._get_lbmult(self.num_update)
+        kwargs = {"rescale_grad": self.rescale_grad, "lr": lr, "wd": wd,
+                  **_clip_of(self)}
+        if self.momentum > 0:
+            kwargs["momentum"] = self.momentum
+        if not isinstance(state, (list, tuple)):
+            if state is not None:
+                w, m = sgd_mom_update(weight, grad, state, **kwargs)
+                state.copy_(m)
+            else:
+                w = sgd_update(weight, grad, **kwargs)
+            weight.copy_(w)
+            return
+        mom, master = state
+        if mom is not None:
+            w, m, w32 = mp_sgd_mom_update(weight, grad, mom, master, **kwargs)
+            mom.copy_(m)
+        else:
+            w, w32 = mp_sgd_update(weight, grad, master, **kwargs)
+        _write([(master, w32), (weight, w)])
 
 
 @register
@@ -623,7 +1190,7 @@ class Updater:
             opt.fused_update([_tensor(w) for w in weight],
                              [_tensor(g) for g in grad],
                              [self.states[i] for i in index],
-                             opt._get_lrs(index), opt._get_wds(index),
+                             *opt._fused_hyperparams(index),
                              opt.rescale_grad)
             return
         if self.aggregate_updates and len(index) > 1 and \

@@ -28,8 +28,11 @@ def _key(device):
 
 
 def generator(device):
-    """The generator that ops on ``device`` draw from."""
+    """The generator that ops on ``device`` draw from; None on the
+    ``meta`` device, where shape inference draws nothing."""
     key = _key(device)
+    if key.type == "meta":
+        return None
     with _lock:
         gen = _generators.get(key)
         if gen is None:

@@ -30,7 +30,8 @@ def _make_sym_func(op_name, func_name):
     return fn
 
 
-_populate(root_module_name=__name__, make_func=_make_sym_func)
+_populate(root_module_name=__name__, make_func=_make_sym_func,
+          tensor_type=Symbol)
 
 
 def zeros(shape, dtype="float32", **kwargs):

@@ -45,7 +45,7 @@ from ..context import Context, current_context
 from ..ndarray.register import _op_attr_params
 from ..ops import registry as _reg
 from ..optimizer.optimizer import fused_hyper_args
-from .symbol import _op_attrs, _topo_order
+from .symbol import _op_attrs, _topo_order, node_inputs
 
 __all__ = ["Executor"]
 
@@ -59,7 +59,7 @@ def _dispatch_node(node, env, train, device):
     attrs = _op_attrs(node, train)
     if _op_attr_params(op)[2]:  # a creation op: made on the graph's device
         attrs["device"] = device
-    ins = [env[(id(c), oi)] for c, oi in node.inputs]
+    ins = node_inputs(node, [env[(id(c), oi)] for c, oi in node.inputs])
     if op.needs_rng:
         ins.insert(0, _random.generator(device))
     out = _reg.invoke(node.op, *ins, **attrs)

@@ -560,10 +560,12 @@ def _apply_op(op_name, *args, name=None, attr=None, **kwargs):
         names = list(required)
         if optional is not None and not no_bias:
             names.append(optional)
+        n_pos_used = 0
         for in_name in names:
             s = sym_kwargs.pop(in_name, None)
             if s is None:
                 s = next(pos_iter, None)
+                n_pos_used += s is not None
             if s is None:
                 s = var(f"{name}_{in_name}")
             if len(s._outputs) != 1:
@@ -571,6 +573,27 @@ def _apply_op(op_name, *args, name=None, attr=None, **kwargs):
                                  f"cannot be an op input")
             inputs.append(s._outputs[0])
         leftover = list(pos_iter)
+        if op.tensor_opts:
+            # the optional tensor inputs: the positional tail (a None keeps
+            # its slot) or keywords, recorded by name
+            tail, seen = [], 0
+            for a in args:
+                seen += isinstance(a, Symbol)
+                if seen > n_pos_used or (a is None and seen == n_pos_used):
+                    tail.append(a)
+            if len(tail) > len(op.tensor_opts):
+                raise MXNetError(f"{op_name}: too many symbol inputs")
+            tail += [None] * (len(op.tensor_opts) - len(tail))
+            bound = []
+            for slot, a in zip(op.tensor_opts, tail):
+                s = sym_kwargs.pop(slot, None)
+                s = a if s is None else s
+                if s is not None:
+                    inputs.append(s._outputs[0])
+                    bound.append(slot)
+            if bound:
+                attrs["__opt_in__"] = ",".join(bound)
+            leftover = []
         if leftover or sym_kwargs:
             raise MXNetError(f"{op_name}: too many symbol inputs "
                              f"(leftover={len(leftover)}, "
@@ -641,8 +664,25 @@ def _eval_node_shapes(node, in_shapes):
     attrs = _op_attrs(node, False)
     if _op_attr_params(_reg.get_op(node.op))[2]:  # a creation op
         attrs["device"] = "meta"
-    outs = _reg.infer(node.op, *[(s, "float32") for s in in_shapes], **attrs)
+    specs = node_inputs(node, [(s, "float32") for s in in_shapes])
+    outs = _reg.infer(node.op, *specs, **attrs)
     return [shape for shape, _ in outs]
+
+
+def node_inputs(node, ins):
+    """A node's inputs in its op's positional order: the optional tensor
+    inputs it was given (``__opt_in__``) in their slots, None in the
+    others up to the last given."""
+    opt_in = node.attrs.get("__opt_in__")
+    if not opt_in:
+        return list(ins)
+    given = opt_in.split(",")
+    n_pos = len(ins) - len(given)
+    by_slot = dict(zip(given, ins[n_pos:]))
+    slots = _reg.get_op(node.op).tensor_opts
+    last = max(slots.index(g) for g in given)
+    return list(ins[:n_pos]) + [by_slot.get(slot)
+                                for slot in slots[:last + 1]]
 
 
 def _rule(shape_fns):
