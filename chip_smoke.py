@@ -274,6 +274,39 @@ Phases, each printed as one JSON line:
            ``d-real-minus-fake`` above 0.15; (e) no kernel launched.
            ((d), the new ops on the card, runs in the nd phase's check
            (c).);
+  lstm_lm  slice 14's recurrent path, after gan (`lstm_lm_phase`):
+           `example/gluon/word_language_model.py`'s `RNNModel` at the
+           "large" LSTM LM of Zaremba, Sutskever and Vinyals 2014 (2 x
+           1500, embed 1500, dropout 0.65, bptt 35; WikiText-2's 33,278
+           words; batch 32, untied), ``model.rnn`` hybridized (the fused
+           `RNN` op on cuDNN, one capture), the example's loop (truncated
+           BPTT, SGD at its rate 2.0 with the elementwise clip 0.25), fp32
+           with TF32 off, over 4 bptt windows of its synthetic corpus: 3
+           warm-up iterations and 20 timed. Prints the median iteration,
+           tokens/s, the host's enqueue time, the FLOP bound (the gates'
+           and the decoder's products, x 3) against the observatory's fp32
+           peak and its share, the captures, the RNN op's calls on each
+           route, peak memory (and above what earlier phases still hold),
+           and host launch calls and the idle share of
+           one more iteration under torch.profiler; then the bucketed LM of
+           `example/rnn/lstm_bucketing.py`'s ``sym_gen`` through
+           `BucketingModule` (2 x 200, embed 200, vocab 10,000, buckets
+           10-60, batch 32, SGD; each batch one fused step): captures per
+           bucket and steps/s; then the repo's two examples through the
+           port with their imports changed (the word LM at ``--vocab 100``,
+           the vocabulary its test takes; the bucketing one at its
+           defaults, its module's context made the card's). Checks, each
+           raising: (a) finite losses, the perplexity of the last 4 timed
+           iterations under that of the first 4; (b) the small LSTM LM
+           (`LM_SMALL`) from numpy weights, two steps on the card and on
+           the CPU, within 1e-4 (losses, every weight, the final states);
+           (c) at full width the op's cuDNN route against its step route
+           (``cudnn_off``): output, final states and the gradients within
+           `ROUTE_TOL` of the scale, with each route's time and the repack
+           of the flat vector into cuDNN's layout; (d) no capture after the
+           warm-up, one captured step a bucket; (e) the examples'
+           perplexities under vocab / 4 and under 20; (f) no kernel
+           launched;
   kernels  each kernel against its plain PyTorch version on the card, at the
            shapes the main path gives it and at extra cases (every head dim
            and dtype variant of K1 and K2), with times (`cuda_ms`: many calls
@@ -297,9 +330,9 @@ training path (the nd and gluon paths at both dtypes, the module path
 fused and eager, taken before its small-model checks, too), of one call
 of each form of the fused update, with the host's launch calls, of 20
 decode ticks over a full slab, of a window of the serve phase's
-full-width batcher traffic (before its small checks), and of the gan
-phase's one more iteration (taken in every run, for its host launch
-calls), by kernel, to OUT.json; each profile must hold every launch of
+full-width batcher traffic (before its small checks), and of the gan and
+lstm_lm phases' one more iteration (taken in every run, for their host
+launch calls), by kernel, to OUT.json; each profile must hold every launch of
 the port's kernels that its step made. A run not over after `--deadline` seconds (default 1100)
 dumps every thread's stack and exits 1.
 """
@@ -2545,7 +2578,8 @@ def _op_case_groups():
          + [_u(5, dtype="float16")] * 2 + [_u(5)] * 2,
          dict(_MULTI, momentum=0.9, clip_gradient=0.3), False),
     ]
-    return cases + _training_op_cases() + _RANDOM_CASES
+    return cases + _training_op_cases() + _recurrent_op_cases() \
+        + _RANDOM_CASES
 
 
 _ROIS = [[0, 0, 0, 3, 3], [1, 1, 1, 5, 4], [0, 2.5, 0.5, 5, 5]]
@@ -2668,6 +2702,84 @@ def _training_op_cases():
          {"lr": 0.1, "wd": 0.01}, False),
         ("_contrib_group_adagrad_update contrib_group_adagrad_update",
          [_W32, _u(3, 4), _u(3, **_POS)], {"lr": 0.1}, False),
+    ]
+
+
+def _graph_json(nodes, heads):
+    """Symbol JSON of ``nodes`` [(op or None for a variable, name, attrs,
+    [input node indices])] whose outputs are the ``heads`` nodes."""
+    return json.dumps({
+        "nodes": [{"op": op or "null", "name": name,
+                   "attrs": {k: str(v) for k, v in attrs.items()},
+                   "inputs": [[i, 0, 0] for i in ins]}
+                  for op, name, attrs, ins in nodes],
+        "arg_nodes": [i for i, n in enumerate(nodes) if n[0] is None],
+        "node_row_ptr": list(range(len(nodes) + 1)),
+        "heads": [[h, 0, 0] for h in heads],
+        "attrs": {"mxnet_version": ["int", 10500]}})
+
+
+# foreach's body: (x * s, s + x); while's: i < 3, (v * w, (i + 1, v * w));
+# cond's branches: x * 2 and exp(x)
+_FOREACH_BODY = _graph_json(
+    [(None, "x", {}, []), (None, "s", {}, []),
+     ("broadcast_mul", "m", {}, [0, 1]), ("broadcast_add", "a", {}, [1, 0])],
+    [2, 3])
+_WHILE_COND = _graph_json(
+    [(None, "lv0", {}, []), ("_lesser_scalar", "c", {"scalar": 3.0}, [0])],
+    [1])
+_WHILE_BODY = _graph_json(
+    [(None, "lv0", {}, []), (None, "lv1", {}, []), (None, "w", {}, []),
+     ("broadcast_mul", "m", {}, [1, 2]),
+     ("_plus_scalar", "i", {"scalar": 1.0}, [0])], [3, 4, 3])
+_COND_THEN = _graph_json(
+    [(None, "x", {}, []), ("_mul_scalar", "t", {"scalar": 2.0}, [0])], [1])
+_COND_ELSE = _graph_json([(None, "x", {}, []), ("exp", "e", {}, [0])], [1])
+_LSTM_N = 4 * 3 * (4 + 3 + 2)          # rnn_param_size(1, 3, 4, "lstm")
+_GRU_BI_N = 2 * 3 * 3 * (4 + 3 + 2)    # rnn_param_size(1, 3, 4, "gru", True)
+_TANH_2L_N = 3 * (4 + 3 + 2) + 3 * (3 + 3 + 2)  # 2 layers of rnn_tanh
+_RNN_W = {"lo": -0.5, "hi": 0.5}
+
+
+def _recurrent_op_cases():
+    """Slice 14's names: the fused RNN op on each route, its parameter
+    concatenation and the three control-flow ops."""
+    return [
+        ("RNN", [_u(5, 2, 4), _u(_LSTM_N, **_RNN_W), _u(1, 2, 3),
+                 _u(1, 2, 3)],
+         {"state_size": 3, "num_layers": 1, "mode": "lstm",
+          "state_outputs": True}, True),
+        ("RNN:gru_bidirectional", [_u(5, 2, 4), _u(_GRU_BI_N, **_RNN_W),
+                                   _u(2, 2, 3)],
+         {"state_size": 3, "num_layers": 1, "mode": "gru",
+          "bidirectional": True, "state_outputs": True}, True),
+        ("RNN:tanh_step_route", [_u(5, 2, 4), _u(_TANH_2L_N, **_RNN_W),
+                                 _u(2, 2, 3)],
+         {"state_size": 3, "num_layers": 2, "mode": "rnn_tanh",
+          "cudnn_off": True}, True),
+        ("RNN:lstm_clip_lengths", [_u(5, 2, 4), _u(_LSTM_N, **_RNN_W),
+                                   _u(1, 2, 3), _u(1, 2, 3),
+                                   _c([5.0, 3.0])],
+         {"state_size": 3, "num_layers": 1, "mode": "lstm",
+          "lstm_state_clip_min": -0.3, "lstm_state_clip_max": 0.3,
+          "use_sequence_length": True, "state_outputs": True},
+         (0, 1, 2, 3)),
+        ("_rnn_param_concat", [_u(2, 3), _u(4)], {"dim": 0, "num_args": 2},
+         True),
+        ("_foreach", [_u(4, 3), _u(3)],
+         {"subgraph": _FOREACH_BODY, "sub_args": "x,s", "n_data": 1,
+          "n_states": 1, "n_out": 1}, True),
+        ("_while_loop", [_c([0.0]), _u(3), _u(3)],
+         {"cond_subgraph": _WHILE_COND, "body_subgraph": _WHILE_BODY,
+          "cond_args": "lv0", "body_args": "lv0,lv1,w",
+          "lv_names": "lv0,lv1", "n_lv": 2, "n_out": 1,
+          "max_iterations": 5}, (1, 2)),
+        ("_cond", [_c([1.0]), _u(3)],
+         {"then_subgraph": _COND_THEN, "else_subgraph": _COND_ELSE,
+          "then_args": "x", "else_args": "x", "n_out": 1}, (1,)),
+        ("_cond:else", [_c([0.0]), _u(3)],
+         {"then_subgraph": _COND_THEN, "else_subgraph": _COND_ELSE,
+          "then_args": "x", "else_args": "x", "n_out": 1}, (1,)),
     ]
 
 
@@ -5596,35 +5708,61 @@ def dcgan_signatures(net):
             for key, n in net._cached_op.instances().items()]
 
 
-def run_dcgan_example(argv, ctx=None):
-    """`example/gluon/dcgan.py` run through the port with only its imports
-    changed (``mxnet_tpu`` -> ``mxnet_tpu_torch``), on ``ctx`` (default: the
-    port's default context, the card). Returns its two figures
-    (``blob-minus-border``, ``d-real-minus-fake``)."""
-    import io
+def example_namespace(rel_path, imports, port=True, subs=()):
+    """The repo example ``rel_path`` executed as a module (its ``main`` not
+    run): with ``port``, its ``imports`` imports of ``mxnet_tpu`` changed to
+    ``mxnet_tpu_torch`` and each (old, new) text of ``subs`` replaced
+    once, else as it stands. Returns its namespace."""
     import re
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        rel_path)
+    with open(path) as f:
+        src = f.read()
+    if port:
+        src, n = re.subn(r"^(\s*)(import|from) mxnet_tpu\b",
+                         r"\1\2 mxnet_tpu_torch", src, flags=re.M)
+        check(n == imports,
+              f"{rel_path}: {n} imports of mxnet_tpu, want {imports}")
+        for old, new in subs:
+            check(src.count(old) == 1, f"{rel_path}: {old!r} is not there "
+                  "once")
+            src = src.replace(old, new)
+    name = re.sub(r"\W", "_", rel_path)
+    ns = {"__name__": name, "__file__": path}
+    exec(compile(src, path, "exec"), ns)
+    return ns
+
+
+def run_example(ns, argv, ctx=None):
+    """``main()`` of an example namespace (`example_namespace`) under
+    ``argv``, inside ``ctx`` (default: the current context), its stdout
+    captured. Returns its ``name:value`` figures."""
+    import io
 
     import mxnet_tpu_torch as mx
 
-    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                        GAN_EXAMPLE)
-    with open(path) as f:
-        src = f.read()
-    src, n = re.subn(r"^(import|from) mxnet_tpu\b", r"\1 mxnet_tpu_torch",
-                     src, flags=re.M)
-    check(n == 3, f"{GAN_EXAMPLE}: {n} imports of mxnet_tpu, want 3")
-    ns = {"__name__": "dcgan_example", "__file__": path}
-    exec(compile(src, path, "exec"), ns)
     out, old_argv = io.StringIO(), sys.argv
-    sys.argv = [path] + list(argv)
+    sys.argv = [ns["__file__"]] + list(argv)
     try:
         with contextlib.redirect_stdout(out), ctx or mx.current_context():
             ns["main"]()
     finally:
         sys.argv = old_argv
-    figures = dict(line.split(":", 1) for line in out.getvalue().split()
-                   if ":" in line)
-    return {k: float(v) for k, v in figures.items()}
+    figures = {}
+    for line in out.getvalue().splitlines():
+        key, _, value = line.rpartition(":")
+        with contextlib.suppress(ValueError):
+            figures[key.strip()] = float(value)
+    return figures
+
+
+def run_dcgan_example(argv, ctx=None):
+    """`example/gluon/dcgan.py` run through the port with only its imports
+    changed (``mxnet_tpu`` -> ``mxnet_tpu_torch``), on ``ctx`` (default: the
+    port's default context, the card). Returns its two figures
+    (``blob-minus-border``, ``d-real-minus-fake``)."""
+    return run_example(example_namespace(GAN_EXAMPLE, 3), argv, ctx)
 
 
 def gan_full_width(torch, mx, smi):
@@ -5766,6 +5904,503 @@ def gan_phase(torch, smi):
                                   "compared": len(pairs),
                                   "max_abs_err": worst,
                                   "tol": ND_SMALL_TOL}}, profile
+
+
+# -- slice 14: the recurrent path ---------------------------------------------
+
+# the "large" LSTM language model of Zaremba, Sutskever and Vinyals 2014
+# (2 x 1500, dropout 0.65, 35 unrolled steps) on WikiText-2's vocabulary,
+# at MXNet's example/gluon/word_language_model/train.py batch of 32
+LM_FULL = {"vocab": 33278, "embed": 1500, "hidden": 1500, "layers": 2,
+           "dropout": 0.65, "bptt": 35, "batch": 32}
+# the repo example's Trainer: SGD at its default rate 2.0, gradients clipped
+# elementwise at 0.25 (MXNet's train.py takes rate 20 with a clip of the
+# global norm; at rate 20 under the elementwise clip this model diverged on
+# the card, PERF.md)
+LM_OPT = {"learning_rate": 2.0, "clip_gradient": 0.25}
+LM_WARMUP, LM_TIMED = 3, 20
+# bptt windows of the synthetic corpus that the iterations cycle through, as
+# epochs would: a first-order chain over 33,278 words is learned only from
+# pairs seen again
+LM_POOL = 4
+# check (b): a small LSTM LM from numpy weights, two steps
+LM_SMALL = {"vocab": 64, "embed": 32, "hidden": 32, "layers": 2,
+            "dropout": 0.0, "bptt": 8, "batch": 4, "steps": 2}
+LM_SMALL_TOL = {"rtol": 1e-4, "atol": 1e-4}
+WORD_LM_EXAMPLE = "example/gluon/word_language_model.py"
+# the vocabulary tests/python/unittest/test_examples.py:54 runs it at: at its
+# default 200 the example stops near perplexity 197 on either package, above
+# its own assert's vocab / 4 (ROADMAP.md, reference-side behaviour)
+WORD_LM_VOCAB = 100
+BUCKETING_EXAMPLE = "example/rnn/lstm_bucketing.py"
+BUCKETING_PPL = 20.0  # tests/python/unittest/test_examples.py:84
+# MXNet's example/rnn/bucketing/lstm_bucketing.py defaults, on a synthetic
+# vocabulary of 10,000 words
+BUCKET_CFG = {"layers": 2, "hidden": 200, "embed": 200, "vocab": 10000,
+              "batch": 32, "buckets": (10, 20, 30, 40, 50, 60),
+              "sentences": 1920, "epochs": 2}
+BUCKET_OPT = {"learning_rate": 0.01, "momentum": 0.0, "wd": 1e-5}
+
+
+def word_lm_module(mx):
+    """`example/gluon/word_language_model.py` as a module for the package
+    ``mx``: through the port with its imports changed, or as it stands."""
+    return example_namespace(WORD_LM_EXAMPLE, 3,
+                             port=mx.__name__ == "mxnet_tpu_torch")
+
+
+def word_lm_setup(mx, ctx, cfg, weights_seed=None, hybridize=True):
+    """The example's `RNNModel` (untied) at ``cfg``'s widths on ctx, its
+    `Trainer` (SGD at ``cfg``'s rate, else `LM_OPT`'s, with `LM_OPT`'s
+    elementwise ``clip_gradient``) and loss; ``model.rnn`` hybridized
+    unless told not. Weights: `mx.init.Xavier()`, or with ``weights_seed``
+    each parameter drawn from numpy's U(-0.1, 0.1) by its structural name
+    (the same on any package and device)."""
+    import numpy as np
+
+    ex = word_lm_module(mx)
+    with ctx:
+        model = ex["RNNModel"](cfg["vocab"], cfg["embed"], cfg["hidden"],
+                               cfg["layers"], dropout=cfg["dropout"])
+        model.initialize(mx.init.Xavier(), ctx=ctx)
+        # the decoder's deferred input width
+        hidden = model.begin_state(func=mx.nd.zeros, batch_size=1, ctx=ctx)
+        model(mx.nd.zeros((1, 1), ctx=ctx), hidden)
+        if weights_seed is not None:
+            rng = np.random.RandomState(weights_seed)
+            for name, p in sorted(model._collect_params_with_prefix()
+                                  .items()):
+                p.set_data(mx.nd.array(rng.uniform(-0.1, 0.1, p.shape)
+                                       .astype(np.float32), ctx=ctx))
+        if hybridize:
+            model.rnn.hybridize()
+        opt = dict(LM_OPT, learning_rate=cfg.get("lr",
+                                                 LM_OPT["learning_rate"]))
+        trainer = mx.gluon.Trainer(model.collect_params(), "sgd", opt)
+    return ex, model, trainer, mx.gluon.loss.SoftmaxCrossEntropyLoss()
+
+
+def word_lm_windows(ex, cfg, n, seed=0):
+    """``n`` consecutive (input, target) bptt windows of the example's
+    synthetic corpus at ``cfg``'s vocabulary, batchified as the example
+    does: numpy (bptt, batch) arrays."""
+    import numpy as np
+
+    T, N = cfg["bptt"], cfg["batch"]
+    data = ex["batchify"](ex["synthetic_corpus"](cfg["vocab"],
+                                                 n * T * N + N, seed), N)
+    return [(data[i * T:(i + 1) * T].astype(np.float32),
+             data[i * T + 1:(i + 1) * T + 1].astype(np.float32))
+            for i in range(n)]
+
+
+def word_lm_iteration(mx, model, trainer, loss_fn, x, y, hidden, cfg):
+    """One iteration of the example's loop: the hidden state detached
+    (truncated BPTT), the forward and loss under `record()`, the backward
+    and the SGD step over batch x bptt tokens. Returns (per-token loss,
+    hidden)."""
+    hidden = [h.detach() for h in hidden]
+    with mx.autograd.record():
+        out, hidden = model(x, hidden)
+        loss = loss_fn(out.reshape((-1, cfg["vocab"])), y.reshape((-1,)))
+    loss.backward()
+    trainer.step(cfg["batch"] * cfg["bptt"])
+    return loss, hidden
+
+
+def word_lm_small_run(mx, ctx, cfg=LM_SMALL, seed=0, hybridize=True):
+    """Check (b)'s run and the CPU test's: the LSTM LM of ``cfg`` from the
+    weights of ``seed`` stepped ``cfg["steps"]`` iterations over the
+    corpus's consecutive windows. Returns (mean losses, the parameters by
+    structural name and the final hidden state, numpy)."""
+    ex, model, trainer, loss_fn = word_lm_setup(
+        mx, ctx, cfg, weights_seed=seed, hybridize=hybridize)
+    with ctx:
+        hidden = model.begin_state(func=mx.nd.zeros,
+                                   batch_size=cfg["batch"], ctx=ctx)
+        losses = []
+        for x, y in word_lm_windows(ex, cfg, cfg["steps"], seed + 1):
+            loss, hidden = word_lm_iteration(
+                mx, model, trainer, loss_fn, mx.nd.array(x, ctx=ctx),
+                mx.nd.array(y, ctx=ctx), hidden, cfg)
+            losses.append(float(loss.mean().asnumpy()))
+    state = {name: p.data().asnumpy()
+             for name, p in model._collect_params_with_prefix().items()}
+    for i, h in enumerate(hidden):
+        state[f"hidden {i}"] = h.asnumpy()
+    return losses, state
+
+
+def word_lm_flop(cfg):
+    """One iteration's FLOP in its products, from the shapes: per layer
+    and token the gates' 2 x 4H x (I + H), the decoder's 2 x H x vocab,
+    each backpropagated (3 x the forward). Returns (iteration,
+    recurrent, decoder)."""
+    tokens = cfg["bptt"] * cfg["batch"]
+    rec = 0
+    width_in = cfg["embed"]
+    for _ in range(cfg["layers"]):
+        rec += 2 * tokens * 4 * cfg["hidden"] * (width_in + cfg["hidden"])
+        width_in = cfg["hidden"]
+    dec = 2 * tokens * cfg["hidden"] * cfg["vocab"]
+    return 3 * (rec + dec), 3 * rec, 3 * dec
+
+
+def lstm_lm_full_width(torch, mx, smi):
+    """The full-width LSTM LM on the card (`LM_FULL`, `LM_OPT`): the
+    example's model and loop, ``model.rnn`` hybridized, fp32 (TF32 off),
+    `LM_WARMUP` iterations then `LM_TIMED` timed ones (the loss read each
+    iteration); checks (a) and the LM's part of (d). Returns the line and
+    a function that runs one more iteration."""
+    import numpy as np
+
+    from mxnet_tpu_torch import observatory
+    from mxnet_tpu_torch.ops import rnn as rnn_ops
+
+    cfg = LM_FULL
+    ctx = mx.gpu(0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # what earlier phases still hold: the phase's own peak is above it
+    held = torch.cuda.memory_allocated()
+    mx.random.seed(0)
+    ex, model, trainer, loss_fn = word_lm_setup(mx, ctx, cfg)
+    params = sum(int(np.prod(p.shape))
+                 for p in model.collect_params().values())
+    pool = [(mx.nd.array(x, ctx=ctx), mx.nd.array(y, ctx=ctx))
+            for x, y in word_lm_windows(ex, cfg, LM_POOL)]
+    state = {"i": 0, "hidden": model.begin_state(
+        func=mx.nd.zeros, batch_size=cfg["batch"], ctx=ctx)}
+
+    def one():
+        x, y = pool[state["i"] % LM_POOL]
+        state["i"] += 1
+        loss, state["hidden"] = word_lm_iteration(
+            mx, model, trainer, loss_fn, x, y, state["hidden"], cfg)
+        return loss
+
+    rnn_ops.reset_routes()
+    losses, wall, host = [], [], []
+    captures = None
+    for i in range(LM_WARMUP + LM_TIMED):
+        if i == LM_WARMUP:
+            captures = model.rnn._cached_op.captures
+        t0 = time.perf_counter()
+        loss = one()
+        t1 = time.perf_counter()
+        losses.append(float(loss.mean().asnumpy()))
+        t2 = time.perf_counter()
+        if i >= LM_WARMUP:
+            host.append(t1 - t0)
+            wall.append(t2 - t0)
+    after = model.rnn._cached_op.captures
+    routes = dict(rnn_ops.ROUTE_CALLS)
+    peak = torch.cuda.max_memory_allocated()
+    timed = losses[LM_WARMUP:]
+    ppl = [math.exp(v) for v in timed]
+    # (a): finite losses; the perplexity falls over the timed iterations
+    check(all(math.isfinite(v) for v in losses),
+          f"lstm_lm: a non-finite loss in {losses}")
+    first, last = statistics.mean(ppl[:LM_POOL]), statistics.mean(
+        ppl[-LM_POOL:])
+    check(last < first, f"lstm_lm: perplexity {first} over the first "
+          f"{LM_POOL} timed iterations, {last} over the last {LM_POOL}")
+    # (d): every capture in the warm-up
+    check(after == captures, f"lstm_lm: {captures} captures after the "
+          f"warm-up, {after} after the timed iterations")
+    flop, rec_flop, dec_flop = word_lm_flop(cfg)
+    iter_ms = statistics.median(wall) * 1e3
+    peak_fp32 = observatory.peaks()["matmul_flops"]["float32"]
+    bound_ms = flop / peak_fp32 * 1e3
+    tokens = cfg["bptt"] * cfg["batch"]
+    return {"config": dict(cfg, **LM_OPT, optimizer="sgd", tied=False,
+                           dtype="float32, TF32 off",
+                           hybridized="model.rnn"),
+            "source": "Zaremba, Sutskever and Vinyals 2014 (large); MXNet "
+                      "example/gluon/word_language_model/train.py batch 32; "
+                      "WikiText-2 vocabulary",
+            "data": f"the example's synthetic_corpus, {LM_POOL} bptt "
+                    f"windows cycled",
+            "warmup": LM_WARMUP, "timed": LM_TIMED, "losses": losses,
+            "perplexity_first_last": [first, last],
+            "iteration_ms": [w * 1e3 for w in wall],
+            "median_iteration_ms": iter_ms,
+            "tokens_per_s": tokens / iter_ms * 1e3,
+            "median_host_ms": statistics.median(host) * 1e3,
+            "iteration_flop": flop, "recurrent_flop": rec_flop,
+            "decoder_flop": dec_flop, "peak_fp32_flops": peak_fp32,
+            "bound_ms": bound_ms, "bound_by": "operations",
+            "bound_share": bound_ms / iter_ms,
+            "sheet_bound_share": flop / PEAK_FLOPS["float32"] * 1e3
+            / iter_ms,
+            "parameters": params, "captures": after,
+            "signatures": {str(k[:2]): n for k, n in
+                           model.rnn._cached_op.instances().items()},
+            "rnn_route_calls": routes,
+            "peak_mem_gb": peak / 1e9, "held_at_start_gb": held / 1e9,
+            "phase_peak_mem_gb": (peak - held) / 1e9, "card": smi}, one
+
+
+def rnn_route_check(torch, cfg=LM_FULL):
+    """Check (c): the `RNN` op at the full-width LM's shapes (data [bptt,
+    batch, embed], both layers, random states, no dropout) on the card,
+    its ``fused`` route (cuDNN) against its ``step`` route
+    (``cudnn_off``): the output, both final states and the gradients of
+    sum(output * cotangent) + the final states' sums to the data, the flat
+    parameters and both initial states must agree within an absolute
+    error of ``ROUTE_TOL`` x max(1, max |step route's value|) each, fp32
+    with TF32 off: cuDNN's and cuBLAS's sums in other orders over 35
+    steps. Also times each route's forward + backward and the repack of
+    the flat vector into cuDNN's layout that each fused call makes
+    (`torch._cudnn_rnn_flatten_weight` of each layer's views)."""
+    from mxnet_tpu_torch.ops import rnn as rnn_ops
+
+    T, N, I = cfg["bptt"], cfg["batch"], cfg["embed"]
+    H, L = cfg["hidden"], cfg["layers"]
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    n = rnn_ops.rnn_param_size(L, H, I, "lstm")
+    x = torch.randn(T, N, I, device="cuda", generator=gen)
+    w = torch.rand(n, device="cuda", generator=gen) * 0.08 - 0.04
+    h0 = torch.randn(L, N, H, device="cuda", generator=gen) * 0.5
+    c0 = torch.randn(L, N, H, device="cuda", generator=gen) * 0.5
+    ct = torch.randn(T, N, H, device="cuda", generator=gen)
+    attrs = {"state_size": H, "num_layers": L, "mode": "lstm",
+             "state_outputs": True, "p": 0.0, "_train": True}
+
+    def run(cudnn_off):
+        ins = [t.clone().requires_grad_() for t in (x, w, h0, c0)]
+        out, hT, cT = rnn_ops._rnn(None, *ins, cudnn_off=cudnn_off, **attrs)
+        grads = torch.autograd.grad(
+            (out * ct).sum() + hT.sum() + cT.sum(), ins)
+        return [out, hT, cT] + list(grads)
+
+    names = ["output", "hT", "cT", "grad data", "grad parameters",
+             "grad h0", "grad c0"]
+    fused, step = run(False), run(True)
+    errs = {}
+    for name, a, b in zip(names, fused, step):
+        err = float((a - b).abs().max())
+        scale = max(1.0, float(b.abs().max()))
+        errs[name] = {"max_abs_err": err, "scale": scale}
+        check(err <= ROUTE_TOL * scale,
+              f"lstm_lm (c): fused vs step route, {name}: max err {err} "
+              f"over {ROUTE_TOL} x {scale}")
+    layers = rnn_ops._slice_params(w, L, H, I, "lstm", 1)
+
+    def repack():
+        for wi, wh, bi, bh, _ in layers:
+            torch._cudnn_rnn_flatten_weight([wi, wh, bi, bh], 4,
+                                            wi.shape[1], 2, H, 0, 1, False,
+                                            False)
+
+    return {"tol": ROUTE_TOL, "compared": errs,
+            "fused_fwd_bwd_ms": cuda_ms(lambda: run(False)),
+            "step_fwd_bwd_ms": cuda_ms(lambda: run(True)),
+            "repack_ms": cuda_ms(repack),
+            "repack_bytes": 2 * 4 * (n - L * 2 * 4 * H)}
+
+
+# check (c)'s bound on |fused - step| over max(1, |step|); written before
+# the first run on the card
+ROUTE_TOL = 1e-4
+
+
+def bucketing_sym_gen(mx, cfg):
+    """`example/rnn/lstm_bucketing.py`'s ``sym_gen`` at ``cfg``'s widths:
+    Embedding -> the fused `RNN` op (an LSTM over the flat
+    ``lstm_parameters_weight``, zero begin states) -> FullyConnected ->
+    SoftmaxOutput, NT batches."""
+    from importlib import import_module
+
+    rnn_param_size = import_module(mx.__name__ + ".ops.rnn").rnn_param_size
+    L, H, E, V, B = (cfg["layers"], cfg["hidden"], cfg["embed"],
+                     cfg["vocab"], cfg["batch"])
+
+    def sym_gen(seq_len):
+        data = mx.sym.Variable("data")
+        label = mx.sym.Variable("softmax_label")
+        embed = mx.sym.Embedding(data, input_dim=V, output_dim=E,
+                                 name="embed")
+        tnc = mx.sym.transpose(embed, axes=(1, 0, 2))
+        rnn_params = mx.sym.Variable(
+            "lstm_parameters_weight", shape=(rnn_param_size(L, H, E,
+                                                            "lstm"),))
+        h0 = mx.sym.zeros(shape=(L, B, H))
+        c0 = mx.sym.zeros(shape=(L, B, H))
+        rnn = mx.sym.RNN(tnc, rnn_params, h0, c0, state_size=H,
+                         num_layers=L, mode="lstm", name="lstm")
+        ntc = mx.sym.transpose(rnn, axes=(1, 0, 2))
+        pred = mx.sym.FullyConnected(mx.sym.Reshape(ntc, shape=(-1, H)),
+                                     num_hidden=V, name="pred")
+        out = mx.sym.SoftmaxOutput(pred, mx.sym.Reshape(label, shape=(-1,)),
+                                   name="softmax")
+        return out, ("data",), ("softmax_label",)
+
+    return sym_gen
+
+
+def bucket_sentences(vocab, n, longest, seed=7):
+    """Markov-chain sentences as `example/rnn/lstm_bucketing.py`'s
+    ``synthetic_sentences`` makes them (two likely successors a word), at
+    lengths drawn uniformly from 5 to ``longest``."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    nxt = rng.randint(0, vocab, size=(vocab, 2))
+    out = []
+    for _ in range(n):
+        s = [int(rng.randint(vocab))]
+        for _ in range(int(rng.randint(5, longest + 1)) - 1):
+            s.append(int(nxt[s[-1], rng.randint(2)]) if rng.rand() < 0.9
+                     else int(rng.randint(vocab)))
+        out.append(s)
+    return out
+
+
+def bucketing_path(torch, mx, smi, cfg=BUCKET_CFG):
+    """The bucketed LSTM LM through `BucketingModule` on the card at
+    `BUCKET_CFG`: `rnn.BucketSentenceIter` over `bucket_sentences`,
+    U(-0.1, 0.1) weights (the repo example's), SGD (`BUCKET_OPT`), each batch one
+    `BucketingModule.fused_step` for ``cfg["epochs"]`` epochs. Check (d):
+    each bucket's module holds exactly one captured step, all made in the
+    first epoch. Prints each bucket's captures and steps, and the steps a
+    second of the last epoch."""
+    import random
+
+    import numpy as np
+
+    random.seed(0)
+    np.random.seed(0)
+    mx.random.seed(0)
+    sents = bucket_sentences(cfg["vocab"], cfg["sentences"],
+                             max(cfg["buckets"]))
+    it = mx.rnn.BucketSentenceIter(sents, cfg["batch"],
+                                   buckets=list(cfg["buckets"]),
+                                   invalid_label=0)
+    mod = mx.mod.BucketingModule(bucketing_sym_gen(mx, cfg),
+                                 default_bucket_key=it.default_bucket_key,
+                                 context=mx.gpu(0))
+    mod.bind(it.provide_data, it.provide_label)
+    mod.init_params(mx.init.Uniform(0.1))
+    mod.init_optimizer(optimizer="sgd", optimizer_params=dict(BUCKET_OPT))
+    metric = mx.metric.Perplexity(ignore_label=0)
+    steps, epoch_s, captures_first = {}, [], None
+    for epoch in range(cfg["epochs"]):
+        it.reset()
+        metric.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        n = 0
+        for batch in it:
+            check(mod.fused_step(batch), "lstm_lm: the bucket's fused step "
+                  "declined")
+            steps[batch.bucket_key] = steps.get(batch.bucket_key, 0) + 1
+            n += 1
+        metric.update([batch.label[0].reshape((-1,))], mod.get_outputs())
+        torch.cuda.synchronize()
+        epoch_s.append((n, time.perf_counter() - t0))
+        if epoch == 0:
+            captures_first = {k: m._exec._steps.misses
+                              for k, m in mod._buckets.items()}
+    captures = {k: m._exec._steps.misses for k, m in mod._buckets.items()}
+    check(sorted(captures) == sorted(cfg["buckets"]),
+          f"lstm_lm: buckets bound {sorted(captures)}, want "
+          f"{list(cfg['buckets'])}")
+    check(all(v == 1 for v in captures.values())
+          and captures == captures_first,
+          f"lstm_lm (d): captures per bucket {captures} (after the first "
+          f"epoch {captures_first}), want one each in the first epoch")
+    ppl = metric.get()[1]
+    check(math.isfinite(ppl), f"lstm_lm: bucketed perplexity {ppl}")
+    n, secs = epoch_s[-1]
+    return {"config": dict(cfg, **BUCKET_OPT, optimizer="sgd",
+                           buckets=list(cfg["buckets"])),
+            "source": "MXNet example/rnn/bucketing/lstm_bucketing.py "
+                      "defaults; synthetic vocabulary 10,000",
+            "captures_per_bucket": {str(k): v for k, v in
+                                    sorted(captures.items())},
+            "steps_per_bucket": {str(k): v for k, v in
+                                 sorted(steps.items())},
+            "last_epoch_steps": n, "last_epoch_s": secs,
+            "steps_per_s": n / secs, "last_batch_perplexity": ppl,
+            "card": smi}
+
+
+def run_word_lm_example(argv, ctx=None):
+    """`example/gluon/word_language_model.py` through the port with only
+    its imports changed, under ``argv``. Returns its ``final
+    perplexity``."""
+    return run_example(example_namespace(WORD_LM_EXAMPLE, 3), argv, ctx)
+
+
+def run_bucketing_example(argv, ctx=None):
+    """`example/rnn/lstm_bucketing.py` through the port with its two
+    imports changed and its module's ``context=mx.cpu()`` made the
+    context it runs in (``ctx``, default the card). Returns its
+    ``final-perplexity``."""
+    ns = example_namespace(BUCKETING_EXAMPLE, 2, subs=[
+        ("context=mx.cpu()", "context=mx.current_context()")])
+    return run_example(ns, argv, ctx)
+
+
+def lstm_lm_phase(torch, smi):
+    """Slice 14's path: the full-width LSTM LM (`lstm_lm_full_width`,
+    checks (a) and (d)), one more iteration under torch.profiler (host
+    launch calls, idle share), check (c) (`rnn_route_check`), the
+    bucketed path (`bucketing_path`, check (d)), the repo's two examples
+    at their defaults through the port (e), and check (b): the small LSTM
+    LM on the card against the CPU. (f): no kernel launch. Returns the
+    line and the profile."""
+    import numpy as np
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ops import rnn as rnn_ops
+
+    reset_launches()
+    full, one_more = lstm_lm_full_width(torch, mx, smi)
+    bucketed = bucketing_path(torch, mx, smi)
+    launches = read_launches()
+    check(not any(launches.values()),
+          f"the lstm_lm path launched kernels: {launches}")
+    profile = profile_step(torch, one_more, must_run=("matmul",))
+    full["host_launch_calls"] = profile["host_launch_calls"]
+    full["idle_share"] = profile["idle_share"]
+    full["profile"] = profile_summary(profile)
+    routes = rnn_route_check(torch)
+    rnn_ops.reset_routes()
+    word_lm = run_word_lm_example(["--vocab", str(WORD_LM_VOCAB)],
+                                  ctx=mx.gpu(0))
+    bucket_ex = run_bucketing_example([], ctx=mx.gpu(0))
+    example_routes = dict(rnn_ops.ROUTE_CALLS)
+    vocab = WORD_LM_VOCAB
+    check(word_lm.get("final perplexity", math.inf) < vocab / 4,
+          f"lstm_lm (e): the word LM example's figures {word_lm}")
+    check(bucket_ex.get("final-perplexity", math.inf) < BUCKETING_PPL,
+          f"lstm_lm (e): the bucketing example's figures {bucket_ex}")
+    card = word_lm_small_run(mx, mx.gpu(0))
+    cpu = word_lm_small_run(mx, mx.cpu())
+    worst = 0.0
+    pairs = [("losses", np.asarray(card[0]), np.asarray(cpu[0]))]
+    pairs += [(k, v, cpu[1][k]) for k, v in card[1].items()]
+    for what, a, b in pairs:
+        err = float(np.abs(a - b).max())
+        worst = max(worst, err)
+        check(np.allclose(a, b, **LM_SMALL_TOL),
+              f"lstm_lm small card vs CPU: {what} max err {err} over "
+              f"{LM_SMALL_TOL}")
+    return {"full_width": full, "bucketing": bucketed,
+            "routes_card": routes, "kernel_launches": launches,
+            "examples": {"word_language_model": dict(
+                word_lm, bound=vocab / 4, argv="--vocab 100, else its "
+                "defaults: embed 64, hidden 128, 2 layers, batch 16, bptt "
+                "16, 6 epochs"), "lstm_bucketing": dict(
+                bucket_ex, bound=BUCKETING_PPL, argv="defaults: 1 layer, "
+                "hidden 64, embed 32, vocab 60, 600 sentences, 3 epochs, "
+                "adam"), "rnn_route_calls": example_routes},
+            "small_card_vs_cpu": {"config": LM_SMALL,
+                                  "compared": len(pairs),
+                                  "max_abs_err": worst,
+                                  "tol": LM_SMALL_TOL}}, profile
 
 
 def profiler_phase(torch, lm_state, smi):
@@ -6121,6 +6756,8 @@ KERNEL_GROUPS = (  # substring of a device kernel's name -> its group
     ("wgrad", "convolution"), ("convolve", "convolution"),
     ("conv2d", "convolution"), ("batch_norm", "batchnorm"),
     ("pool", "pooling"),
+    # cuDNN's recurrent kernels (the lstm_lm path's fused route)
+    ("LSTM", "recurrent"), ("RNN_", "recurrent"), ("lstm", "recurrent"),
     ("gemm", "matmul"), ("nvjet", "matmul"), ("xmma", "matmul"),
     ("softmax", "softmax"), ("SoftMax", "softmax"),
     ("reduce", "reductions"), ("Reduce", "reductions"),
@@ -6300,6 +6937,8 @@ def main(argv=None):
     progress("overlap")
     gan, gan_profile = gan_phase(torch, smi)
     progress("gan")
+    lstm_lm, lstm_lm_profile = lstm_lm_phase(torch, smi)
+    progress("lstm_lm")
     kernels = kernels_phase(torch, fa, gcm, {
         "train": train["kernel_launches"],
         "ring": ring["kernel_launches"],
@@ -6311,7 +6950,8 @@ def main(argv=None):
         "module": module["kernel_launches"],
         "serve": serve["kernel_launches"],
         "overlap": overlap["kernel_launches"],
-        "gan": gan["kernel_launches"]})
+        "gan": gan["kernel_launches"],
+        "lstm_lm": lstm_lm["kernel_launches"]})
     emit(kernels=kernels)
     emit(train=train, small_reference=small)
     emit(ring=ring, small_reference=small_ring)
@@ -6326,6 +6966,7 @@ def main(argv=None):
     emit(observe=observe)
     emit(overlap=overlap)
     emit(gan=gan)
+    emit(lstm_lm=lstm_lm)
     if args.profile:
         def one_more_step(state_of_path):
             _, step, state, tokens, targets = state_of_path
@@ -6344,7 +6985,8 @@ def main(argv=None):
                                              name.startswith("update") else (
                 "convolution", "batchnorm"))
                for name, step in gluon_steps.items()},
-            **module_profiles, **serve_profiles, "gan": gan_profile}
+            **module_profiles, **serve_profiles, "gan": gan_profile,
+            "lstm_lm": lstm_lm_profile}
         with open(args.profile, "w") as f:
             json.dump(profiles, f, indent=1)
         emit(profile={"path": args.profile, **{

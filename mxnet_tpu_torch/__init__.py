@@ -49,7 +49,11 @@ and the observability planes every path above reports into, each off
 unless its switch is set (`telemetry`, `tracing`, the lock-order recorder
 `analysis`, `health` with the beacons, watchdog, SLO tracker and
 autoscale signal, `profiler` over torch.profiler, the memory census
-`memory`, the roofline `observatory`, and `compile_cache`'s accounting).
+`memory`, the roofline `observatory`, and `compile_cache`'s accounting);
+and the recurrent path (the fused `RNN` op over cuDNN, `gluon.rnn` and
+`gluon.contrib.rnn`, `nd.contrib` / `sym.contrib` foreach, while_loop and
+cond, `rnn.BucketSentenceIter` and `mod.BucketingModule`), which runs no
+TPU kernel's port either.
 """
 from . import autograd, ndarray, random
 from . import ndarray as nd
@@ -59,6 +63,7 @@ from . import name, lr_scheduler, optimizer, metric, io, gluon
 from . import attribute, symbol, module, model, callback, monitor
 from . import analysis, telemetry, tracing, profiler, memory, observatory
 from . import resilience, health, serving
+from . import rnn
 from . import symbol as sym
 from . import module as mod
 from .attribute import AttrScope
@@ -72,6 +77,6 @@ __all__ = ["nd", "ndarray", "autograd", "random", "initializer", "init",
            "attribute", "symbol", "sym", "Symbol", "module", "mod", "model",
            "callback", "monitor", "AttrScope", "resilience", "health",
            "serving", "analysis", "telemetry", "tracing", "profiler",
-           "memory", "observatory",
+           "memory", "observatory", "rnn",
            "cpu", "gpu", "tpu", "num_gpus", "Context", "current_context",
            "MXNetError", "resolve_device"]

@@ -1,5 +1,6 @@
 """The port's error type, dtype tables and environment knobs: the
-counterpart of `mxnet_tpu/base.py`, cut to what the port raises and reads."""
+counterpart of `mxnet_tpu/base.py`, cut to what the port raises and reads,
+and the nested-list helpers of `mxnet_tpu/util.py`."""
 from __future__ import annotations
 
 import os
@@ -9,7 +10,8 @@ import numpy as _np
 import torch
 
 __all__ = ["MXNetError", "register_env", "getenv", "np_dtype", "torch_dtype",
-           "dtype_name", "numeric_types", "integer_types"]
+           "dtype_name", "numeric_types", "integer_types", "flatten_nested",
+           "unflatten_nested"]
 
 
 class MXNetError(RuntimeError):
@@ -106,3 +108,31 @@ def getenv(name, default=None):
     if isinstance(default, float):
         return float(val)
     return val
+
+
+def flatten_nested(x, leaf_cls):
+    """A nested list or tuple of ``leaf_cls`` instances as (flat list,
+    structure); the structure is None for a bare leaf and a list of
+    (child structure, child leaf count) otherwise. The control-flow
+    frontends of `ndarray` and `symbol` share it."""
+    if isinstance(x, leaf_cls):
+        return [x], None
+    if x is None:
+        return [], ()
+    flat, struct = [], []
+    for item in x:
+        f, s = flatten_nested(item, leaf_cls)
+        flat.extend(f)
+        struct.append((s, len(f)))
+    return flat, struct
+
+
+def unflatten_nested(flat, struct):
+    """The inverse of `flatten_nested`."""
+    if struct is None:
+        return flat[0]
+    out, i = [], 0
+    for s, n in struct:
+        out.append(unflatten_nested(flat[i:i + n], s))
+        i += n
+    return out

@@ -10,6 +10,13 @@ gluon blocks: both packages name a block's parameters by their structural
 names (``features.0.weight``, `Block._collect_params_with_prefix`), so
 `gluon_params_from_numpy` sets them from a dict so keyed; `save_parameters`
 files cross between the packages as they are.
+
+Recurrent layers: a gluon RNN layer keeps each layer's and direction's
+pieces (``l0_i2h_weight``, ``r1_h2h_bias``, ``l0_h2r_weight``); the fused
+`RNN` op of a symbolic graph takes one flat vector (``lstm_parameters_weight``
+in `example/rnn/lstm_bucketing.py`) in the reference's layout.
+`rnn_flat_to_arrays` and `rnn_arrays_to_flat` convert between the two, so
+either package's weights load into either form of the port.
 """
 from __future__ import annotations
 
@@ -21,7 +28,8 @@ import torch
 from ..context import resolve_device
 
 __all__ = ["params_from_jax", "params_to_jax", "port_name", "jax_name",
-           "to_tensor", "state_like", "gluon_params_from_numpy"]
+           "to_tensor", "state_like", "gluon_params_from_numpy",
+           "rnn_flat_to_arrays", "rnn_arrays_to_flat"]
 
 _JAX_LAYER = re.compile(r"^l(\d+)\.(\w+)$")
 _PORT_LAYER = re.compile(r"^layers\.(\d+)\.(\w+)$")
@@ -126,3 +134,56 @@ def gluon_params_from_numpy(block, arrays, ctx=None):
         value = np.asarray(value)
         params[name]._load_init(array(value, ctx=cpu(), dtype=value.dtype),
                                 ctx)
+
+
+def _rnn_names(num_layers, bidirectional, projection_size):
+    """The gluon layer's names of each (layer, direction)'s (i2h weight,
+    h2h weight, i2h bias, h2h bias, h2r weight or None), in the flat
+    vector's (layer, direction) order."""
+    out = []
+    for i in range(num_layers):
+        for j in "lr"[:2 if bidirectional else 1]:
+            out.append((f"{j}{i}_i2h_weight", f"{j}{i}_h2h_weight",
+                        f"{j}{i}_i2h_bias", f"{j}{i}_h2h_bias",
+                        f"{j}{i}_h2r_weight" if projection_size else None))
+    return out
+
+
+def rnn_flat_to_arrays(flat, num_layers, hidden_size, input_size, mode,
+                       bidirectional=False, projection_size=None,
+                       prefix=""):
+    """{``prefix`` + gluon layer name: numpy array} of a gluon `RNN` /
+    `LSTM` / `GRU` layer from the fused op's flat vector (numpy, or anything
+    `np.asarray` takes), in the reference's layout (`ops.rnn`)."""
+    from ..ops.rnn import _slice_params, rnn_param_size
+
+    flat = np.asarray(flat)
+    want = rnn_param_size(num_layers, hidden_size, input_size, mode,
+                          bidirectional, projection_size)
+    if flat.size != want:
+        raise ValueError(f"flat vector of {flat.size} values, the layer "
+                         f"takes {want}")
+    pieces = _slice_params(to_tensor(flat.reshape(-1)), num_layers,
+                           hidden_size, input_size, mode,
+                           2 if bidirectional else 1, projection_size)
+    out = {}
+    for names, views in zip(_rnn_names(num_layers, bidirectional,
+                                       projection_size), pieces):
+        for name, view in zip(names, views):
+            if name is not None:
+                out[prefix + name] = view.numpy().copy()
+    return out
+
+
+def rnn_arrays_to_flat(arrays, num_layers, bidirectional=False,
+                       projection_size=None, prefix=""):
+    """The fused op's flat vector (numpy) from a gluon RNN layer's
+    arrays by name (``prefix`` + ``l0_i2h_weight`` ...): all weights
+    (layer-major, direction-minor, i2h then h2h), then all biases, then
+    the projections."""
+    names = _rnn_names(num_layers, bidirectional, projection_size)
+    order = [n for ns in names for n in ns[:2]] + \
+        [n for ns in names for n in ns[2:4]] + \
+        [ns[4] for ns in names if ns[4] is not None]
+    return np.concatenate([np.asarray(arrays[prefix + n]).reshape(-1)
+                           for n in order])

@@ -154,10 +154,25 @@ class Module(BaseModule):
         ctx = self._context[0]
         type_dict = {d.name: getattr(d, "dtype", _np.float32)
                      for d in self._data_shapes + self._label_shapes}
-        args = {n: nd.zeros(s, ctx=ctx, dtype=type_dict.get(n, "float32"))
+        # with a shared module (the buckets of a BucketingModule), every
+        # parameter and aux state of the same name and shape IS the shared
+        # module's array, as the reference's executors share memory: one
+        # storage that each bucket's captured step reads and updates in place
+        shared = {}
+        if shared_module is not None and shared_module.binded:
+            sx = shared_module._exec
+            shared = {n: sx.arg_dict[n] for n in shared_module._param_names}
+            shared.update(sx.aux_dict)
+
+        def array(n, s, dtype="float32"):
+            a = shared.get(n)
+            if a is not None and a.shape == tuple(s):
+                return a
+            return nd.zeros(s, ctx=ctx, dtype=dtype)
+
+        args = {n: array(n, s, type_dict.get(n, "float32"))
                 for n, s in zip(arg_names, arg_shapes)}
-        auxs = {n: nd.zeros(s, ctx=ctx)
-                for n, s in zip(self._aux_names, aux_shapes)}
+        auxs = {n: array(n, s) for n, s in zip(self._aux_names, aux_shapes)}
 
         req = {}
         for n in arg_names:
@@ -175,8 +190,6 @@ class Module(BaseModule):
         self.binded = True
 
         if shared_module is not None and shared_module.params_initialized:
-            arg_p, aux_p = shared_module.get_params()
-            self._exec.copy_params_from(arg_p, aux_p, allow_extra_params=True)
             self._arg_params = {n: self._exec.arg_dict[n]
                                 for n in self._param_names}
             self._aux_params = dict(self._exec.aux_dict)

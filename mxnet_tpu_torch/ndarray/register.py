@@ -6,6 +6,7 @@ tensors, with grad enabled only under `autograd.record()`.
 """
 from __future__ import annotations
 
+import contextvars
 import inspect
 import sys
 import time
@@ -25,6 +26,10 @@ from .ndarray import NDArray, _device
 __all__ = ["invoke_nd", "populate_op_namespaces"]
 
 _sig_cache = {}
+# While a branch of `control_flow.cond` or the body of `while_loop` runs:
+# a bool tensor, where the branch is taken or the loop active; every
+# NDArray an op reads then passes the gradient gate of `ops.control_flow_ops`
+_CF_KEEP = contextvars.ContextVar("mxnet_tpu_torch_cf_keep", default=None)
 
 
 def _op_attr_params(op):
@@ -93,6 +98,7 @@ def _invoke_nd_impl(op_name, *args, out=None, name=None, **kwargs):
         device = _device(ctx)
     nd_inputs = []  # aligned with `tensors`; None for non-NDArray slots
     tensors = []
+    keep = _CF_KEEP.get()
     scalar_cursor = 0
     # a positional None keeps its slot when a LATER positional arg is an
     # array, so an absent optional input cannot shift the next one into its
@@ -102,7 +108,8 @@ def _invoke_nd_impl(op_name, *args, out=None, name=None, **kwargs):
         if isinstance(a, NDArray):
             if recording:
                 autograd._note_input(a)
-            tensors.append(a._data)
+            tensors.append(a._data if keep is None or not recording
+                           else _gate(keep, a._data))
             nd_inputs.append(a)
         elif a is None:
             if i < last_arr:
@@ -153,6 +160,12 @@ def _invoke_nd_impl(op_name, *args, out=None, name=None, **kwargs):
             tgt._rebind(src._data)
         return out if not isinstance(out, (list, tuple)) else list(outs_list)
     return out_nds[0] if len(out_nds) == 1 else out_nds
+
+
+def _gate(keep, t):
+    from ..ops.control_flow_ops import gate
+
+    return gate(keep, t)
 
 
 def _make_op_func(op_name, func_name):

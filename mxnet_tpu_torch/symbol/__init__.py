@@ -40,3 +40,11 @@ def zeros(shape, dtype="float32", **kwargs):
 
 def ones(shape, dtype="float32", **kwargs):
     return _apply_op("_ones", shape=shape, dtype=dtype, **kwargs)
+
+
+# the control-flow frontends sit on sym.contrib beside the generated ops
+from . import control_flow as _control_flow  # noqa: E402
+
+contrib.foreach = _control_flow.foreach  # noqa: F821
+contrib.while_loop = _control_flow.while_loop  # noqa: F821
+contrib.cond = _control_flow.cond  # noqa: F821
