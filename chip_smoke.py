@@ -307,6 +307,50 @@ Phases, each printed as one JSON line:
            warm-up, one captured step a bucket; (e) the examples'
            perplexities under vocab / 4 and under 20; (f) no kernel
            launched;
+  sparse   slice 15's sparse storage path, after lstm_lm (`sparse_phase`),
+           fp32, data from seed 0: (1) ``linear``, the repo example
+           `example/sparse/linear_classification.py`'s `SparseLinear` (a
+           `SparseEmbedding(N, 1)` summed over the active features) at
+           Avazu's width as MXNet 1.5's `example/sparse/
+           linear_classification/train.py` defines it (N = 1,000,001
+           features, batch 8,192, 32 active features a row; labels from the
+           example's hidden weight), SGD with ``lazy_update`` at 0.5; (2)
+           ``mf``, `example/recommenders/matrix_fact.py`'s `MFNet` at
+           MovieLens-10M's id ranges as `example/sparse/
+           matrix_factorization` defines them (71,569 users, 65,135 items,
+           factor 128, batch 128: 66.75 MiB of `Embedding(sparse_grad=True)`
+           tables), ratings from the example's low-rank generator, lazy SGD
+           at its rate 1.0, trained through ``kvstore="device"`` and again
+           from the same weights through ``dist_sync`` in a one-rank NCCL
+           group (destroyed after); each 3 warm-up steps and 20 timed over
+           4 batches cycled. Prints for each run the median step, steps/s
+           and samples/s, rows touched a step, host syncs a step
+           (``set_sync_debug_mode("warn")``), host launch calls and the idle
+           share of one more step under torch.profiler, a dense SGD update
+           of the same tables (what the lazy update avoids) beside the lazy
+           one, the byte bound ((rows gathered + updated + written) x width
+           x 4 B at the observatory's measured copy rate), peak memory (the
+           phase's own and above what earlier phases hold) and the card
+           line; then the repo's two sparse examples through the port with
+           only their imports changed (`linear_classification.py` at its
+           defaults, `matrix_fact.py --epochs 25`). Checks, each raising:
+           (a) every step's gradients are `RowSparseNDArray`s never
+           densified through backward, `trainer.step` and `zero_grad`, rows
+           no batch touched are bit-equal to their initial values, the loss
+           of the last 4 timed steps under that of the first 4; (b) both
+           models at `SPARSE_SMALL` with SGD (momentum) and with Adam, two
+           steps on the card and on the CPU from numpy weights: weights,
+           momenta and moments within 1e-5 relative, every gradient's
+           indices equal; (c) lazy SGD and Adam against the dense update
+           of the same gradient, on the touched rows within 1e-6 relative,
+           the other rows of weight and states bit-equal; (d) ``dist_sync``
+           against ``device``: weights within 1e-6, ``kvstore.push_bytes``
+           the pushed rows and indices only; (e) the linear example's
+           accuracy above 0.9 (its own assert), the matrix factorization
+           one's gradients row_sparse and its RMSE under half the RMSE of
+           predicting zero (`MF_EXAMPLE_RMSE`: the JAX package's 0.6 rests
+           on its initializer's numpy stream, which the example's data
+           share); (f) no kernel launched;
   kernels  each kernel against its plain PyTorch version on the card, at the
            shapes the main path gives it and at extra cases (every head dim
            and dtype variant of K1 and K2), with times (`cuda_ms`: many calls
@@ -5734,10 +5778,12 @@ def example_namespace(rel_path, imports, port=True, subs=()):
     return ns
 
 
-def run_example(ns, argv, ctx=None):
+def run_example(ns, argv, ctx=None, parse=False, text_keys=()):
     """``main()`` of an example namespace (`example_namespace`) under
     ``argv``, inside ``ctx`` (default: the current context), its stdout
-    captured. Returns its ``name:value`` figures."""
+    captured; with ``parse``, ``main(parser.parse_args(argv))``, for an
+    example whose main takes its arguments. Returns its ``name:value``
+    figures: numbers, and the text of the names in ``text_keys``."""
     import io
 
     import mxnet_tpu_torch as mx
@@ -5746,12 +5792,18 @@ def run_example(ns, argv, ctx=None):
     sys.argv = [ns["__file__"]] + list(argv)
     try:
         with contextlib.redirect_stdout(out), ctx or mx.current_context():
-            ns["main"]()
+            if parse:
+                ns["main"](ns["parser"].parse_args(argv))
+            else:
+                ns["main"]()
     finally:
         sys.argv = old_argv
     figures = {}
     for line in out.getvalue().splitlines():
         key, _, value = line.rpartition(":")
+        if key.strip() in text_keys:
+            figures[key.strip()] = value.strip()
+            continue
         with contextlib.suppress(ValueError):
             figures[key.strip()] = float(value)
     return figures
@@ -6403,6 +6455,549 @@ def lstm_lm_phase(torch, smi):
                                   "tol": LM_SMALL_TOL}}, profile
 
 
+# the sparse storage path (slice 15): the repo's two sparse examples'
+# models at the widths of MXNet 1.5's example/sparse configurations
+SPARSE_LINEAR = {"features": 1_000_001, "batch": 8192, "nnz": 32, "lr": 0.5}
+SPARSE_MF = {"users": 71_569, "items": 65_135, "factor": 128, "batch": 128,
+             "lr": 1.0}
+SPARSE_POOL = 4  # batches made once and cycled
+SPARSE_WARMUP = 3
+SPARSE_TIMED = 20
+SPARSE_SMALL = {"linear": {"features": 301, "batch": 16, "nnz": 4,
+                           "lr": 0.5},
+                "mf": {"users": 200, "items": 150, "factor": 8, "batch": 32,
+                       "lr": 1.0}}
+SPARSE_SMALL_OPTS = {"sgd": {"momentum": 0.9, "wd": 1e-4},
+                     "adam": {"learning_rate": 0.01, "wd": 1e-4}}
+SPARSE_SMALL_STEPS = 2
+SPARSE_SMALL_TOL = {"rtol": 1e-5, "atol": 1e-7}  # card against CPU
+SPARSE_LAZY_TOL = {"rtol": 1e-6, "atol": 1e-7}   # lazy against dense
+SPARSE_STORE_TOL = {"rtol": 1e-6, "atol": 1e-6}  # dist_sync against device
+LINEAR_EXAMPLE = "example/sparse/linear_classification.py"
+LINEAR_EXAMPLE_ACC = 0.9  # the example's own assert
+MF_EXAMPLE = "example/recommenders/matrix_fact.py"
+MF_EXAMPLE_EPOCHS = 25
+# tests/python/unittest/test_examples.py:209-215 holds the JAX package to
+# 0.6 at 25 epochs. It meets it because its initializers draw from a numpy
+# RandomState that `mx.random.seed(0)` seeds (`mxnet_tpu/initializer.py:17`,
+# `random.py:102`), the very stream the example's data come from
+# (`np.random.RandomState(args.seed)`), so its user table starts at 0.1 x
+# the true user factors. The port's draws are torch's: from unrelated
+# initial weights the example ends at 0.49-0.90 after 25 epochs (eight
+# draws on the CPU). It is held to half the RMSE of predicting zero
+# (sqrt(rank 8) = 2.83 for unit factors), and 0.6 is reported beside it.
+MF_EXAMPLE_RMSE_JAX = 0.6
+MF_EXAMPLE_RMSE = 0.5 * math.sqrt(8)
+
+
+def sparse_linear_data(cfg, n, seed=0):
+    """`linear_classification.py`'s generator at ``cfg``'s width: ``n`` rows
+    of ``nnz`` feature ids (float32, as its NDArrayIter feeds them) and the
+    sign of a hidden weight's sum over them as the label."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    idx = rng.randint(0, cfg["features"], (n, cfg["nnz"])).astype(np.float32)
+    w_true = rng.randn(cfg["features"]).astype(np.float32)
+    y = (w_true[idx.astype(np.int64)].sum(axis=1) > 0).astype(np.float32)
+    return [idx, y]
+
+
+def sparse_mf_data(cfg, n, seed=0):
+    """`matrix_fact.py`'s generator at ``cfg``'s width: N(0, 1) user and item
+    factors of rank ``factor``, ``n`` random (user, item) pairs and their
+    products plus N(0, 0.1) noise as ratings."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    u_true = rng.normal(0, 1, (cfg["users"], cfg["factor"]))
+    v_true = rng.normal(0, 1, (cfg["items"], cfg["factor"]))
+    users = rng.randint(0, cfg["users"], n)
+    items = rng.randint(0, cfg["items"], n)
+    ratings = ((u_true[users] * v_true[items]).sum(axis=1)
+               + rng.normal(0, 0.1, n)).astype(np.float32)
+    return [users.astype(np.float32), items.astype(np.float32), ratings]
+
+
+def sparse_batches(kind, cfg, n, seed=0):
+    """``n`` batches of the ``kind`` model's data, numpy: [ids, labels] or
+    [users, items, ratings] each."""
+    make = sparse_linear_data if kind == "linear" else sparse_mf_data
+    cols = make(cfg, n * cfg["batch"], seed)
+    b = cfg["batch"]
+    return [[c[k * b:(k + 1) * b] for c in cols] for k in range(n)]
+
+
+def sparse_model(mx, ctx, kind, cfg, opt="sgd", opt_params=None,
+                 kvstore="device"):
+    """The repo example's model on ``ctx`` at ``cfg``'s width, on either
+    package: ``linear`` is `linear_classification.py`'s `SparseLinear` (a
+    `SparseEmbedding(features, 1)` summed over the active features,
+    initialized to zero), ``mf`` `matrix_fact.py`'s `MFNet` (four
+    ``Embedding(sparse_grad=True)`` tables, Normal(0.1)); a `gluon.Trainer`
+    at the config's rate with ``lazy_update``. Returns (net, trainer, loss
+    function or None)."""
+    port = mx.__name__ == "mxnet_tpu_torch"
+    if kind == "linear":
+        ns = example_namespace(LINEAR_EXAMPLE, 5, port=port)
+        net = ns["SparseLinear"](cfg["features"])
+        net.initialize(mx.init.Zero(), ctx=ctx)
+        loss_fn = mx.gluon.loss.SigmoidBinaryCrossEntropyLoss()
+    else:
+        ns = example_namespace(MF_EXAMPLE, 3, port=port)
+        net = ns["MFNet"](cfg["users"], cfg["items"], cfg["factor"])
+        net.initialize(mx.init.Normal(0.1), ctx=ctx)
+        loss_fn = None
+    params = {"learning_rate": cfg["lr"], "lazy_update": True,
+              **(opt_params or {})}
+    trainer = mx.gluon.Trainer(net.collect_params(), opt, params,
+                               kvstore=kvstore)
+    return net, trainer, loss_fn
+
+
+def sparse_forward_backward(mx, net, loss_fn, batch):
+    """The examples' loop body up to the backward, on NDArray batches:
+    ``linear`` the sigmoid cross-entropy of the summed weights, ``mf`` the
+    mean squared error of the ratings. Returns the loss."""
+    with mx.autograd.record():
+        if loss_fn is not None:
+            x, y = batch
+            loss = loss_fn(net(x).reshape((-1,)), y)
+        else:
+            u, i, r = batch
+            loss = ((net(u, i) - r) ** 2).mean()
+    loss.backward()
+    return loss
+
+
+def sparse_rescale(kind, batch):
+    """What the examples pass `trainer.step`: the batch size for
+    ``linear`` (a per-sample loss), 1 for ``mf`` (a mean)."""
+    return batch[0].shape[0] if kind == "linear" else 1
+
+
+def sparse_opt_states(trainer, names):
+    """{name: numpy} of the trainer's optimizer states on either package:
+    ``mom <param>`` for SGD's momentum, ``mean`` / ``var`` for Adam's."""
+    upd = getattr(trainer, "_updater", None) or trainer._updaters[0]
+    out = {}
+    for i, state in upd.states.items():
+        if state is None:
+            continue
+        if isinstance(state, (tuple, list)):
+            out[f"mean {names[i]}"] = _to_numpy(state[0])
+            out[f"var {names[i]}"] = _to_numpy(state[1])
+        else:
+            out[f"mom {names[i]}"] = _to_numpy(state)
+    return out
+
+
+def sparse_small_run(mx, ctx, kind, opt, seed=0):
+    """Check (b)'s run and the CPU test's: the ``kind`` model at
+    `SPARSE_SMALL`'s width from uniform numpy weights of ``seed``,
+    `SPARSE_SMALL_STEPS` steps of `SPARSE_SMALL_OPTS`'s ``opt`` over numpy
+    batches. Returns (losses, {each weight, each optimizer state and each
+    step's gradient indices: numpy})."""
+    import numpy as np
+
+    cfg = SPARSE_SMALL[kind]
+    net, trainer, loss_fn = sparse_model(mx, ctx, kind, cfg, opt=opt,
+                                         opt_params=SPARSE_SMALL_OPTS[opt])
+    params = net._collect_params_with_prefix()
+    rng = np.random.RandomState(seed)
+    for name in sorted(params):
+        p = params[name]
+        p.set_data(mx.nd.array(rng.uniform(-0.5, 0.5, p.shape)
+                               .astype(np.float32), ctx=ctx))
+    state, losses = {}, []
+    for s, batch in enumerate(sparse_batches(kind, cfg, SPARSE_SMALL_STEPS,
+                                             seed + 1)):
+        batch = [mx.nd.array(c, ctx=ctx) for c in batch]
+        loss = sparse_forward_backward(mx, net, loss_fn, batch)
+        losses.append(loss.asnumpy())
+        for name, p in params.items():
+            state[f"indices {name} {s}"] = p.grad().indices.asnumpy()
+        trainer.step(sparse_rescale(kind, batch))
+    for name, p in params.items():
+        state[f"weight {name}"] = p.data().asnumpy()
+    full = net.collect_params()
+    structural = {id(p): k for k, p in params.items()}
+    names = [structural[id(full[k])] for k in sorted(full.keys())]
+    state.update(sparse_opt_states(trainer, names))
+    return losses, state
+
+
+def sparse_compare(what, got, want, tol):
+    """Check every array of ``want`` against ``got``: index sets exactly,
+    the rest within ``tol``. Returns (arrays compared, worst abs error)."""
+    import numpy as np
+
+    check(sorted(got) == sorted(want), f"{what}: keys {sorted(got)} vs "
+          f"{sorted(want)}")
+    worst = 0.0
+    for k in want:
+        a, b = np.asarray(got[k]), np.asarray(want[k])
+        check(a.shape == b.shape, f"{what}: {k} shape {a.shape} vs "
+              f"{b.shape}")
+        if k.startswith("indices"):
+            check(np.array_equal(a, b), f"{what}: {k} {a} vs {b}")
+            continue
+        err = float(np.abs(a - b).max()) if a.size else 0.0
+        worst = max(worst, err)
+        check(np.allclose(a, b, **tol), f"{what}: {k} max err {err} over "
+              f"{tol}")
+    return len(want), worst
+
+
+def count_syncs(torch, fn):
+    """The host syncs a call of ``fn`` makes on the card: the warnings of
+    `torch.cuda.set_sync_debug_mode("warn")` while it runs."""
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    return sum("synchroniz" in str(w.message) for w in seen)
+
+
+def sparse_lookups(kind, cfg):
+    """Rows each table's forward gathers a step."""
+    return cfg["batch"] * (cfg["nnz"] if kind == "linear" else 1)
+
+
+def sparse_full_width(torch, mx, kind, smi, kvstore="device", init=None):
+    """The ``kind`` model at full width on the card (`SPARSE_LINEAR` or
+    `SPARSE_MF`), fp32, through ``kvstore``, from the example's initializer
+    after seed 0 or the tensors ``init`` (by structural name):
+    `SPARSE_WARMUP` steps then `SPARSE_TIMED` timed ones over
+    `SPARSE_POOL` batches cycled (the loss read each step); check (a).
+    Returns the line, a function running one more step, the initial
+    tensors and the final weights."""
+    import statistics as stats
+
+    import numpy as np
+
+    from mxnet_tpu_torch import observatory
+    from mxnet_tpu_torch.ndarray.sparse import RowSparseNDArray
+    from mxnet_tpu_torch.optimizer.optimizer import (_sparse_sgd_update,
+                                                     sgd_update)
+
+    cfg = SPARSE_LINEAR if kind == "linear" else SPARSE_MF
+    ctx = mx.gpu(0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    mx.random.seed(0)
+    net, trainer, loss_fn = sparse_model(mx, ctx, kind, cfg, kvstore=kvstore)
+    params = net._collect_params_with_prefix()
+    if init is not None:
+        for name, p in params.items():
+            p.set_data(mx.nd.NDArray(init[name]))
+    w0 = {name: p.data()._data.detach().clone()
+          for name, p in params.items()}
+    pool_np = sparse_batches(kind, cfg, SPARSE_POOL, seed=0)
+    pool = [[mx.nd.array(c, ctx=ctx) for c in b] for b in pool_np]
+    # the rows some batch of the pool touches, by table
+    touched = {}
+    for name, p in params.items():
+        col = 1 if name.startswith("item") else 0
+        ids = np.unique(np.concatenate([b[col] for b in pool_np]))
+        mask = torch.zeros(p.shape[0], dtype=torch.bool, device="cuda")
+        mask[torch.as_tensor(ids.astype(np.int64), device="cuda")] = True
+        touched[name] = mask
+    state = {"i": 0}
+
+    def one(after_backward=None):
+        batch = pool[state["i"] % SPARSE_POOL]
+        state["i"] += 1
+        loss = sparse_forward_backward(mx, net, loss_fn, batch)
+        if after_backward is not None:
+            after_backward()
+        trainer.step(sparse_rescale(kind, batch))
+        return loss
+
+    def check_grads(when):
+        for name, p in params.items():
+            g = p.grad()
+            check(isinstance(g, RowSparseNDArray) and not g.densified(),
+                  f"sparse {kind} (a): {name}'s gradient {type(g).__name__}"
+                  f" densified={getattr(g, 'densified', lambda: None)()} "
+                  f"{when}")
+
+    rows, losses, wall, host = [], [], [], []
+
+    def after_backward():
+        check_grads("after backward")
+        rows.append({name: p.grad().indices.shape[0]
+                     for name, p in params.items()})
+
+    for it in range(SPARSE_WARMUP + SPARSE_TIMED):
+        t0 = time.perf_counter()
+        loss = one(after_backward)
+        t1 = time.perf_counter()
+        losses.append(float(loss.mean().asnumpy()))
+        t2 = time.perf_counter()
+        check_grads("after trainer.step")
+        if it >= SPARSE_WARMUP:
+            host.append(t1 - t0)
+            wall.append(t2 - t0)
+    last_grads = {name: p.grad().copy() for name, p in params.items()}
+    net.collect_params().zero_grad()
+    check_grads("after zero_grad")
+    check(all(p.grad().indices.shape[0] == 0 for p in params.values()),
+          f"sparse {kind} (a): zero_grad left rows")
+    peak = torch.cuda.max_memory_allocated()
+    # (a): untouched rows bit-equal to their initial values; the loss falls
+    for name, p in params.items():
+        keep = ~touched[name]
+        check(torch.equal(p.data()._data.detach()[keep], w0[name][keep]),
+              f"sparse {kind} (a): untouched rows of {name} moved")
+    check(all(math.isfinite(v) for v in losses),
+          f"sparse {kind}: a non-finite loss in {losses}")
+    timed = losses[SPARSE_WARMUP:]
+    first, last = stats.mean(timed[:4]), stats.mean(timed[-4:])
+    check(last < first, f"sparse {kind} (a): loss {first} over the first 4 "
+          f"timed steps, {last} over the last 4")
+    step_ms = stats.median(wall) * 1e3
+    syncs = count_syncs(torch, lambda: one(after_backward))
+    # what the lazy update avoids: a dense SGD update of the same tables
+    # (weight and gradient read, weight written), on copies
+    tables = [(p.data()._data.detach().clone(), last_grads[name])
+              for name, p in params.items()]
+    dense_grads = [torch.zeros_like(w) for w, _ in tables]
+
+    def dense_update():
+        for (w, _), g in zip(tables, dense_grads):
+            w.copy_(sgd_update(w, g, lr=cfg["lr"]))
+
+    def lazy_update():
+        for w, g in tables:
+            _sparse_sgd_update(w, g, None, cfg["lr"], 0.0, 1.0, None, 0.0)
+
+    dense_ms = cuda_ms(dense_update)
+    lazy_ms = cuda_ms(lazy_update)
+    del tables, dense_grads
+    timed_rows = rows[SPARSE_WARMUP:SPARSE_WARMUP + SPARSE_TIMED]
+    med_rows = {name: stats.median(r[name] for r in timed_rows)
+                for name in params}
+    widths = {name: int(np.prod(p.shape[1:])) for name, p in params.items()}
+    lookups = sparse_lookups(kind, cfg)
+    step_bytes = sum((lookups + 2 * med_rows[n]) * widths[n] * 4
+                     for n in params)
+    copy_rate = observatory.peaks()["hbm_bytes_per_s"]
+    bound_ms = step_bytes / copy_rate * 1e3
+    samples = cfg["batch"]
+    final = {name: p.data()._data.detach().clone()
+             for name, p in params.items()}
+    line = {
+        "config": dict(cfg, dtype="float32", optimizer="sgd, lazy_update",
+                       kvstore=kvstore),
+        "parameters": {n: list(p.shape) for n, p in params.items()},
+        "table_mib": sum(p.data()._data.numel() * 4
+                         for p in params.values()) / 2 ** 20,
+        "warmup": SPARSE_WARMUP, "timed": SPARSE_TIMED, "pool": SPARSE_POOL,
+        "losses": losses, "loss_first_last": [first, last],
+        "step_ms": [w * 1e3 for w in wall], "median_step_ms": step_ms,
+        "steps_per_s": 1e3 / step_ms,
+        "samples_per_s": samples / step_ms * 1e3,
+        "median_host_ms": stats.median(host) * 1e3,
+        "rows_touched_median": med_rows,
+        "rows_touched_min_max": {n: [min(r[n] for r in timed_rows),
+                                     max(r[n] for r in timed_rows)]
+                                 for n in params},
+        "rows_touched_per_step": rows,
+        "lookups_per_table": lookups,
+        "host_syncs_per_step": syncs,
+        "dense_update_ms": dense_ms, "lazy_update_ms": lazy_ms,
+        "step_bytes": step_bytes, "copy_bytes_per_s": copy_rate,
+        "bound_ms": bound_ms, "bound_by": "bytes",
+        "bound_is": "(rows gathered + rows updated + rows written) x width "
+                    "x 4 B at the observatory's measured copy rate",
+        "bound_share": bound_ms / step_ms,
+        "peak_mem_gb": peak / 1e9, "held_at_start_gb": held / 1e9,
+        "phase_peak_mem_gb": (peak - held) / 1e9, "card": smi}
+    return line, one, w0, final
+
+
+def lazy_vs_dense(torch, mx, opt, rows=128, seed=0):
+    """Check (c): on the card, a lazy update of a row-sparse gradient
+    against the dense update of the same gradient densified, two steps on
+    the same ``rows`` (drawn, deduplicated) of a table of `SPARSE_MF`'s
+    user table's shape, from a prefilled optimizer state: equal on the
+    touched rows within `SPARSE_LAZY_TOL` (elsewhere the dense update moves
+    rows by their momentum and weight decay), and the untouched rows of the
+    weight and the states bit-equal to before. Returns the worst error on
+    the touched rows."""
+    from mxnet_tpu_torch.ndarray.sparse import RowSparseNDArray
+
+    shape = (SPARSE_MF["users"], SPARSE_MF["factor"])
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    w0 = torch.randn(shape, generator=gen, device="cuda")
+    params = {"learning_rate": 0.1, "wd": 1e-4, "lazy_update": True,
+              **({"momentum": 0.9} if opt == "sgd" else {})}
+    runs = {}
+    for mode in ("lazy", "dense"):
+        updater = mx.optimizer.get_updater(mx.optimizer.create(opt, **params))
+        w = mx.nd.NDArray(w0.clone())
+        updater.ensure_states([0], [w])
+        st = updater.states[0]
+        states = list(st) if isinstance(st, tuple) else [st]
+        for t in states:  # a moment or momentum every row already has
+            t.copy_(torch.rand(shape, generator=torch.Generator(
+                device="cuda").manual_seed(seed + 1), device="cuda"))
+        before = [t.clone() for t in states]
+        g = torch.Generator(device="cuda").manual_seed(seed + 2)
+        idx = torch.unique(torch.randint(0, shape[0], (rows,), generator=g,
+                                         device="cuda"))
+        for step in range(2):
+            vals = torch.randn((idx.shape[0], shape[1]), generator=g,
+                               device="cuda")
+            grad = RowSparseNDArray(vals, idx, shape)
+            if mode == "dense":
+                grad = mx.nd.NDArray(grad._data)
+            updater(0, grad, w)
+        runs[mode] = (w._data, states, before)
+    hit = torch.zeros(shape[0], dtype=torch.bool, device="cuda")
+    hit[idx] = True
+    (lw, ls, lb), (dw, ds, _) = runs["lazy"], runs["dense"]
+    worst = 0.0
+    for a, b in [(lw, dw)] + list(zip(ls, ds)):
+        err = float((a[hit] - b[hit]).abs().max())
+        worst = max(worst, err)
+        check(torch.allclose(a[hit], b[hit], **SPARSE_LAZY_TOL),
+              f"sparse (c) {opt}: lazy against dense on the touched rows, "
+              f"max err {err} over {SPARSE_LAZY_TOL}")
+    check(torch.equal(lw[~hit], w0[~hit]),
+          f"sparse (c) {opt}: the lazy update moved untouched weight rows")
+    for t, t0 in zip(ls, lb):
+        check(torch.equal(t[~hit], t0[~hit]),
+              f"sparse (c) {opt}: the lazy update moved untouched state rows")
+    return worst
+
+
+def run_linear_example(argv, ctx=None):
+    """`example/sparse/linear_classification.py` through the port with only
+    its five imports changed. Returns its ``final train accuracy`` (it
+    asserts > 0.9 itself)."""
+    return run_example(example_namespace(LINEAR_EXAMPLE, 5), argv, ctx)
+
+
+def run_mf_example(argv, ctx=None):
+    """`example/recommenders/matrix_fact.py` through the port with only its
+    three imports changed. Returns its ``final_rmse`` and
+    ``embedding_grad_stype``."""
+    return run_example(example_namespace(MF_EXAMPLE, 3), argv, ctx,
+                       parse=True, text_keys=("embedding_grad_stype",))
+
+
+def sparse_phase(torch, smi):
+    """Slice 15's path: `linear` and `mf` at full width (`sparse_full_width`,
+    check (a)), `mf` again through a one-rank NCCL ``dist_sync`` store from
+    the same weights (d), one more step of each under torch.profiler (host
+    launch calls, idle share), the lazy updates against dense ones (c), the
+    repo's two sparse examples through the port (e), and check (b): both
+    small models with SGD and with Adam, card against CPU. (f): no kernel
+    launch. Returns the line."""
+    import numpy as np
+    import torch.distributed as dist
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import telemetry
+
+    reset_launches()
+    linear, linear_one, _, _ = sparse_full_width(torch, mx, "linear", smi)
+    mf, mf_one, mf_init, mf_final = sparse_full_width(torch, mx, "mf", smi)
+    launches = read_launches()
+    with one_rank_group_env() as env:
+        try:
+            tele_was = telemetry.enabled()
+            telemetry.reset()
+            telemetry.enable()
+            mf_dist, mf_dist_one, _, dist_final = sparse_full_width(
+                torch, mx, "mf", smi, kvstore="dist_sync", init=mf_init)
+            pushed = counter("kvstore.push_bytes")
+            telemetry.enable(tele_was)
+            telemetry.reset()
+            dist_profile = profile_step(torch, mf_dist_one, must_run=())
+        finally:
+            if dist.is_initialized():
+                dist.destroy_process_group()
+    dist_launches = read_launches()
+    check(not any(launches.values()) and not any(dist_launches.values()),
+          f"the sparse path launched kernels: {launches}, {dist_launches}")
+    # (d): the dist store's weights equal the local ones; its push counts
+    # the stored rows and indices only
+    worst = 0.0
+    for name, w in mf_final.items():
+        err = float((dist_final[name] - w).abs().max())
+        worst = max(worst, err)
+        check(torch.allclose(dist_final[name], w, **SPARSE_STORE_TOL),
+              f"sparse (d): {name} through dist_sync against device, max "
+              f"err {err}")
+    widths = {n: int(math.prod(shape[1:]))
+              for n, shape in mf_dist["parameters"].items()}
+    want = sum(r[n] * (widths[n] * 4 + 4)
+               for r in mf_dist["rows_touched_per_step"] for n in widths)
+    check(pushed == want, f"sparse (d): kvstore.push_bytes {pushed}, want "
+          f"the pushed rows and indices' {want}")
+    del mf_init, mf_final, dist_final
+    mf_dist["push_bytes"] = pushed
+    mf_dist["coordinator"] = env["MXNET_COORDINATOR"]
+    for line, one in ((linear, linear_one), (mf, mf_one)):
+        profile = profile_step(torch, one, must_run=())
+        line["host_launch_calls"] = profile["host_launch_calls"]
+        line["idle_share"] = profile["idle_share"]
+        line["profile"] = profile_summary(profile)
+    mf_dist["host_launch_calls"] = dist_profile["host_launch_calls"]
+    mf_dist["idle_share"] = dist_profile["idle_share"]
+    mf_dist["profile"] = profile_summary(dist_profile)
+    lazy = {opt: lazy_vs_dense(torch, mx, opt) for opt in ("sgd", "adam")}
+    linear_ex = run_linear_example([], ctx=mx.gpu(0))
+    mf_ex = run_mf_example(["--epochs", str(MF_EXAMPLE_EPOCHS)],
+                           ctx=mx.gpu(0))
+    check(linear_ex.get("final train accuracy", 0) > LINEAR_EXAMPLE_ACC,
+          f"sparse (e): the linear example's figures {linear_ex}")
+    check(mf_ex.get("embedding_grad_stype") == "row_sparse"
+          and mf_ex.get("final_rmse", math.inf) < MF_EXAMPLE_RMSE,
+          f"sparse (e): the matrix factorization example's figures {mf_ex}")
+    mf_ex["under_the_jax_bound"] = mf_ex["final_rmse"] < MF_EXAMPLE_RMSE_JAX
+    small = {}
+    for kind in ("linear", "mf"):
+        for opt in ("sgd", "adam"):
+            card = sparse_small_run(mx, mx.gpu(0), kind, opt)
+            cpu = sparse_small_run(mx, mx.cpu(), kind, opt)
+            got = dict(card[1], losses=np.stack(card[0]))
+            ref = dict(cpu[1], losses=np.stack(cpu[0]))
+            n, err = sparse_compare(f"sparse (b) {kind} {opt} card vs CPU",
+                                    got, ref, SPARSE_SMALL_TOL)
+            small[f"{kind} {opt}"] = {"compared": n, "max_abs_err": err}
+    return {"linear": linear, "mf": mf, "mf_dist_sync": mf_dist,
+            "dist_vs_device_max_abs_err": worst,
+            "dist_vs_device_tol": SPARSE_STORE_TOL,
+            "lazy_vs_dense_max_abs_err": lazy,
+            "lazy_vs_dense_tol": SPARSE_LAZY_TOL,
+            "kernel_launches": launches,
+            "examples": {"linear_classification": dict(
+                linear_ex, bound=LINEAR_EXAMPLE_ACC, argv="defaults: "
+                "100,000 features, 32 active, batch 64, 3 epochs, lr 0.5"),
+                "matrix_fact": dict(
+                mf_ex, bound=MF_EXAMPLE_RMSE,
+                jax_bound=MF_EXAMPLE_RMSE_JAX, argv=f"--epochs "
+                f"{MF_EXAMPLE_EPOCHS}, else its defaults: 200 users, 150 "
+                "items, rank 8, batch 256, lr 1.0")},
+            "small_card_vs_cpu": {"config": SPARSE_SMALL,
+                                  "optimizers": SPARSE_SMALL_OPTS,
+                                  "steps": SPARSE_SMALL_STEPS,
+                                  "tol": SPARSE_SMALL_TOL, **small},
+            "card": smi}
+
+
 def profiler_phase(torch, lm_state, smi):
     """``mx.profiler`` on the card: one full-width train step (bf16, 8 x
     2048) between `profiler.start` and `dump`, under a span, with
@@ -6939,6 +7534,8 @@ def main(argv=None):
     progress("gan")
     lstm_lm, lstm_lm_profile = lstm_lm_phase(torch, smi)
     progress("lstm_lm")
+    sparse = sparse_phase(torch, smi)
+    progress("sparse")
     kernels = kernels_phase(torch, fa, gcm, {
         "train": train["kernel_launches"],
         "ring": ring["kernel_launches"],
@@ -6951,7 +7548,8 @@ def main(argv=None):
         "serve": serve["kernel_launches"],
         "overlap": overlap["kernel_launches"],
         "gan": gan["kernel_launches"],
-        "lstm_lm": lstm_lm["kernel_launches"]})
+        "lstm_lm": lstm_lm["kernel_launches"],
+        "sparse": sparse["kernel_launches"]})
     emit(kernels=kernels)
     emit(train=train, small_reference=small)
     emit(ring=ring, small_reference=small_ring)
@@ -6967,6 +7565,7 @@ def main(argv=None):
     emit(overlap=overlap)
     emit(gan=gan)
     emit(lstm_lm=lstm_lm)
+    emit(sparse=sparse)
     if args.profile:
         def one_more_step(state_of_path):
             _, step, state, tokens, targets = state_of_path

@@ -93,6 +93,13 @@ class CachedOp:
                                      self._cache.values())}
 
     def __call__(self, *inputs):
+        # the function's ops give dense gradients, as the JAX package's
+        # traced program does (a row-sparse gradient's `unique` reads its
+        # size on the host, which a capture cannot)
+        with autograd._dense_grads():
+            return self._call(*inputs)
+
+    def _call(self, *inputs):
         from .ndarray.ndarray import NDArray
 
         tensors = [a._data for a in inputs if isinstance(a, NDArray)]

@@ -14,9 +14,21 @@ in the JAX package, whose tape never reaches it.
 A write to a marked NDArray while recording rebinds it to a new tensor,
 and its gradient stays that of the value recording first saw, as in the
 JAX package (`_recorded_setitem`).
+
+Row-sparse gradients (the JAX package's `_RowSparseCT`): an op that elects
+one (Embedding with ``sparse_grad``) hands torch's engine a sparse COO
+gradient, the (indices, rows) of the touched rows. Along the graph two of
+them add by concatenation, duplicates unmerged, and one meeting a dense
+gradient becomes dense, as in the JAX package. `_deposit` writes a sparse
+gradient into a row_sparse ``grad`` buffer as its components, deduplicated
+(sorted unique rows, summed), merging the old rows under ``add``: no dense
+intermediate. Into a dense buffer it is densified. Inside a hybridized
+block's function (`CachedOp`) and in `grad`, gradients are dense.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import threading
 
 import torch
@@ -30,6 +42,9 @@ __all__ = [
 ]
 
 _state = threading.local()
+# False while a hybridized block's function runs: ops give dense gradients
+_SPARSE_GRADS = contextvars.ContextVar("mxnet_tpu_torch_sparse_grads",
+                                       default=True)
 
 
 def _st():
@@ -165,21 +180,67 @@ def _heads(heads, head_grads):
     return tensors, grads
 
 
+def sparse_grads_allowed():
+    """Whether a recorded op may give a row-sparse gradient here."""
+    return _SPARSE_GRADS.get()
+
+
+@contextlib.contextmanager
+def _dense_grads():
+    """Ops inside give dense gradients (a hybridized block's function)."""
+    token = _SPARSE_GRADS.set(False)
+    try:
+        yield
+    finally:
+        _SPARSE_GRADS.reset(token)
+
+
+def dedup_rows(indices, rows):
+    """The canonical row_sparse form of (indices, rows) that may repeat an
+    index: sorted unique indices and the sum of each one's rows."""
+    uniq, inv = torch.unique(indices, sorted=True, return_inverse=True)
+    summed = rows.new_zeros((uniq.shape[0],) + tuple(rows.shape[1:]))
+    summed.index_add_(0, inv.reshape(-1), rows)
+    return uniq, summed
+
+
 def _deposit(nd, g):
     if nd.grad is None or nd.grad_req == "null":
         return
-    g = g.detach().to(nd.grad._data.dtype)
+    from .ndarray.sparse import RowSparseNDArray
+
+    buf = nd.grad
+    if g.is_sparse and isinstance(buf, RowSparseNDArray):
+        idx, rows = g._indices()[0], g._values().detach()
+        if nd.grad_req == "add":
+            old = buf._components()
+            idx = torch.cat([old["indices"].to(idx.dtype), idx])
+            rows = torch.cat([old["data"], rows.to(old["data"].dtype)])
+        uniq, summed = dedup_rows(idx, rows)
+        buf._set_components(data=summed.to(buf._dtype_meta),
+                             indices=uniq.to(torch.int32))
+        nd._fresh_grad = True
+        return
+    if g.is_sparse:
+        g = g.to_dense()
+    g = g.detach().to(buf._data.dtype)
     if nd.grad_req == "add":
-        g = nd.grad._data + g
-    nd.grad._data = g
+        g = buf._data + g
+    buf._data = g
     nd._fresh_grad = True
 
 
 def backward(heads, head_grads=None, retain_graph=False, train_mode=True):
     """Compute the gradients of ``heads`` with respect to every marked
     variable they were recorded from (parity `autograd.py:243`)."""
+    from .ndarray.ndarray import NDArray
+
     tensors, grads = _heads(heads, head_grads)
     st = _st()
+    # a head that is a marked variable itself (an identity block's output)
+    # takes its own cotangent, as the JAX package deposits into heads
+    for h in [heads] if isinstance(heads, NDArray) else heads:
+        _note_input(h)
     leaves = list(st.leaves.values())
     if leaves:
         gs = torch.autograd.grad(tensors, [t for _, t in leaves], grads,
@@ -217,6 +278,7 @@ def grad(heads, variables, head_grads=None, retain_graph=None,
     if any(g is None for g in gs):
         raise MXNetError("Cannot differentiate with respect to a variable "
                          "the heads do not depend on")
+    gs = [g.to_dense() if g.is_sparse else g for g in gs]
     outs = [NDArray(g if create_graph else g.detach()) for g in gs]
     if not retain_graph:
         st.leaves = {}

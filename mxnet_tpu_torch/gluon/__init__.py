@@ -1,10 +1,11 @@
 """gluon, the imperative and hybrid neural-network API (parity
 `mxnet_tpu/gluon/__init__.py`): Parameter, Block and HybridBlock, the
-layers, the recurrent cells and layers (`rnn`, `contrib.rnn`), the
-losses, the ResNet model zoo, utilities and the Trainer.
+layers, the contrib layers (`contrib.nn`), the recurrent cells and layers
+(`rnn`, `contrib.rnn`), the losses, the ResNet model zoo, utilities and the
+Trainer.
 
-Not ported yet (ROADMAP.md queue A): `gluon.data`, `gluon.contrib.nn` and
-the model zoo's other families.
+Not ported yet (ROADMAP.md queue A): `gluon.data` and the model zoo's
+other families.
 """
 from . import parameter
 from .parameter import (Constant, DeferredInitializationError, Parameter,

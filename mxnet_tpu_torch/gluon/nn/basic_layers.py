@@ -2,8 +2,10 @@
 (Sequential, HybridSequential, Dense, Dropout, Embedding, BatchNorm,
 InstanceNorm, LayerNorm, Flatten, Lambda, HybridLambda).
 
-`Embedding` with ``sparse_grad=True`` gives a dense gradient: sparse
-storage is not ported (ROADMAP.md queue A, item A.7).
+`Embedding` with ``sparse_grad=True`` has a row-sparse gradient buffer
+(``grad_stype="row_sparse"``), which backward fills with the touched rows
+only; hybridized, its gradient is computed dense and written into that
+buffer, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -154,7 +156,8 @@ class Embedding(HybridBlock):
         with self.name_scope():
             self.weight = self.params.get(
                 "weight", shape=(input_dim, output_dim),
-                init=weight_initializer, dtype=dtype)
+                init=weight_initializer, dtype=dtype,
+                grad_stype="row_sparse" if sparse_grad else "default")
 
     def hybrid_forward(self, F, x, weight):
         return F.Embedding(x, weight, name="fwd", **self._kwargs)

@@ -9,10 +9,12 @@ which infers it. `set_data` writes the new value into the parameter's
 tensor in place, as the reference writes ``arr[:] = data``, so a captured
 CUDA graph that reads the tensor sees it at its next replay.
 
-Not ported: sparse storage (``stype="row_sparse"`` raises
-NotImplementedError; a ``grad_stype="row_sparse"`` gradient is dense,
-ROADMAP.md queue A item 8) and `var()`, which needs the symbolic API
-(item 5).
+With ``grad_stype="row_sparse"`` (Embedding's ``sparse_grad``) the
+gradient buffer is a `RowSparseNDArray` with no row: backward deposits
+(indices, rows) into it, `zero_grad` empties it and `cast` keeps it
+sparse, so a large table's gradient never exists densely. The weight is
+dense whatever ``stype`` says, as in the JAX package (gathers read it
+where it lies); `row_sparse_data` gathers rows of it.
 """
 from __future__ import annotations
 
@@ -49,10 +51,6 @@ class Parameter:
                  lr_mult=1.0, wd_mult=1.0, init=None,
                  allow_deferred_init=False, differentiable=True,
                  stype="default", grad_stype="default"):
-        if stype != "default":
-            raise NotImplementedError(
-                f"Parameter stype={stype!r}: sparse storage is not ported "
-                "yet (ROADMAP.md queue A, item 8)")
         self._data = None  # {(device type, id): NDArray}
         self._grad = None
         self._ctx_list = None
@@ -74,6 +72,12 @@ class Parameter:
         self._var = None
 
     def _set_trainer(self, trainer):
+        if self._trainer is not None and trainer is not None and \
+                self._trainer is not trainer and self._stype != "default":
+            raise RuntimeError(
+                f"Failed to set the trainer for Parameter '{self.name}' "
+                "because it was already set. More than one trainers for a "
+                "sparse Parameter is not supported.")
         self._trainer = trainer
 
     def __repr__(self):
@@ -191,7 +195,8 @@ class Parameter:
     def _init_grad(self):
         self._grad = {}
         for k, arr in self._data.items():
-            g = nd.zeros(arr.shape, dtype=arr._data.dtype, ctx=arr.context)
+            g = nd.zeros(arr.shape, dtype=arr._data.dtype, ctx=arr.context,
+                         stype=self._grad_stype)
             self._grad[k] = g
             autograd.mark_variables(arr, g, self._grad_req)
 
@@ -281,12 +286,16 @@ class Parameter:
                 arr._data.copy_(src)
 
     def zero_grad(self):
-        """Set the gradient to zero, in place."""
+        """Set the gradient to zero, in place; a row-sparse one loses its
+        rows."""
         if self._grad is None:
             return
         with torch.no_grad():
             for g in self._grad.values():
-                g._data.zero_()
+                if g.stype == "row_sparse":
+                    g[:] = 0
+                else:
+                    g._data.zero_()
 
     def reset_ctx(self, ctx):
         if ctx is None:
@@ -327,12 +336,33 @@ class Parameter:
                                    wd_mult=self.wd_mult, init=self.init)
         return self._var
 
-    def row_sparse_data(self, row_id):
-        raise NotImplementedError(
-            "row_sparse_data: sparse storage is not ported yet (ROADMAP.md "
-            "queue A, item 8)")
+    def _sparse_rows_from_store(self, row_id):
+        """With a dist store that holds the weights (the optimizer on the
+        store), refresh the rows first (`Trainer._row_sparse_pull`)."""
+        if self._stype != "row_sparse" and self._grad_stype != "row_sparse":
+            raise MXNetError(
+                f"Parameter '{self.name}' is not sparse (stype="
+                f"{self._stype}, grad_stype={self._grad_stype}); use data() "
+                "instead")
+        if not isinstance(row_id, NDArray):
+            row_id = nd.array(row_id, dtype="int64")
+        trainer = self._trainer
+        if trainer is not None and getattr(trainer, "_kvstore", None) \
+                is not None and "dist" in trainer._kvstore.type:
+            trainer._row_sparse_pull(self, row_id)
+        return row_id
 
-    list_row_sparse_data = row_sparse_data
+    def row_sparse_data(self, row_id):
+        """The rows ``row_id`` of this parameter, deduplicated and sorted,
+        as a RowSparseNDArray (parity `gluon/parameter.py
+        row_sparse_data`); the weight itself stays dense."""
+        row_id = self._sparse_rows_from_store(row_id)
+        return _gather_rows(self._check_and_get(self._data, None), row_id)
+
+    def list_row_sparse_data(self, row_id):
+        """`row_sparse_data` on every context, in `list_ctx` order."""
+        row_id = self._sparse_rows_from_store(row_id)
+        return [_gather_rows(a, row_id) for a in self.list_data()]
 
     def _load_init(self, data, ctx=None):
         """Initialize directly from a loaded array (shape checked, cast to
@@ -358,6 +388,15 @@ class Parameter:
         else:
             self.set_data(data)
         self._deferred_init = ()
+
+
+def _gather_rows(arr, row_id):
+    from ..ndarray import sparse
+
+    t = arr._data.detach()
+    uniq = sparse.unique_rows(row_id, t.device)
+    return sparse.RowSparseNDArray(t.index_select(0, uniq), uniq, arr.shape,
+                                   arr.context)
 
 
 class Constant(Parameter):

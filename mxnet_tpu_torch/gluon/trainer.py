@@ -20,8 +20,15 @@ package's path for a compressed store, and its bit-exact reference with
 `MXNET_GRAD_BUCKETING=0` for any other store. One device and no dist
 store means no kvstore (`model._create_kvstore`). With a ``dist`` store
 the optimizer runs on every worker after the sync (``update_on_kvstore`` is
-False). Not ported: bucketed gradient sync (`GradSync`), ZeRO-1 and
-row-sparse gradients.
+False). Not ported: bucketed gradient sync (`GradSync`) and ZeRO-1.
+
+Row-sparse gradients (a Parameter with ``grad_stype="row_sparse"``) never
+ride the dense push and pull, which would densify the table: the optimizer
+runs on the workers (``update_on_kvstore`` is False), and
+`_allreduce_sparse_grads` merges the replicas' (indices, rows), through the
+dist store's row-sparse push on a ``dist`` store. Such a parameter may hold
+replicas on several contexts: each is updated from the merged gradient by
+an updater of its own.
 """
 from __future__ import annotations
 
@@ -111,6 +118,8 @@ class Trainer:
             self._optimizer = opt.create(optimizer, param_dict=param_dict,
                                          **optimizer_params)
         self._updater = opt.get_updater(self._optimizer)
+        # replica k > 0 of a row-sparse parameter -> its own updater
+        self._replica_updaters = {}
 
     def _reset_kvstore(self):
         if getattr(self, "_kvstore", None) and "dist" in self._kvstore.type:
@@ -132,6 +141,10 @@ class Trainer:
         if self._distributed:
             # no servers: every worker updates after the sync
             update_on_kvstore = False
+        if self._sparse_params():
+            # row-sparse gradients merge sparsely and update locally (the
+            # reference's rule for sparse gradients of dense weights)
+            update_on_kvstore = False
         if config["update_on_kvstore"] is not None:
             update_on_kvstore = config["update_on_kvstore"]
         if kvstore:
@@ -149,6 +162,14 @@ class Trainer:
     def _tensor(self, param):
         w = self._weight(param)
         return w if isinstance(w, torch.Tensor) else w._data
+
+    def _sparse_params(self):
+        """(index, Parameter) of each gluon Parameter whose gradient is
+        row-sparse and that takes one."""
+        if not self._gluon:
+            return []
+        return [(i, p) for i, p in enumerate(self._params)
+                if p._grad_stype == "row_sparse" and p.grad_req != "null"]
 
     def _init_params(self):
         """Initialize the parameters not yet in the kvstore with their
@@ -214,10 +235,14 @@ class Trainer:
         every worker issues the same collectives in the same order: one with
         no gradient (unused by this worker's backward) pushes and pulls
         zeros, and `_update` still finds it stale."""
+        sparse = self._sparse_params()
+        for i, param in sparse:
+            self._allreduce_sparse_grads(i, param)
         if not self._kvstore:
             return
+        sparse = {i for i, _ in sparse}
         for i, param in enumerate(self._params):
-            if not self._needs_grad(param):
+            if not self._needs_grad(param) or i in sparse:
                 continue
             grad = self._grad(param)
             if grad is None:
@@ -229,6 +254,61 @@ class Trainer:
             self._kvstore.push(i, grad, priority=-i)
             if not self._update_on_kvstore:
                 self._kvstore.pull(i, grad, priority=-i)
+
+    def _allreduce_sparse_grads(self, i, param):
+        """Merge a row-sparse gradient over the parameter's replicas and,
+        on a dist store, over the workers, staying O(touched rows) (the
+        role of the reference's ReduceRowSparse, `comm.h`, and its
+        row_sparse push, `kvstore_dist.h:676`): every replica's buffer gets
+        the sorted unique rows and their sums. A replica that no backward
+        wrote since the last step contributes nothing. One replica and no
+        dist store: the buffer is already in that form."""
+        from .. import autograd
+        from ..ndarray.sparse import RowSparseNDArray
+
+        grads = param.list_grad()
+        if len(grads) == 1 and not self._distributed:
+            return
+        fresh = [g._components() for g, w in zip(grads, param.list_data())
+                 if w._fresh_grad]
+        # a replica's empty slices keep dtype and device when none is fresh
+        empty = {k: t[:0] for k, t in grads[0]._components().items()}
+        idx = torch.cat([c["indices"] for c in [empty] + fresh])
+        rows = torch.cat([c["data"] for c in [empty] + fresh])
+        if self._distributed:
+            self._kvstore.push(i, RowSparseNDArray(rows, idx, param.shape),
+                               priority=-i)
+            uniq, summed = self._kvstore.pull_sparse_grad(i)
+        else:
+            uniq, summed = autograd.dedup_rows(idx, rows)
+        for g in grads:
+            g._set_components(data=summed.to(g._dtype_meta, copy=True),
+                              indices=uniq.to(torch.int32))
+
+    def _row_sparse_pull(self, parameter, row_id):
+        """Refresh the rows ``row_id`` of a sparse parameter from the
+        kvstore (parity trainer.py:289). Only a store that holds the
+        weights (the optimizer on the store) has newer rows; with local
+        updates, the port's rule for sparse gradients, every worker's
+        weight is current and this does nothing."""
+        if not self._kv_initialized:
+            self._init_kvstore()
+        if self._params_to_init:
+            self._init_params()
+        if self._kvstore is None or not self._update_on_kvstore:
+            return
+        from ..ndarray import sparse
+
+        idx = self._param2idx[id(parameter)]
+        for w in parameter.list_data():
+            tmp = sparse.zeros("row_sparse", w.shape, ctx=w.context,
+                               dtype=w._data.dtype)
+            self._kvstore.row_sparse_pull(idx, out=tmp, row_ids=row_id,
+                                          priority=-idx)
+            aux = tmp._components()
+            with torch.no_grad():
+                w._data.index_copy_(0, aux["indices"].long(),
+                                    aux["data"].to(w._data.dtype))
 
     def update(self, batch_size, ignore_stale_grad=False):
         """Update the parameters without syncing: the second half of a step
@@ -275,11 +355,26 @@ class Trainer:
                 # spent as it is taken, so a refusal further down leaves
                 # it spent, as in the reference
                 param.list_data()[0]._fresh_grad = False
+        replicas = [(i, k, w, g) for i, p in self._sparse_params()
+                    for k, (w, g) in enumerate(zip(p.list_data(),
+                                                   p.list_grad()))
+                    if k > 0 and (w._fresh_grad or not ignore_stale_grad)]
         if indices:
             self._updater(indices, grads, weights)
+        for i, k, w, g in replicas:
+            w._fresh_grad = False
+            self._replica_updater(k)([i], [g], [w])
         if not self._gluon:
             for param in self._params:
                 param.grad = None  # stale until the next backward
+
+    def _replica_updater(self, k):
+        """The updater of replica ``k`` > 0 of the row-sparse parameters:
+        its own optimizer states, as the reference keeps one updater a
+        context."""
+        if k not in self._replica_updaters:
+            self._replica_updaters[k] = opt.get_updater(self._optimizer)
+        return self._replica_updaters[k]
 
     def save_states(self, fname):
         """Save the optimizer and its states (the updater's pickle)."""

@@ -1,6 +1,7 @@
 """Data iterators: the port of `mxnet_tpu/io/io.py` (parity
 `python/mxnet/io/io.py`): `DataDesc`, `DataBatch`, `DataIter`,
-`NDArrayIter`, `ResizeIter`, `PrefetchingIter` and `CSVIter`.
+`NDArrayIter`, `ResizeIter`, `PrefetchingIter`, `CSVIter` and
+`LibSVMIter`.
 
 Batches are cut from host numpy arrays and become NDArrays on the current
 context, one copy to the device a batch (from pinned memory, not waiting
@@ -9,8 +10,8 @@ from numpy's global stream, as the JAX package's does, so a seeded run
 shuffles alike in both packages. `PrefetchingIter` fetches batches on a
 background thread (the JAX package's thread path; its native-engine path
 has no counterpart here), with the ``prefetch`` fault point and the
-``io.prefetch_*`` telemetry; `CSVIter` reads a local CSV file once and
-batches it in memory.
+``io.prefetch_*`` telemetry; `CSVIter` and `LibSVMIter` read a local file
+once and batch it in memory.
 """
 from __future__ import annotations
 
@@ -553,3 +554,28 @@ class CSVIter(NDArrayIter):
         super().__init__(data, label, batch_size=batch_size,
                          last_batch_handle="pad" if round_batch else "discard",
                          label_name="label")
+
+
+class LibSVMIter(NDArrayIter):
+    """LibSVM-format iterator (reference `iter_libsvm.cc:200`), dense-backed
+    as in the JAX package: each line ``label index:value ...`` parses to a
+    dense feature vector of ``data_shape``."""
+
+    def __init__(self, data_libsvm, data_shape, label_shape=None,
+                 batch_size=1, **kwargs):
+        dim = int(_np.prod(data_shape))
+        rows, labels = [], []
+        with open(data_libsvm) as f:
+            for line in f:
+                parts = line.split()
+                if not parts:
+                    continue
+                labels.append(float(parts[0]))
+                vec = _np.zeros(dim, dtype=_np.float32)
+                for tok in parts[1:]:
+                    i, _, v = tok.partition(":")
+                    vec[int(i)] = float(v)
+                rows.append(vec)
+        data = _np.stack(rows).reshape((-1,) + tuple(data_shape))
+        super().__init__(data, _np.asarray(labels, dtype=_np.float32),
+                         batch_size=batch_size, label_name="label")

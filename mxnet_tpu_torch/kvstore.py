@@ -5,15 +5,17 @@ Values are torch tensors where the JAX package has NDArrays; a list of
 tensors stands for one key's per-device values. `create` maps ``local`` and
 ``device`` to `KVStoreLocal` (one process) and ``dist_sync`` /
 ``dist_device_sync`` / ``dist_tpu_sync`` to `parallel.dist.KVStoreDistTPUSync`
-(a `torch.distributed` process group). Not ported: row-sparse pulls, the
-flat-bucket primitives of gradient bucketing (`allreduce_flat`,
-`reduce_scatter_flat`), the fused-step hooks and the save/load of optimizer
-states.
+(a `torch.distributed` process group). `row_sparse_pull` hands back only
+the requested rows. Not ported: the flat-bucket primitives of gradient
+bucketing (`allreduce_flat`, `reduce_scatter_flat`), the fused-step hooks
+and the save/load of optimizer states.
 
 With telemetry on, push and pull record ``kvstore.push_bytes`` /
 ``kvstore.pull_bytes`` (the dense bytes of the values pushed and of the
-arrays pulled into) and the host latency histograms ``kvstore.push_us`` /
-``kvstore.pull_us`` (enqueue time on a card).
+arrays pulled into; for a row-sparse value the bytes of its stored rows
+and indices, where the JAX package counts its dense size) and the host
+latency histograms ``kvstore.push_us`` / ``kvstore.pull_us`` (enqueue time
+on a card).
 """
 from __future__ import annotations
 
@@ -68,9 +70,12 @@ class KVStoreBase:
 
 
 def _nbytes(values):
-    """Dense bytes of a tensor or a list of them."""
+    """Dense bytes of a tensor or a list of them; the stored bytes of a
+    row-sparse value."""
     if isinstance(values, (list, tuple)):
         return sum(_nbytes(v) for v in values)
+    if not isinstance(values, torch.Tensor):
+        return sum(_nbytes(t) for t in values._components().values())
     return int(values.numel()) * values.element_size()
 
 
@@ -163,6 +168,28 @@ class KVStoreLocal(KVStoreBase):
         """Push, then pull into ``out`` (into ``value`` when out is None)."""
         self.push(key, value, priority)
         self.pull(key, out if out is not None else value, priority)
+
+    @torch.no_grad()
+    def row_sparse_pull(self, key, out=None, priority=0, row_ids=None):
+        """Pull only the rows ``row_ids`` (the reference's
+        PullRowSparseImpl, `kvstore_dist.h:271`): a row_sparse ``out`` gets
+        the deduplicated requested rows as its components, a dense one
+        (NDArray or tensor) the full shape with those rows filled and the
+        others zero. One out, or a list with one row_ids each or one for
+        all."""
+        if out is None or row_ids is None:
+            raise MXNetError("row_sparse_pull needs out and row_ids")
+        outs = list(out) if isinstance(out, (list, tuple)) else [out]
+        rids = list(row_ids) if isinstance(row_ids, (list, tuple)) \
+            else [row_ids] * len(outs)
+        keys = [key] * len(outs) if isinstance(key, (str, int)) else key
+        from .ndarray import sparse
+
+        for k, o, rid in zip(keys, outs, rids):
+            if k not in self._store:
+                raise MXNetError(f"key {k} not initialized (call init first)")
+            src = self._store[k]
+            sparse.fill_rows(o, src, sparse.unique_rows(rid, src.device))
 
 
 def _str_key_int(k):

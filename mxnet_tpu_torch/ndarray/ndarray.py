@@ -12,15 +12,18 @@ some shape ops return views that share storage with their source, as in
 the reference (the JAX package's are copies); since writes rebind, a view
 changes only when an aux write lands in its source.
 
-Not ported: lazy capture (`MXNET_LAZY`, ROADMAP.md queue A) and sparse
-storage types, for which `stype` raises NotImplementedError.
+The sparse storage types (``row_sparse``, ``csr``) are subclasses in
+`ndarray/sparse.py`; `tostype`, ``attach_grad(stype=)`` and
+``zeros(stype=)`` reach them. Not ported: lazy capture (`MXNET_LAZY`,
+ROADMAP.md queue A).
 """
 from __future__ import annotations
 
 import numpy as _np
 import torch
 
-from ..base import integer_types, np_dtype, numeric_types, torch_dtype
+from ..base import (MXNetError, integer_types, np_dtype, numeric_types,
+                    torch_dtype)
 from ..context import Context, context_of, current_context
 from ..ops.shape_ops import write_key
 
@@ -28,19 +31,13 @@ __all__ = ["NDArray", "array", "zeros", "ones", "full", "empty", "arange",
            "concatenate", "waitall"]
 
 
-def _check_stype(stype):
-    if stype not in (None, "default"):
-        raise NotImplementedError(
-            f"stype={stype!r}: sparse storage is not ported yet (ROADMAP.md "
-            "queue A, item 8)")
-
-
 class NDArray:
     __slots__ = ("_data", "grad", "grad_req", "_ag_marked", "_fresh_grad",
                  "__weakref__")
 
     def __init__(self, data, ctx=None, stype="default"):
-        _check_stype(stype)
+        # ``stype`` is the reference's argument: an NDArray is dense, the
+        # sparse types are the subclasses of `ndarray/sparse.py`
         if ctx is not None and data.device != ctx.torch_device:
             data = data.to(ctx.torch_device)
         self._data = data
@@ -143,8 +140,13 @@ class NDArray:
         return NDArray(self._data.detach().clone())
 
     def tostype(self, stype):
-        _check_stype(stype)
-        return self
+        """This array in storage type ``stype`` (parity `ndarray.py:166`):
+        itself for ``default``, else a new sparse array."""
+        if stype in (None, "default"):
+            return self
+        from . import sparse
+
+        return sparse.cast_storage(self, stype)
 
     def wait_to_read(self):
         if self._data.is_cuda:
@@ -172,13 +174,24 @@ class NDArray:
     # -- autograd -----------------------------------------------------------
 
     def attach_grad(self, grad_req="write", stype=None):
-        """Allocate a gradient buffer and mark the array for `backward`."""
-        _check_stype(stype)
+        """Allocate a gradient buffer and mark the array for `backward`.
+        ``stype="row_sparse"`` allocates a row-sparse buffer with no row:
+        a row-sparse gradient (Embedding's ``sparse_grad``) is then
+        deposited as (indices, rows), never densified."""
         from .. import autograd
 
-        autograd.mark_variables(
-            [self], [NDArray(torch.zeros_like(self._data.detach()))],
-            grad_req)
+        if stype == "row_sparse":
+            from . import sparse
+
+            t = self._data
+            buf = sparse.zeros("row_sparse", self.shape, dtype=t.dtype,
+                               ctx=self.context)
+        elif stype in (None, "default"):
+            buf = NDArray(torch.zeros_like(self._data.detach()))
+        else:
+            raise MXNetError(f"attach_grad: a {stype!r} gradient buffer is "
+                             "not supported (row_sparse or default)")
+        autograd.mark_variables([self], [buf], grad_req)
 
     def backward(self, out_grad=None, retain_graph=False, train_mode=True):
         from .. import autograd
@@ -528,7 +541,10 @@ def empty(shape, ctx=None, dtype=None):
 
 
 def zeros(shape, ctx=None, dtype=None, stype=None, **kwargs):
-    _check_stype(stype)
+    if stype not in (None, "default"):
+        from . import sparse
+
+        return sparse.zeros(stype, shape, ctx=ctx, dtype=dtype)
     return NDArray(torch.zeros(_shape_t(shape), dtype=torch_dtype(dtype),
                                device=_device(ctx)))
 

@@ -138,7 +138,14 @@ def _invoke_nd_impl(op_name, *args, out=None, name=None, **kwargs):
     if takes_device:
         kwargs["device"] = device
     with torch.set_grad_enabled(recording):
-        outs = _reg.invoke(op_name, *tensors, **kwargs)
+        outs = None
+        # a row-sparse gradient only outside control-flow bodies, whose
+        # gradient gates take dense ones (the JAX package traces them)
+        if recording and op.sparse_vjp is not None and keep is None and \
+                autograd.sparse_grads_allowed():
+            outs = op.sparse_vjp(*tensors, **kwargs)
+        if outs is None:
+            outs = _reg.invoke(op_name, *tensors, **kwargs)
     outs = tuple(outs) if isinstance(outs, (tuple, list)) else (outs,)
 
     n_user = len(outs)

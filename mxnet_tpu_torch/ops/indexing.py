@@ -1,9 +1,16 @@
 """Indexing, gather and scatter ops: the port of `mxnet_tpu/ops/indexing.py`
 (`indexing_op.cc`: take, Embedding, one_hot, gather_nd, scatter_nd, pick;
 `control_flow_op.cc` where; `boolean_mask.cc`; `ravel.cc`; the sequence
-ops). Ops that the JAX package gives a row-sparse gradient
-(Embedding(sparse_grad=True), `_contrib_SparseEmbedding`) give a dense one
-here until sparse storage is ported (ROADMAP.md queue A, item 8)."""
+ops).
+
+Embedding with ``sparse_grad=True`` and `_contrib_SparseEmbedding` give a
+row-sparse weight gradient when called imperatively under recording
+(`_embedding_sparse_vjp`, the JAX package's row-sparse pullback): torch's
+sparse COO gradient of the gather, the (indices, rows) of the lookups, so
+a 1,000,001-row table's gradient costs O(batch), not O(table). Inside a
+hybridized block's function they give a dense one, as in the JAX package
+(and a captured CUDA graph cannot hold the ``unique`` that deduplicates
+rows: its output size is read on the host)."""
 from __future__ import annotations
 
 import torch
@@ -30,17 +37,30 @@ def _take(a, indices, axis=0, mode="clip", **kw):
                        + a.shape[axis + 1:])
 
 
-@register("Embedding")
+def _embedding_sparse_vjp(data, weight, sparse_grad=False, **kw):
+    """Embedding whose weight gradient is a sparse COO tensor of the
+    looked-up rows (indices clipped to [0, N-1] as the forward clips them),
+    or None when ``sparse_grad`` is off."""
+    if not parse_bool(sparse_grad):
+        return None
+    return F.embedding(_clip_index(data, weight.shape[0]), weight,
+                       sparse=True)
+
+
+@register("Embedding", sparse_vjp=_embedding_sparse_vjp)
 def _embedding(data, weight, input_dim=None, output_dim=None,
                dtype="float32", sparse_grad=False, **kw):
     """One gather of weight rows (`indexing_op.cc` Embedding)."""
     return F.embedding(_clip_index(data, weight.shape[0]), weight)
 
 
-@register("_contrib_SparseEmbedding", aliases=["contrib_SparseEmbedding"])
+@register("_contrib_SparseEmbedding", aliases=["contrib_SparseEmbedding"],
+          sparse_vjp=lambda data, weight, **kw: _embedding_sparse_vjp(
+              data, weight, sparse_grad=True))
 def _sparse_embedding(data, weight, input_dim=None, output_dim=None,
                       dtype="float32", deterministic=False, **kw):
-    """Embedding whose weight gradient the reference keeps row-sparse."""
+    """Embedding whose weight gradient is always row-sparse (the contrib
+    precursor of ``sparse_grad``); the same gather."""
     return F.embedding(_clip_index(data, weight.shape[0]), weight)
 
 
@@ -191,7 +211,9 @@ def _sequence_reverse(data, sequence_length=None, use_sequence_length=False,
 
 @register("cast_storage")
 def _cast_storage_op(data, stype="default", **kw):
-    """Identity on values: storage types other than dense are not ported."""
+    """`cast_storage` at the dense level: the identity on values. The
+    imperative frontend (`nd.cast_storage`) builds the sparse types; graphs
+    that hold the op run it dense, the reference's fallback."""
     return data
 
 

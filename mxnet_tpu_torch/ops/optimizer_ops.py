@@ -10,10 +10,11 @@ and the frontend copies the states into their arrays in place
 (``mutate_aux``). The math is fp32 whatever the weight's dtype. A
 ``multi_*`` op takes its weights' inputs interleaved (weight, grad, state
 ... for each) with one learning rate and weight decay each (``lrs``,
-``wds``), and returns the new weights, then the new states. The AdaGrad
-ops take dense gradients (row-sparse storage is ROADMAP.md queue A, item
-A.7); with a zero row a dense update moves nothing, as the reference's
-rows-only one.
+``wds``), and returns the new weights, then the new states. The ops take
+dense gradients: a row-sparse one reaches them densified, and the lazy
+rows-only SGD and Adam updates of a row-sparse gradient are `optimizer.py`'s
+(`_sparse_sgd_update`, `_sparse_adam_update`). With a zero row the AdaGrad
+ops move nothing, as the reference's rows-only one.
 """
 from __future__ import annotations
 

@@ -25,11 +25,11 @@ class Op:
 
     __slots__ = ("name", "fn", "num_outputs", "mutate_aux", "wrap_kwargs",
                  "doc", "needs_rng", "needs_mode", "tensor_opts",
-                 "_schema_cache")
+                 "sparse_vjp", "_schema_cache")
 
     def __init__(self, name, fn, num_outputs=1, mutate_aux=None,
                  wrap_kwargs=None, needs_rng=False, needs_mode=False,
-                 tensor_opts=()):
+                 tensor_opts=(), sparse_vjp=None):
         self.name = name
         self.fn = fn
         self.num_outputs = num_outputs  # int or callable(attrs) -> int
@@ -49,6 +49,12 @@ class Op:
         # lengths), in the fn's positional order: a Symbol node records
         # which it was given (``__opt_in__``)
         self.tensor_opts = tuple(tensor_opts)
+        # storage-aware backward (the reference's FInferStorageType role):
+        # ``sparse_vjp(*tensors, **attrs)`` computes the op so that its
+        # weight gradient is row-sparse (a torch sparse COO tensor), or
+        # returns None to decline; the imperative frontend calls it under
+        # recording, outside a hybridized block's function
+        self.sparse_vjp = sparse_vjp
         self._schema_cache = None
         self.doc = fn.__doc__
 
@@ -63,13 +69,14 @@ class Op:
 
 def register(name, aliases=(), num_outputs=1, mutate_aux=None,
              wrap_kwargs=None, needs_rng=False, needs_mode=False,
-             tensor_opts=()):
+             tensor_opts=(), sparse_vjp=None):
     """Decorator: register a torch fn as operator ``name`` (+ aliases)."""
 
     def deco(fn):
         op = Op(name, fn, num_outputs=num_outputs, mutate_aux=mutate_aux,
                 wrap_kwargs=wrap_kwargs, needs_rng=needs_rng,
-                needs_mode=needs_mode, tensor_opts=tensor_opts)
+                needs_mode=needs_mode, tensor_opts=tensor_opts,
+                sparse_vjp=sparse_vjp)
         _OPS[name] = op
         for a in aliases:
             _OPS[a] = op

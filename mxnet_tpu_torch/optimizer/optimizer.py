@@ -21,8 +21,16 @@ buffers); else, for SGD's NDArray weights, through the aggregated
 ``multi_sgd_*`` ops in chunks of `MXNET_OPTIMIZER_AGGREGATION_SIZE`
 (default 4), which rebind the weights as the JAX package's ops do; else one
 parameter at a time. SGD, NAG and Adam have a fused update, as in the JAX
-package; the others update one parameter at a time. Not ported:
-row-sparse (lazy) updates (ROADMAP.md queue A, item A.7).
+package; the others update one parameter at a time.
+
+A row-sparse gradient (`RowSparseNDArray`) never joins a fused or an
+aggregated update: the `Updater` takes it alone. SGD and Adam with
+``lazy_update`` (the default) update only its rows, in place: the weight,
+the momentum and Adam's moments of every other row stay as they were
+(`_sparse_sgd_update`, `_sparse_adam_update`, the reference's
+`SGDUpdateRspImpl` / `AdamUpdateRspImpl`). Without ``lazy_update``, and for
+the other optimizers, the gradient is densified and the update is the dense
+one.
 """
 from __future__ import annotations
 
@@ -51,6 +59,17 @@ __all__ = ["Optimizer", "SGD", "Signum", "FTML", "DCASGD", "NAG", "SGLD",
 def _tensor(x):
     """The tensor of an NDArray, or the tensor itself."""
     return x if isinstance(x, torch.Tensor) else x._data
+
+
+def _row_sparse(x):
+    from ..ndarray.sparse import RowSparseNDArray
+
+    return isinstance(x, RowSparseNDArray)
+
+
+def _dense(grad):
+    """A gradient as a tensor: a row-sparse one densified."""
+    return grad._data if _row_sparse(grad) else _tensor(grad)
 
 
 def _is_low_precision(dtype):
@@ -184,12 +203,17 @@ class Optimizer:
     def update_multi_precision(self, index, weight, grad, state):
         if self.multi_precision and _is_low_precision(weight.dtype):
             master, original_state = state
-            self.update(index, master, grad.float(), original_state)
+            grad = grad.astype("float32") if _row_sparse(grad) \
+                else grad.float()
+            self.update(index, master, grad, original_state)
             weight.copy_(master.to(weight.dtype))
         else:
             self.update(index, weight, grad, state)
 
     fused_update_supported = False
+    # whether `update` takes a row-sparse gradient as it is (SGD, Adam);
+    # the others get it densified
+    takes_row_sparse = False
 
     def fused_update(self, weights, grads, states, lrs, wds, rescale_grad,
                      groups=None):
@@ -289,15 +313,66 @@ register = Optimizer.register
 create = Optimizer.create_optimizer
 
 
+def _sparse_rows(grad, weight, rescale_grad, clip_gradient):
+    """The occupied rows of a row-sparse gradient (int64) and their values
+    rescaled and clipped, in the weight's dtype; None for no row."""
+    aux = grad._components()
+    if aux["indices"].numel() == 0:
+        return None, None
+    g = aux["data"].to(weight.dtype) * rescale_grad
+    if clip_gradient:
+        g = torch.clamp(g, -clip_gradient, clip_gradient)
+    return aux["indices"].long(), g
+
+
+def _sparse_sgd_update(weight, grad, state, lr, wd, rescale_grad,
+                       clip_gradient, momentum):
+    """Lazy (rows-only) SGD for a row-sparse gradient (the reference's
+    sgd(_mom)_update with ``lazy_update`` on a row_sparse grad,
+    `optimizer_op.cc` SGDUpdateRspImpl): the weight, the momentum and the
+    weight decay touch only the occupied rows, written in place."""
+    rows, g = _sparse_rows(grad, weight, rescale_grad, clip_gradient)
+    if rows is None:
+        return
+    wr = weight.index_select(0, rows)
+    g = g + wd * wr
+    if momentum and state is not None:
+        mr = state.index_select(0, rows) * momentum - lr * g
+        state.index_copy_(0, rows, mr.to(state.dtype))
+        weight.index_copy_(0, rows, wr + mr)
+    else:
+        weight.index_copy_(0, rows, wr - lr * g)
+
+
+def _sparse_adam_update(weight, grad, state, lr, wd, rescale_grad,
+                        clip_gradient, beta1, beta2, epsilon):
+    """Lazy (rows-only) Adam for a row-sparse gradient (the reference's
+    AdamUpdateRspImpl, `optimizer_op.cc`): the mean and variance decay only
+    on the gradient's rows; ``lr`` carries the bias correction."""
+    rows, g = _sparse_rows(grad, weight, rescale_grad, clip_gradient)
+    if rows is None:
+        return
+    mean, var = state
+    wr = weight.index_select(0, rows)
+    g = g + wd * wr
+    mr = beta1 * mean.index_select(0, rows) + (1 - beta1) * g
+    vr = beta2 * var.index_select(0, rows) + (1 - beta2) * g * g
+    mean.index_copy_(0, rows, mr)
+    var.index_copy_(0, rows, vr)
+    weight.index_copy_(0, rows, wr - lr * mr / (torch.sqrt(vr) + epsilon))
+
+
 @register
 class SGD(Optimizer):
     """Stochastic gradient descent with momentum and multi-precision. The
     multi-precision state is ``(momentum or None, master)``."""
 
+    takes_row_sparse = True
+
     def __init__(self, momentum=0.0, lazy_update=True, **kwargs):
         super().__init__(**kwargs)
         self.momentum = momentum
-        self.lazy_update = lazy_update  # dense gradients only: no effect
+        self.lazy_update = lazy_update
         self.aggregate_num = max(1, min(60, int(os.getenv(
             "MXNET_OPTIMIZER_AGGREGATION_SIZE", "4"))))
 
@@ -319,7 +394,7 @@ class SGD(Optimizer):
             self._update_aggregate(index, weight, grad, state,
                                    multi_precision)
             return
-        weight, grad = _tensor(weight), _tensor(grad)
+        weight = _tensor(weight)
         self._update_count(index)
         kwargs = {"rescale_grad": self.rescale_grad,
                   "lr": self._get_lr(index), "wd": self._get_wd(index)}
@@ -327,7 +402,14 @@ class SGD(Optimizer):
             kwargs["clip_gradient"] = self.clip_gradient
         if self.momentum > 0:
             kwargs["momentum"] = self.momentum
-        if not (multi_precision and isinstance(state, (list, tuple))):
+        use_mp = multi_precision and isinstance(state, (list, tuple))
+        if _row_sparse(grad) and self.lazy_update and not use_mp:
+            _sparse_sgd_update(weight, grad, state, kwargs["lr"],
+                               kwargs["wd"], self.rescale_grad,
+                               self.clip_gradient, self.momentum)
+            return
+        grad = _dense(grad)
+        if not use_mp:
             if state is not None:
                 w, m = sgd_mom_update(weight, grad, state, **kwargs)
                 state.copy_(m)
@@ -762,13 +844,15 @@ class Adam(Optimizer):
     """Adam, with the bias correction folded into the learning rate. The
     multi-precision state is the base class's ``(master, (mean, var))``."""
 
+    takes_row_sparse = True
+
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-8, lazy_update=True, **kwargs):
         super().__init__(learning_rate=learning_rate, **kwargs)
         self.beta1 = beta1
         self.beta2 = beta2
         self.epsilon = epsilon
-        self.lazy_update = lazy_update  # dense gradients only: no effect
+        self.lazy_update = lazy_update
 
     def create_state(self, index, weight):
         return (torch.zeros_like(weight, memory_format=torch.contiguous_format),
@@ -780,8 +864,14 @@ class Adam(Optimizer):
                   "epsilon": self.epsilon, "rescale_grad": self.rescale_grad,
                   "lr": _adam_lr(self, self._get_lr(index), index),
                   "wd": self._get_wd(index), **_clip_of(self)}
+        if _row_sparse(grad) and self.lazy_update:
+            _sparse_adam_update(weight, grad, state, kwargs["lr"],
+                                kwargs["wd"], self.rescale_grad,
+                                self.clip_gradient, self.beta1, self.beta2,
+                                self.epsilon)
+            return
         mean, var = state
-        w, m, v = adam_update(weight, grad, mean, var, **kwargs)
+        w, m, v = adam_update(weight, _dense(grad), mean, var, **kwargs)
         _write([(mean, m), (var, v), (weight, w)])
 
     fused_update_supported = True
@@ -1184,6 +1274,20 @@ class Updater:
                              f"gradients and {len(weight)} weights")
         self.ensure_states(index, weight)
         opt = self.optimizer
+        if any(_row_sparse(g) for g in grad):
+            # a row-sparse gradient is updated alone, never in a fused or
+            # an aggregated group
+            dense = []
+            for idx, g, w in zip(index, grad, weight):
+                if not _row_sparse(g):
+                    dense.append((idx, g, w))
+                    continue
+                opt.update_multi_precision(
+                    idx, _tensor(w), g if opt.takes_row_sparse else g._data,
+                    self.states[idx])
+            if not dense:
+                return
+            index, grad, weight = (list(t) for t in zip(*dense))
         if len(index) > 1 and opt.fused_update_supported \
                 and getenv("MXNET_FUSED_STEP"):
             opt._update_count(index)

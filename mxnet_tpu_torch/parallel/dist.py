@@ -15,6 +15,13 @@ the optimizer runs on every worker on the summed gradient.
   error-feedback residual (`GradientCompression.quantize`, the K3 kernel on
   a card), the packed words of the call ride one `all_gather`, and every
   worker dequantizes all workers' words and sums them in fp32.
+* Row-sparse push (a `RowSparseNDArray` value): only the occupied rows
+  travel. Each worker's (indices, rows) are padded to the largest worker's
+  row count (one all-gather of the counts) and all-gathered; the pieces
+  stay unmerged until a pull, `pull_sparse_grad` or `row_sparse_pull`
+  merges them (sorted unique rows, summed) and, with an updater, applies
+  the lazy update to the stored rows (reference `EncodeRowSparseKey`,
+  `kvstore_dist.h:676`). One worker keeps its pieces where they are.
 
 With telemetry on, every collective records ``dist.<name>_calls``,
 ``dist.<name>_bytes`` (this process's contribution: the flat bucket of an
@@ -24,8 +31,8 @@ card's stream, as the JAX package's dispatch was asynchronous); pushes
 count ``dist.push_collectives``, and push and pull the
 ``kvstore.push_bytes`` / ``kvstore.pull_bytes`` dense sizes.
 
-Not ported: row-sparse push and pull, `allreduce_flat`,
-`reduce_scatter_flat`, the fused-step sync and the elastic lease.
+Not ported: `allreduce_flat`, `reduce_scatter_flat`, the fused-step sync
+and the elastic lease.
 """
 from __future__ import annotations
 
@@ -41,6 +48,7 @@ from ..base import MXNetError
 from ..context import resolve_device
 from ..gradient_compression import compressed_size
 from ..kvstore import KVStoreBase, _group_sum, _key_index, _nbytes
+from ..ndarray import sparse
 
 __all__ = ["init_process_group", "KVStoreDistTPUSync"]
 
@@ -136,6 +144,7 @@ class KVStoreDistTPUSync(KVStoreBase):
         self._grouped = init_process_group(device=self.device)
         self._store = {}    # key -> tensor
         self._pending = {}  # key -> summed dense gradient
+        self._pending_rsp = {}  # key -> [(indices, rows), ...] unmerged
 
     # -- identity -----------------------------------------------------------
 
@@ -190,17 +199,21 @@ class KVStoreDistTPUSync(KVStoreBase):
         keys, vals = self._key_list(key, value)
         if tele:
             telemetry.counter("kvstore.push_bytes").inc(_nbytes(vals))
-        arrs = []
+        arrs, dense_keys = [], []
         for k, v in zip(keys, vals):
             if k not in self._store:
                 raise MXNetError(f"key {k} not initialized (call init first)")
+            if not isinstance(v, (list, tuple, torch.Tensor)):
+                self._push_row_sparse(k, v)
+                continue
+            dense_keys.append(k)
             if isinstance(v, (list, tuple)):
                 v = _group_sum(v)
             arrs.append(v.detach().to(self.device))
-        if self._gc.active:
-            self._push_dense_compressed(keys, arrs)
-        else:
-            self._push_dense(keys, arrs)
+        if dense_keys and self._gc.active:
+            self._push_dense_compressed(dense_keys, arrs)
+        elif dense_keys:
+            self._push_dense(dense_keys, arrs)
         if tele:
             telemetry.histogram("kvstore.push_us").record(
                 (time.perf_counter() - t0) * 1e6)
@@ -233,6 +246,59 @@ class KVStoreDistTPUSync(KVStoreBase):
                 part = flat[off:off + a.numel()].view(a.shape)
                 self._add_pending(k, part.to(a.dtype))
                 off += a.numel()
+
+    def _all_gather(self, t):
+        """Every worker's ``t`` (same shape on each), stacked."""
+        tele = telemetry._enabled
+        t0 = time.perf_counter() if tele else 0.0
+        out = torch.empty((dist.get_world_size(),) + tuple(t.shape),
+                          dtype=t.dtype, device=t.device)
+        dist.all_gather(list(out.unbind(0)), t)
+        if tele:
+            _collective_telemetry("allgather", t, t0)
+        return out
+
+    def _push_row_sparse(self, k, v):
+        """Queue a row-sparse gradient's pieces: this worker's alone, or
+        every worker's through all-gathers padded to the largest row
+        count (indices -1 in the padding)."""
+        aux = v._components()
+        idx = aux["indices"].to(self.device, torch.int32)
+        rows = aux["data"].to(self.device)
+        pieces = self._pending_rsp.setdefault(k, [])
+        if telemetry._enabled:
+            telemetry.counter("dist.push_collectives").inc()
+        if self.num_workers == 1:
+            if idx.numel():
+                pieces.append((idx, rows))
+            return
+        count = torch.tensor([idx.shape[0]], dtype=torch.int64,
+                             device=self.device)
+        cap = int(self._all_gather(count).max())
+        if cap == 0:
+            return
+        pad_idx = torch.full((cap,), -1, dtype=torch.int32,
+                             device=self.device)
+        pad_idx[:idx.shape[0]] = idx
+        pad_rows = rows.new_zeros((cap,) + tuple(rows.shape[1:]))
+        pad_rows[:idx.shape[0]] = rows
+        all_idx = self._all_gather(pad_idx).reshape(-1)
+        all_rows = self._all_gather(pad_rows).reshape(
+            (-1,) + tuple(rows.shape[1:]))
+        valid = torch.nonzero(all_idx >= 0).reshape(-1)
+        pieces.append((all_idx.index_select(0, valid),
+                       all_rows.index_select(0, valid)))
+
+    def _merged_rsp(self, k):
+        """The pending pieces of ``k`` merged: (sorted unique rows, their
+        sums), or None when no worker pushed a row."""
+        from ..autograd import dedup_rows
+
+        pieces = self._pending_rsp.pop(k)
+        if not pieces:
+            return None
+        return dedup_rows(torch.cat([p[0] for p in pieces]),
+                          torch.cat([p[1] for p in pieces]))
 
     def _push_dense_compressed(self, keys, arrs):
         """Quantize each key with its residual, all-gather the packed words
@@ -283,6 +349,9 @@ class KVStoreDistTPUSync(KVStoreBase):
                 (time.perf_counter() - t0) * 1e6)
 
     def _apply_pending(self, k):
+        if k in self._pending_rsp:
+            self._apply_pending_rsp(k)
+            return
         pend = self._pending.pop(k, None)
         if pend is None:
             return
@@ -291,6 +360,53 @@ class KVStoreDistTPUSync(KVStoreBase):
         else:
             self._store[k] = pend.to(self._store[k].dtype)
 
+    def _apply_pending_rsp(self, k):
+        """A merged row-sparse sum: the updater's lazy update of the stored
+        rows, or without an updater the stored value becomes the sum
+        (every other row zero, `kvstore_dist_server.h` ApplyUpdates)."""
+        merged = self._merged_rsp(k)
+        stored = self._store[k]
+        if merged is None:
+            if self._updater is None:
+                self._store[k] = torch.zeros_like(stored)
+            return
+        uniq, summed = merged
+        if self._updater is not None:
+            self._updater(_key_index(k), sparse.RowSparseNDArray(
+                summed.to(stored.dtype), uniq, tuple(stored.shape)), stored)
+        else:
+            dense = torch.zeros_like(stored)
+            dense[uniq.long()] = summed.to(stored.dtype)
+            self._store[k] = dense
+
     def pushpull(self, key, value, out=None, priority=0):
         self.push(key, value, priority)
         self.pull(key, out if out is not None else value, priority)
+
+    def pull_sparse_grad(self, key):
+        """The merged pending row-sparse sum of ``key`` as (sorted unique
+        rows, summed rows), neither applied to the stored value nor
+        densified: the Trainer's merge-then-update-locally flow."""
+        merged = self._merged_rsp(key) if key in self._pending_rsp else None
+        if merged is None:
+            val = self._store[key]
+            return (torch.zeros(0, dtype=torch.int32, device=val.device),
+                    val.new_zeros((0,) + tuple(val.shape[1:])))
+        return merged
+
+    @torch.no_grad()
+    def row_sparse_pull(self, key, out=None, priority=0, row_ids=None):
+        """Pull only the rows ``row_ids`` (reference `PullRowSparseImpl`,
+        `kvstore_dist.h:271`), after applying what is pending: a row_sparse
+        ``out`` gets just (indices, rows), a dense one the full shape with
+        the deduplicated requested rows filled and the others zero."""
+        keys, outs = self._key_list(key, out)
+        rids = row_ids if isinstance(row_ids, (list, tuple)) \
+            else [row_ids] * len(keys)
+        for k, o, r in zip(keys, outs, rids):
+            self._apply_pending(k)
+            val = self._store[k]
+            ridx = sparse.unique_rows(r, val.device)
+            for t in (o if isinstance(o, (list, tuple)) else [o]):
+                sparse.fill_rows(t, val, ridx)
+

@@ -143,8 +143,13 @@ def test_parameter_lifecycle():
     d.initialize(ctx=CPU)
     with pytest.raises(mx.gluon.DeferredInitializationError):
         d.data()
-    with pytest.raises(NotImplementedError, match="item 8"):
-        mx.gluon.Parameter("s", shape=(2,), stype="row_sparse")
+    # sparse storage is ported (slice 15): the stype is kept, the weight
+    # is dense and the gradient buffer row-sparse
+    s = mx.gluon.Parameter("s_weight", shape=(2, 3), stype="row_sparse",
+                           grad_stype="row_sparse")
+    s.initialize(ctx=CPU)
+    assert s.stype == "row_sparse" and s.data().stype == "default"
+    assert s.grad().stype == "row_sparse"
     c = mx.gluon.Constant("c", np.arange(3, dtype=np.float32))
     c.initialize(ctx=CPU)
     np.testing.assert_array_equal(_np(c.data()), np.arange(3))

@@ -12,6 +12,9 @@ the JAX package's on the CPU, with 2-bit gradient compression.
 - Two `gluon.Trainer` workers over gloo where one worker's backward leaves a
   parameter without a gradient: it still pushes (zeros), so both workers
   issue the same all-reduces in the same order and pull the same sums.
+- Two gloo workers pushing row-sparse gradients of different row counts:
+  the padded all-gather, the merged sum applied by the store's SGD or
+  handed back sparse, and a Trainer over a SparseEmbedding.
 
 Pulled values are compared exactly: every step of the path is exact fp32
 (codes times the threshold, summed over at most two workers).
@@ -265,3 +268,76 @@ def test_two_workers_gloo_trainer_pushes_unused_parameters():
         np.testing.assert_allclose(a1, 0.4, rtol=1e-6, err_msg=str(rank))
         np.testing.assert_allclose(b0, 0.0 if rank == 0 else 1.0, atol=1e-6)
         np.testing.assert_allclose(b1, b0 - 0.1 * 20, atol=1e-6)
+
+
+def _dist_sparse_worker(rank, port, results):
+    """One worker of the padded row-sparse push: worker 0 pushes rows
+    [1, 4], worker 1 rows [4, 6, 8] (three rows: the padding) of a 10 x 3
+    key, then a pull applies SGD on the store; a second key is pulled
+    sparse through `pull_sparse_grad`; and a Trainer over a
+    SparseEmbedding steps on the summed gradient of both workers."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, gluon, nd, telemetry
+    from mxnet_tpu_torch.ndarray.sparse import RowSparseNDArray
+
+    os.environ.update(MXNET_COORDINATOR=f"127.0.0.1:{port}",
+                      MXNET_NUM_PROCESSES=str(WORKERS),
+                      MXNET_PROCESS_ID=str(rank), MXNET_INIT_TIMEOUT_S="30")
+    try:
+        with mx.cpu():
+            kv = kvs.create("dist_sync", device="cpu")
+            rows = [[1, 4], [4, 6, 8]][rank]
+            vals = torch.full((len(rows), 3), float(rank + 1))
+            kv.init("w", torch.ones(10, 3))
+            kv.init("g", torch.zeros(10, 3))
+            kv.set_optimizer(mx.optimizer.create("sgd", learning_rate=0.5))
+            telemetry.reset()
+            telemetry.enable()
+            kv.push("w", RowSparseNDArray(vals, rows, (10, 3)))
+            pushed = telemetry.get("kvstore.push_bytes").value
+            telemetry.enable(False)
+            out = torch.zeros(10, 3)
+            kv.pull("w", out=out)
+            kv.push("g", RowSparseNDArray(vals, rows, (10, 3)))
+            uniq, summed = kv.pull_sparse_grad("g")
+            net = gluon.contrib.nn.SparseEmbedding(10, 2)
+            net.initialize(mx.init.One(), ctx=mx.cpu())
+            trainer = gluon.Trainer(net.collect_params(), "sgd",
+                                    {"learning_rate": 0.1},
+                                    kvstore="dist_sync")
+            with autograd.record():
+                loss = net(nd.array(rows, dtype="int32")).sum()
+            loss.backward()
+            trainer.step(1)
+            g = net.weight.grad()
+            kv.barrier()
+            results.put((rank, (out.numpy(), uniq.numpy(), summed.numpy(),
+                                pushed, net.weight.data().asnumpy(),
+                                g.indices.asnumpy(), g.densified()), None))
+    except BaseException as e:  # report to the parent, which fails the test
+        results.put((rank, repr(e), None))
+        raise
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+
+
+def test_two_workers_gloo_row_sparse_push():
+    got = _run_workers(_dist_sparse_worker)
+    # the summed gradient: row 1 gets 1, row 4 gets 1 + 2, rows 6 and 8 get 2
+    grad = np.zeros((10, 3), np.float32)
+    grad[1], grad[4], grad[6], grad[8] = 1, 3, 2, 2
+    weight = np.ones((10, 2), np.float32)
+    weight[[1, 4, 6, 8]] -= 0.1
+    weight[4] -= 0.1  # both workers looked row 4 up
+    for rank, (res, _) in got.items():
+        out, uniq, summed, pushed, w, idx, densified = res
+        np.testing.assert_allclose(out, 1 - 0.5 * grad, err_msg=str(rank))
+        np.testing.assert_array_equal(uniq, [1, 4, 6, 8])
+        np.testing.assert_allclose(summed, grad[[1, 4, 6, 8]])
+        # this worker's stored rows and indices, not the dense 10 x 3
+        n_rows = 2 if rank == 0 else 3
+        assert pushed == n_rows * (3 * 4 + 4), (rank, pushed)
+        np.testing.assert_allclose(w, weight, rtol=1e-6, err_msg=str(rank))
+        np.testing.assert_array_equal(idx, [1, 4, 6, 8])
+        assert not densified
