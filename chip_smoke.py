@@ -351,6 +351,55 @@ Phases, each printed as one JSON line:
            predicting zero (`MF_EXAMPLE_RMSE`: the JAX package's 0.6 rests
            on its initializer's numpy stream, which the example's data
            share); (f) no kernel launched;
+  vision   slice 16's image input pipeline and vision model zoo, after
+           sparse (`vision_phase`), fp32 with TF32 off: (a) BASELINE.json's
+           second configuration (example/image-classification's ResNet-50
+           on ImageNet, Gluon, hybridized, ``kvstore="device"``) fed from
+           records: 512 images of 256 x 320 x 3 uint8 from seed 0 with
+           label-keyed blobs (`example/image-classification/common/
+           fit.py`), written as raw pixels by `recordio.pack` into an
+           indexed ``.rec`` (120 MiB) in a temporary directory, read by
+           `RecordFileDataset` (each record unpacked to a CPU uint8 HWC
+           array), `transform_first` of gluon-cv's ImageNet training chain
+           (RandomResizedCrop(224), RandomFlipLeftRight, RandomColorJitter
+           (0.4, 0.4, 0.4), RandomLighting(0.1), ToTensor, Normalize), a
+           `DataLoader` (batch 32, shuffle, last_batch "discard",
+           pin_memory, min(16, cpu_count - 2) workers), into
+           `resnet50_v1(classes=1000)` trained by `gluon.Trainer` (SGD, lr
+           0.05, momentum 0.9, wd 1e-4), 3 warm-up and 20 timed
+           iterations (the loss read each; the timed ones from a fresh
+           epoch, img/s over their whole wall and, steady, from the median
+           iteration), with threads, then worker processes, then the same
+           net from device-resident batches (the ceiling). Prints for each
+           the median iteration, img/s, the wait
+           on the loader, the loader alone (a fresh epoch's first batch
+           and its batches a second), the idle share under
+           torch.profiler of a second window made like the timed one (a
+           fresh epoch, 20 iterations), the bytes copied to the card a
+           batch, peak memory, captures after warm-up (0). (b) alexnet, vgg16,
+           squeezenet1.1, mobilenet1.0, mobilenetv2_1.0 and densenet121 at
+           224², inceptionv3 at 299², 1000 classes, batch 32 from
+           device-resident batches, hybridized, SGD, 3 warm-up and 10
+           timed steps: the median step, img/s, the step's FLOPs counted
+           by FlopCounterMode (one eager step) against the observatory's
+           measured fp32 peak, the parameter count (the JAX package's
+           pinned counts), captures after warm-up (0). Checks, each
+           raising: (c) each family's small model and the record-fed step
+           (the gluon phase's small ResNet on 8 small records) one SGD step
+           on the card (cuDNN deterministic) and on the CPU from one
+           weight file within 1e-4, in predict mode for a net with
+           Dropout; the mobilenets train, in float64 on the card against
+           the CPU within 1e-4 (gradients too), and in fp32 against the
+           CPU's float64 step, the output and loss within 1e-4 of their
+           scale and each gradient within 0.5 of its scale (one element
+           across a ReLU kink moves one by up to 0.18); the pipeline's
+           deterministic image ops and transforms on the card against the
+           CPU; `example/gluon/
+           image_classification.py` (mobilenetv2_1.0, 3 x 224², batch 8,
+           2 batches, 1 epoch) and `example/image-classification/
+           train_imagenet.py` (densenet121, ``--benchmark 1``, batch 8, 2
+           batches) through the port with only their imports changed; no
+           kernel launched;
   kernels  each kernel against its plain PyTorch version on the card, at the
            shapes the main path gives it and at extra cases (every head dim
            and dtype variant of K1 and K2), with times (`cuda_ms`: many calls
@@ -2623,7 +2672,7 @@ def _op_case_groups():
          dict(_MULTI, momentum=0.9, clip_gradient=0.3), False),
     ]
     return cases + _training_op_cases() + _recurrent_op_cases() \
-        + _RANDOM_CASES
+        + _image_op_cases() + _RANDOM_CASES + _IMAGE_RANDOM_CASES
 
 
 _ROIS = [[0, 0, 0, 3, 3], [1, 1, 1, 5, 4], [0, 2.5, 0.5, 5, 5]]
@@ -2827,6 +2876,81 @@ def _recurrent_op_cases():
     ]
 
 
+# A 4 x 3 RGB PNG (pixels from RandomState(0)): the codec ops' input
+CV_PNG = bytes.fromhex(
+    "89504e470d0a1a0a0000000d49484452000000040000000308020000003b9639"
+    "910000003249444154789c012700d8ff01ac2f7514148603240e10aee9047828"
+    "d1b40191625addedf0bc0434fa5f41fca3f0d3e7c79c522d801299dc80f93500"
+    "00000049454e44ae426082")
+_PIXELS = {"lo": 0.0, "hi": 255.0}
+_U8 = {"lo": 0, "hi": 256, "dtype": "uint8"}
+# the ops whose work is host codec work (PIL), with no device computation
+# to hold to the CPU's: the nd phase's card-against-CPU check leaves them
+# out (the machine with the card has no image codec)
+HOST_OPS = frozenset(("_cvimdecode", "cvimdecode", "_cvimread", "cvimread",
+                      "_cvimresize", "cvimresize"))
+
+
+def cv_image_file():
+    """`CV_PNG` written once under the temporary directory: the file of
+    the ``_cvimread`` case."""
+    path = os.path.join(tempfile.gettempdir(), "chip_smoke_cv_%s.png"
+                        % hashlib.sha1(CV_PNG).hexdigest()[:12])
+    if not os.path.exists(path):
+        fd, tmp = tempfile.mkstemp(dir=os.path.dirname(path))
+        with os.fdopen(fd, "wb") as f:
+            f.write(CV_PNG)
+        os.replace(tmp, path)
+    return path
+
+
+def _image_op_cases():
+    """Slice 16's deterministic names: the ``_image_*`` ops on HWC / NHWC
+    images (float ones with their gradients) and the host ops of
+    `image_io.cc`."""
+    png = _c(list(CV_PNG), "uint8")
+    return [
+        ("_image_to_tensor image_to_tensor", [_i(4, 5, 3, **_U8)], {},
+         False),
+        ("_image_to_tensor:float_batch", [_u(2, 4, 5, 3, **_PIXELS)], {},
+         True),
+        ("_image_normalize image_normalize", [_u(3, 4, 5)],
+         {"mean": (0.485, 0.456, 0.406), "std": (0.229, 0.224, 0.225)},
+         True),
+        ("_image_normalize:batch", [_u(2, 3, 4, 5)],
+         {"mean": 0.5, "std": 0.25}, True),
+        ("_image_flip_left_right image_flip_left_right", [_u(4, 5, 3)], {},
+         True),
+        ("_image_flip_left_right:batch", [_u(2, 4, 5, 3)], {}, True),
+        ("_image_flip_top_bottom image_flip_top_bottom", [_u(4, 5, 3)], {},
+         True),
+        ("_image_adjust_lighting image_adjust_lighting",
+         [_u(4, 5, 3, **_PIXELS)], {"alpha": (0.1, -0.2, 0.05)}, True),
+        ("_image_resize image_resize", [_u(6, 8, 3, **_PIXELS)],
+         {"size": (5, 4)}, True),
+        ("_image_resize:upscale_nearest_batch", [_u(2, 6, 8, 3)],
+         {"size": (12, 9), "interp": 0}, True),
+        ("_image_resize:uint8_short_side", [_i(6, 10, 3, **_U8)],
+         {"size": 4, "keep_ratio": True}, False),
+        ("_image_crop image_crop", [_u(6, 8, 3)],
+         {"x": 1, "y": 2, "width": 4, "height": 3}, True),
+        ("_image_crop:batch", [_i(2, 6, 8, 3, **_U8)],
+         {"x": 0, "y": 1, "width": 8, "height": 5}, False),
+        ("_cvimdecode cvimdecode", [png], {}, False),
+        ("_cvimdecode:gray_bgr", [png], {"flag": 0}, False),
+        ("_cvimdecode:bgr", [png], {"to_rgb": False}, False),
+        ("_cvimread cvimread", [], {"filename": cv_image_file()}, False),
+        ("_cvimresize cvimresize", [_i(6, 8, 3, **_U8)],
+         {"w": 5, "h": 4, "interp": 1}, False),
+        ("_cvcopyMakeBorder cvcopyMakeBorder", [_i(5, 6, 3, **_U8)],
+         {"top": 1, "bot": 2, "left": 3, "right": 1, "value": 7.0}, False),
+        ("_cvcopyMakeBorder:edge", [_i(5, 6, 3, **_U8)],
+         {"top": 2, "bot": 1, "left": 1, "right": 3, "type": 1}, False),
+        ("_cvcopyMakeBorder:reflect", [_u(5, 6, 3)],
+         {"top": 3, "bot": 1, "left": 2, "right": 2, "type": 2}, False),
+    ]
+
+
 # The random ops (slice 13): a case each, compared by shape and dtype
 # (torch's streams are not threefry's, and the card's are not the CPU's);
 # their values are held by `random_draw_checks`.
@@ -2871,8 +2995,35 @@ _RANDOM_CASES = [
     ("_sample_unique_zipfian", [], {"range_max": 50, "shape": (2, 4)},
      False),
 ]
+# slice 16's random image ops: by shape and dtype, and by the range each
+# transform can reach (`image_random_in_range`)
+_IMAGE_RANDOM_CASES = [
+    ("_image_random_flip_left_right image_random_flip_left_right",
+     [_u(4, 5, 3)], {}, False),
+    ("_image_random_flip_top_bottom image_random_flip_top_bottom",
+     [_u(2, 4, 5, 3)], {}, False),
+    ("_image_random_brightness image_random_brightness",
+     [_u(4, 5, 3, **_PIXELS)], {"min_factor": 0.5, "max_factor": 1.5},
+     False),
+    ("_image_random_contrast image_random_contrast",
+     [_u(2, 4, 5, 3, **_PIXELS)], {"min_factor": 0.5, "max_factor": 1.5},
+     False),
+    ("_image_random_saturation image_random_saturation",
+     [_u(4, 5, 3, **_PIXELS)], {"min_factor": 0.5, "max_factor": 1.5},
+     False),
+    ("_image_random_hue image_random_hue", [_u(4, 5, 3, **_PIXELS)],
+     {"min_factor": -0.1, "max_factor": 0.1}, False),
+    ("_image_random_color_jitter image_random_color_jitter",
+     [_u(4, 5, 3, **_PIXELS)],
+     {"brightness": 0.4, "contrast": 0.4, "saturation": 0.4, "hue": 0.1},
+     False),
+    ("_image_random_lighting image_random_lighting",
+     [_u(4, 5, 3, **_PIXELS)], {"alpha_std": 0.1}, False),
+]
 RANDOM_OPS = frozenset(name for names, *_ in _RANDOM_CASES
-                       for name in names.split())
+                       + _IMAGE_RANDOM_CASES for name in names.split())
+IMAGE_RANDOM_OPS = frozenset(name for names, *_ in _IMAGE_RANDOM_CASES
+                             for name in names.split())
 
 
 def op_cases():
@@ -3280,18 +3431,69 @@ def assert_random_case_alike(case, got, want):
         check(np.array_equal(a, b), f"{case[0]}: an input changed")
 
 
+def image_random_in_range(case, got):
+    """Raise unless a random image op's output (`port_op_case`'s result)
+    is one its transform can reach from the input: a flip the input or its
+    mirror; brightness, contrast and saturation between their blends at
+    the two factors; the hue rotation keeping each pixel's luma; the
+    lighting one constant shift a channel within 10 standard deviations;
+    the colour jitter finite."""
+    import numpy as np
+
+    name, attrs = case[1], case[3]
+    out = got[0][0].astype(np.float64)
+    x = got[2][0].astype(np.float64)
+    luma = np.array([0.299, 0.587, 0.114])
+    gray = (x * luma).sum(-1, keepdims=True)
+    lo, hi = attrs.get("min_factor"), attrs.get("max_factor")
+    if "flip" in name:
+        axis = x.ndim - (2 if "left_right" in name else 3)
+        ok = np.array_equal(out, x) or np.array_equal(out, np.flip(x, axis))
+    elif "brightness" in name or "contrast" in name or \
+            "saturation" in name:
+        if "brightness" in name:
+            other = np.zeros_like(gray)
+        elif "contrast" in name:
+            other = gray.mean(axis=(-3, -2, -1), keepdims=True)
+        else:
+            other = gray
+        ends = [a * x + (1 - a) * other for a in (lo, hi)]
+        slack = 1e-4 * (1 + np.abs(x))
+        ok = bool(np.all(out >= np.minimum(*ends) - slack)
+                  and np.all(out <= np.maximum(*ends) + slack))
+    elif "hue" in name:
+        ok = np.allclose((out * luma).sum(-1, keepdims=True), gray,
+                         rtol=1e-4, atol=1e-2)
+    elif "lighting" in name:
+        shift = (out - x).reshape(-1, x.shape[-1])
+        reach = 10 * attrs["alpha_std"] * (np.abs(
+            np.array([[-0.5675, 0.7192, 0.4009], [-0.5808, -0.0045, -0.814],
+                      [-0.5836, -0.6948, 0.4203]]))
+            @ np.array([55.46, 4.794, 1.148]))
+        ok = np.allclose(shift, shift[0], atol=1e-3) and \
+            bool(np.all(np.abs(shift[0]) <= reach))
+    else:
+        ok = bool(np.all(np.isfinite(out)))
+    check(ok, f"{case[0]}: an output its transform cannot reach")
+
+
 def nd_ops_card_vs_cpu(mx):
     """Check (c): every case of the op table, forward and backward, on the
-    card against the CPU (the random ops' by shape and dtype); Dropout's
-    training mode by its statistics on both; and the random ops' draws by
-    theirs (`random_draw_checks`, 10^6 draws a distribution)."""
-    cases = op_cases()
+    card against the CPU (the random ops' by shape and dtype, the random
+    image ops' by their range too; the host codec ops, `HOST_OPS`, left
+    out); Dropout's training mode by its statistics on both; and the
+    random ops' draws by theirs (`random_draw_checks`, 10^6 draws a
+    distribution)."""
+    cases = [c for c in op_cases() if c[1] not in HOST_OPS]
     for case in cases:
         arrays = op_case_arrays(case)
         got, want = (port_op_case(mx, case, arrays, ctx)
                      for ctx in (mx.gpu(0), mx.cpu()))
         if case[1] in RANDOM_OPS:
             assert_random_case_alike(case, got, want)
+            if case[1] in IMAGE_RANDOM_OPS:
+                image_random_in_range(case, got)
+                image_random_in_range(case, want)
         else:
             assert_op_case_close(case, got, want)
     kept = {str(ctx): dropout_keep_rate(mx, ctx)
@@ -3301,6 +3503,7 @@ def nd_ops_card_vs_cpu(mx):
              for ctx in (mx.gpu(0), mx.cpu())}
     names = {case[1] for case in cases}
     return {"cases": len(cases), "ops": len(names),
+            "host_ops_left_out": len(HOST_OPS),
             "random_ops": len(names & RANDOM_OPS),
             "with_grad": sum(1 for c in cases if op_case_grad_inputs(c)),
             "dropout_kept": kept, "random_draws": draws,
@@ -6998,16 +7201,795 @@ def sparse_phase(torch, smi):
             "card": smi}
 
 
-def profiler_phase(torch, lm_state, smi):
-    """``mx.profiler`` on the card: one full-width train step (bf16, 8 x
-    2048) between `profiler.start` and `dump`, under a span, with
-    telemetry and tracing on. The dumped trace must hold the step's 4 K1
-    launches by the kernel's name, a telemetry counter event and the
-    span. Runs last: the profiler session and a torch.profiler session
-    never overlap, and no graph is captured or replayed after it."""
+# -- slice 16: the image input pipeline and the vision model zoo -------------
+
+# BASELINE.json's second configuration, example/image-classification's
+# ResNet-50 on ImageNet (Gluon, hybridized, kvstore=device): 512 records of
+# 256 x 320 x 3 uint8 pixels (about ImageNet's 4:5 aspect), 1000 classes,
+# batch 32 at 224 x 224; example/gluon/image_classification.py's SGD
+VISION_RECORDS = 512
+VISION_IMAGE = (256, 320, 3)
+VISION_CLASSES = 1000
+VISION_BATCH = 32
+VISION_CROP = 224
+VISION_OPT = {"learning_rate": 0.05, "momentum": 0.9, "wd": 1e-4}
+VISION_WARMUP = 3
+VISION_TIMED = 20
+VISION_POOL = 4          # device-resident batches of the ceiling run
+IMAGENET_MEAN = (0.485, 0.456, 0.406)
+IMAGENET_STD = (0.229, 0.224, 0.225)
+# each family at full width: (name, input size, the JAX package's pinned
+# parameter count, tests/python/unittest/test_model_zoo_strict.py:33-66)
+VISION_FAMILIES = (("alexnet", 224, 61_100_840), ("vgg16", 224, 138_357_544),
+                   ("squeezenet1.1", 224, 1_235_496),
+                   ("mobilenet1.0", 224, 4_253_864),
+                   ("mobilenetv2_1.0", 224, 3_539_136),
+                   ("densenet121", 224, 8_062_504),
+                   ("inceptionv3", 299, 23_869_000))
+VISION_FAMILY_TIMED = 10
+# the families' SGD: VGG's published rate (Simonyan and Zisserman 2015,
+# 0.01); at the record-fed run's 0.05 vgg16, with no BatchNorm, diverged
+# on random data within 10 steps (on an H100)
+VISION_FAMILY_OPT = {"learning_rate": 0.01, "momentum": 0.9, "wd": 1e-4}
+# check (c)'s small models: (constructor, input shape, mode). "predict"
+# holds a net with Dropout in predict mode (its masks cannot be matched);
+# "train" trains; "witness" trains and is held to a float64 witness
+# (`vision_witness_step`): at Xavier init the mobilenets' fp32 gradients
+# follow which side of a ReLU or ReLU6 kink each element falls on, and
+# one element moved across one by an fp32 rounding moves a gradient by up
+# to 18 % of its scale (tools/torch_vision_witness.py)
+VISION_SMALL = {
+    "alexnet": (lambda v: v.AlexNet(classes=10), (2, 3, 64, 64), "predict"),
+    "vgg_bn": (lambda v: v.VGG([1, 1, 1, 1, 1], [8, 16, 16, 32, 32],
+                               classes=10, batch_norm=True),
+               (2, 3, 32, 32), "predict"),
+    "squeezenet1.1": (lambda v: v.SqueezeNet("1.1", classes=10),
+                      (2, 3, 224, 224), "predict"),
+    "mobilenet0.25": (lambda v: v.MobileNet(0.25, classes=10),
+                      (4, 3, 128, 128), "witness"),
+    "mobilenetv2_0.25": (lambda v: v.MobileNetV2(0.25, classes=10),
+                         (4, 3, 128, 128), "witness"),
+    "densenet": (lambda v: v.DenseNet(16, 8, (2, 2, 2, 2), classes=10),
+                 (2, 3, 224, 224), "train"),
+    "inceptionv3": (lambda v: v.Inception3(classes=10), (1, 3, 299, 299),
+                    "predict"),
+}
+# a witnessed net: its float64 step, card against CPU, within
+# `ND_SMALL_TOL`, gradients too; its fp32 step on the card against the
+# CPU's float64 one, each array's error over its scale (the scale at least
+# `floor` of the largest gradient's: a gradient that is zero in exact
+# arithmetic is rounding alone in fp32): the output and the loss within
+# `forward`, every gradient within `grad`, which only a gross fault
+# passes (a kink crossed: up to 0.18)
+VISION_WITNESS_TOL = {"forward": 1e-4, "grad": 0.5, "floor": 1e-3}
+# the record-fed step's small form: 8 records of 40 x 48 x 3, batch 4 at
+# 32 x 32 into the gluon phase's small ResNet (`GLUON_SMALL`, 10 classes)
+VISION_SMALL_RECORDS = {"n": 8, "image": (40, 48, 3), "crop": 32,
+                        "batch": 4, "classes": 10}
+# the pipeline's float image ops, card against CPU: within 1e-4 of the
+# output's largest magnitude (a tenth of a uint8 step on pixels; the
+# antialiased resize's weights round differently on the card, 2.2e-3 on
+# 0-255 pixels on an H100)
+VISION_OP_TOL = {"of_largest": 1e-4}
+IMAGE_CLS_EXAMPLE = "example/gluon/image_classification.py"
+TRAIN_IMAGENET_EXAMPLE = "example/image-classification/train_imagenet.py"
+FIT_MODULE = "example/image-classification/common/fit.py"
+
+
+def vision_records(mod, folder, n, image, classes, seed=0):
+    """``n`` uint8 images of shape ``image`` from ``seed`` with a blob keyed
+    to the label (`example/image-classification/common/fit.py:54-62`: the
+    row (label x 3) mod H of channel 0 lit), written by ``mod``'s
+    `recordio` (either package) as raw pixels, ``pack(IRHeader(0, label,
+    i, 0), img.tobytes())``, into an indexed ``.rec``. Returns its path and
+    the labels."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    labels = rng.randint(0, classes, n)
+    rec = os.path.join(folder, "images.rec")
+    w = mod.MXIndexedRecordIO(os.path.join(folder, "images.idx"), rec, "w")
+    for i, label in enumerate(labels):
+        img = rng.randint(0, 256, image, dtype=np.uint8)
+        img[(int(label) * 3) % image[0], :, 0] = 255
+        w.write_idx(i, mod.pack(mod.IRHeader(0, float(label), i, 0),
+                                img.tobytes()))
+    w.close()
+    return rec, labels
+
+
+class RawImageRecord:
+    """A record of raw pixels (`vision_records`) as (HWC uint8 CPU array,
+    label), in package ``pkg`` (``"mxnet_tpu_torch"`` or ``"mxnet_tpu"``):
+    the transform `vision_dataset` reads records through. Picklable, for
+    `DataLoader` worker processes."""
+
+    def __init__(self, pkg, image):
+        self.pkg, self.image = pkg, tuple(image)
+
+    def __call__(self, record):
+        import importlib
+
+        import numpy as np
+
+        mx = importlib.import_module(self.pkg)
+        header, payload = mx.recordio.unpack(record)
+        img = np.frombuffer(payload, np.uint8).reshape(self.image)
+        return (mx.nd.array(img, ctx=mx.cpu(), dtype="uint8"),
+                np.float32(header.label))
+
+
+def imagenet_transform(mx, crop):
+    """gluon-cv's ImageNet training chain (scripts/classification/imagenet/
+    train_imagenet.py) at ``crop``."""
+    T = mx.gluon.data.vision.transforms
+    return T.Compose([T.RandomResizedCrop(crop), T.RandomFlipLeftRight(),
+                      T.RandomColorJitter(0.4, 0.4, 0.4),
+                      T.RandomLighting(0.1), T.ToTensor(),
+                      T.Normalize(IMAGENET_MEAN, IMAGENET_STD)])
+
+
+def vision_dataset(mx, rec, image, crop):
+    """`RecordFileDataset` over ``rec``, each record unpacked to a CPU
+    image (`RawImageRecord`), the image through `imagenet_transform`."""
+    pkg = mx.__name__
+    return mx.gluon.data.RecordFileDataset(rec).transform(
+        RawImageRecord(pkg, image)).transform_first(
+        imagenet_transform(mx, crop))
+
+
+def endless(loader):
+    """The loader's batches, epoch after epoch; closing it stops the
+    current epoch's workers."""
+    while True:
+        it = iter(loader)
+        try:
+            yield from it
+        finally:
+            if hasattr(it, "close"):
+                it.close()
+
+
+def vision_record_step(mx, ctx, rec, params_file, cfg=VISION_SMALL_RECORDS,
+                       **loader_kw):
+    """Check (c)'s record-fed step, on either package: the first batch of
+    `vision_dataset` over ``rec`` through a `DataLoader` read in the
+    calling thread (Python's and numpy's streams seeded, so the random
+    transforms draw alike), moved to ``ctx``, one SGD step of the gluon
+    phase's small ResNet (`gluon_small_net`) from ``params_file``. Returns
+    {name: numpy} of the batch, the loss, the output and the weights after
+    the step."""
+    import random
+
+    import numpy as np
+
+    random.seed(0)
+    np.random.seed(0)
+    loader = mx.gluon.data.DataLoader(
+        vision_dataset(mx, rec, cfg["image"], cfg["crop"]),
+        batch_size=cfg["batch"], shuffle=True, last_batch="discard",
+        **loader_kw)
+    x, y = next(iter(loader))
+    x, y = x.as_in_context(ctx), y.as_in_context(ctx)
+    with ctx:
+        net = gluon_small_net(mx)()
+        net.load_parameters(params_file, ctx=ctx)
+        trainer = mx.gluon.Trainer(net.collect_params(), "sgd",
+                                   dict(VISION_OPT))
+        loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+        with mx.autograd.record():
+            out = net(x)
+            loss = loss_fn(out, y)
+        loss.backward()
+        trainer.step(cfg["batch"])
+    state = {"batch": x.asnumpy(), "label": y.asnumpy(),
+             "loss": loss.asnumpy(), "output": out.asnumpy()}
+    state.update({f"param {k}": p.data().asnumpy()
+                  for k, p in net._collect_params_with_prefix().items()})
+    return state
+
+
+def vision_small_step(mx, ctx, name, params_file, dtype="float32"):
+    """Check (c) for one family: its small model (`VISION_SMALL`) on
+    ``ctx`` in ``dtype`` from ``params_file`` (made by the CPU run when
+    missing), one SGD step on a batch from seed 0, in predict mode for a
+    net with Dropout. Returns {name: numpy} of the loss, the output, the
+    gradients of a witnessed net, and the weights after."""
+    import numpy as np
+
+    make, shape, mode = VISION_SMALL[name]
+    rng = np.random.RandomState(0)
+    x = rng.uniform(-1, 1, shape).astype(np.float32)
+    y = rng.randint(0, 10, shape[0]).astype(np.float32)
+    with ctx:
+        net = make(mx.gluon.model_zoo.vision)
+        if os.path.exists(params_file):
+            net.load_parameters(params_file, ctx=ctx)
+        else:
+            mx.random.seed(0)
+            net.initialize(mx.init.Xavier(), ctx=ctx)
+            net(mx.nd.array(x))
+            net.save_parameters(params_file)
+        if dtype != "float32":
+            net.cast(dtype)
+        trainer = mx.gluon.Trainer(net.collect_params(), "sgd",
+                                   dict(VISION_OPT))
+        loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+        with mx.autograd.record(train_mode=mode != "predict"):
+            out = net(mx.nd.array(x, dtype=dtype))
+            loss = loss_fn(out, mx.nd.array(y, dtype=dtype))
+        loss.backward()
+        params = net._collect_params_with_prefix()
+        grads = {} if mode != "witness" else {
+            f"grad {k}": p.grad().asnumpy() for k, p in params.items()
+            if p.grad_req != "null"}
+        trainer.step(shape[0])
+    state = {"loss": loss.asnumpy(), "output": out.asnumpy(), **grads}
+    state.update({f"param {k}": p.data().asnumpy()
+                  for k, p in params.items()})
+    return state
+
+
+def vision_witness_errors(got, witness, floor):
+    """{name: max |got - witness| over the witness's scale}, the scale at
+    least ``floor`` of the largest gradient scale."""
+    import numpy as np
+
+    top = max(float(np.abs(v).max()) for k, v in witness.items()
+              if k.startswith("grad "))
+    errs = {}
+    for k, w in witness.items():
+        w = np.asarray(w, np.float64)
+        scale = max(float(np.abs(w).max()) if w.size else 0.0, floor * top)
+        errs[k] = float(np.abs(np.asarray(got[k], np.float64) - w).max()) \
+            / scale if w.size else 0.0
+    return errs
+
+
+def vision_witness_step(mx, name, params_file, cpu32):
+    """Check (c) for a witnessed net (`VISION_SMALL` mode "witness"): the
+    float64 step on the card against the CPU within `ND_SMALL_TOL`, and
+    the card's fp32 step (``cpu32`` is the CPU's) against the CPU's float64
+    one within `VISION_WITNESS_TOL`. Returns the figures, with each fp32
+    side's errors over scale."""
+    tol = VISION_WITNESS_TOL
+    w64 = vision_small_step(mx, mx.cpu(), name, params_file, "float64")
+    with cudnn_deterministic():
+        card64 = vision_small_step(mx, mx.gpu(0), name, params_file,
+                                   "float64")
+        card32 = vision_small_step(mx, mx.gpu(0), name, params_file)
+    f64 = vision_compare(f"vision (c) {name} float64 card vs CPU", card64,
+                         w64, ND_SMALL_TOL)
+    figures = {}
+    for side, state in (("card", card32), ("cpu", cpu32)):
+        errs = vision_witness_errors(state, w64, tol["floor"])
+        grads = {k: e for k, e in errs.items() if k.startswith("grad ")}
+        figures[f"{side}_fp32_vs_float64"] = {
+            "output": errs["output"], "loss": errs["loss"],
+            "worst_grad": max(grads.values()),
+            "worst_grad_array": max(grads, key=grads.get),
+            "grads_over_1e-3": sum(e > 1e-3 for e in grads.values()),
+            "grads": len(grads)}
+    card = figures["card_fp32_vs_float64"]
+    check(max(card["output"], card["loss"]) <= tol["forward"],
+          f"vision (c) {name}: the card's fp32 forward parts from float64 "
+          f"by {card['output']} (output), {card['loss']} (loss) of scale")
+    check(card["worst_grad"] <= tol["grad"], f"vision (c) {name}: the "
+          f"card's fp32 {card['worst_grad_array']} parts from float64 by "
+          f"{card['worst_grad']} of scale")
+    return {"float64_card_vs_cpu": f64, **figures, "tol": tol}
+
+
+def vision_compare(what, got, want, tol):
+    """Raise unless two {name: numpy} states agree within ``tol``; returns
+    the count compared and the largest error."""
+    import numpy as np
+
+    check(sorted(got) == sorted(want), f"{what}: the arrays differ")
+    worst = 0.0
+    for k in got:
+        a, b = np.asarray(got[k], np.float64), np.asarray(want[k], np.float64)
+        err = float(np.abs(a - b).max()) if a.size else 0.0
+        worst = max(worst, err)
+        check(a.shape == b.shape and np.allclose(a, b, **tol),
+              f"{what}: {k} max err {err} over {tol}")
+    return {"compared": len(got), "max_abs_err": worst}
+
+
+def vision_train_loop(torch, mx, net, loss_fn, trainer, fetch, warmup,
+                      timed, at_timed=None):
+    """``warmup`` + ``timed`` iterations: ``fetch()`` a batch on the card
+    (its wait timed), forward and backward under `record()`, the SGD step,
+    the loss read; ``at_timed()`` runs between the two. Returns the timed
+    walls and waits (s), the losses and the captures made after the
+    warm-up."""
+    walls, waits, losses = [], [], []
+    captures = None
+    for i in range(warmup + timed):
+        if i == warmup:
+            if at_timed is not None:
+                at_timed()
+            captures = net._cached_op.captures + loss_fn._cached_op.captures
+        t0 = time.perf_counter()
+        x, y = fetch()
+        t1 = time.perf_counter()
+        with mx.autograd.record():
+            loss = loss_fn(net(x), y)
+        loss.backward()
+        trainer.step(x.shape[0])
+        losses.append(float(loss.mean().asnumpy()))
+        t2 = time.perf_counter()
+        if i >= warmup:
+            walls.append(t2 - t0)
+            waits.append(t1 - t0)
+    after = net._cached_op.captures + loss_fn._cached_op.captures
+    return walls, waits, losses, after - captures
+
+
+def vision_loader_alone(loader):
+    """A fresh epoch of ``loader`` with no model: seconds to its first
+    batch (the workers' start included), and batches a second over the
+    rest of the epoch."""
+    t0 = time.perf_counter()
+    it = iter(loader)
+    next(it)
+    t1 = time.perf_counter()
+    n = sum(1 for _ in it)
+    t2 = time.perf_counter()
+    return {"first_batch_s": t1 - t0, "batches": n,
+            "batches_per_s": n / (t2 - t1),
+            "img_per_s": n * loader._batch_sampler._batch_size / (t2 - t1)}
+
+
+def vision_record_fed(torch, mx, smi, folder):
+    """Part (a): the record-fed ResNet-50 (BASELINE's second
+    configuration). Writes `VISION_RECORDS` records, reads them through
+    `vision_dataset` and a pinned-memory `DataLoader` of `vision_workers()`
+    threads, then processes, into `resnet50_v1(classes=1000)`, hybridized,
+    trained by `gluon.Trainer` (SGD, ``kvstore="device"``), fp32; then the
+    same net from device-resident batches, the ceiling. Each run: median
+    iteration, img/s, the wait on the loader, the loader alone, the idle
+    share of a second window made like the timed one (a fresh epoch and
+    `VISION_TIMED` iterations) under torch.profiler, bytes
+    copied a batch, peak memory, captures after warm-up (must be 0).
+    Returns the lines."""
+    import numpy as np
+
+    from mxnet_tpu_torch import recordio
+
+    ctx = mx.gpu(0)
+    t0 = time.perf_counter()
+    rec, _ = vision_records(recordio, folder, VISION_RECORDS, VISION_IMAGE,
+                            VISION_CLASSES)
+    write_s = time.perf_counter() - t0
+    workers = min(16, (os.cpu_count() or 4) - 2)
+    ds = vision_dataset(mx, rec, VISION_IMAGE, VISION_CROP)
+    mx.random.seed(0)
+    net = mx.gluon.model_zoo.vision.resnet50_v1(classes=VISION_CLASSES)
+    net.initialize(mx.init.Xavier(), ctx=ctx)
+    net.hybridize()
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    loss_fn.hybridize()
+    trainer = mx.gluon.Trainer(net.collect_params(), "sgd", dict(VISION_OPT),
+                               kvstore="device")
+    runs = {}
+    for mode, thread_pool in (("threads", True), ("processes", False),
+                              ("device_resident", None)):
+        loader = mx.gluon.data.DataLoader(
+            ds, batch_size=VISION_BATCH, shuffle=True, last_batch="discard",
+            pin_memory=True, num_workers=workers,
+            thread_pool=bool(thread_pool))
+        nbytes = []
+        feed = {}
+        if thread_pool is None:
+            pool = [(x.as_in_context(ctx), y.as_in_context(ctx))
+                    for x, y in (b for b, _ in zip(loader,
+                                                   range(VISION_POOL)))]
+            state = {"i": 0}
+
+            def fetch():
+                state["i"] += 1
+                return pool[state["i"] % VISION_POOL]
+        else:
+            feed["batches"] = endless(loader)
+
+            def fresh_epoch():
+                # the timed window starts with an empty pipeline: nothing
+                # the workers made during the warm-up's captures is timed
+                feed["batches"].close()
+                feed["batches"] = endless(loader)
+
+            feed["at_timed"] = fresh_epoch
+
+            def fetch():
+                x, y = next(feed["batches"])
+                nbytes.append(x.size * x.dtype.itemsize)
+                check(x._data.is_pinned(), f"vision {mode}: an unpinned "
+                      "batch")
+                return x.as_in_context(ctx), y.as_in_context(ctx)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        walls, waits, losses, captured = vision_train_loop(
+            torch, mx, net, loss_fn, trainer, fetch, VISION_WARMUP,
+            VISION_TIMED, at_timed=feed.get("at_timed"))
+        peak = torch.cuda.max_memory_allocated()
+        check(all(math.isfinite(v) for v in losses),
+              f"vision {mode}: a non-finite loss in {losses}")
+        check(captured == 0, f"vision {mode}: {captured} captures after "
+              "the warm-up")
+
+        def window():
+            for _ in range(VISION_TIMED):
+                x, y = fetch()
+                with mx.autograd.record():
+                    loss = loss_fn(net(x), y)
+                loss.backward()
+                trainer.step(x.shape[0])
+                loss.mean().asnumpy()
+
+        if "at_timed" in feed:
+            # made like the timed window: a fresh epoch, as many iterations
+            feed["at_timed"]()
+        profile = profile_step(torch, window, must_run=("convolution",))
+        if "batches" in feed:
+            feed["batches"].close()
+        iter_ms = statistics.median(walls) * 1e3
+        line = {"iteration_ms": [w * 1e3 for w in walls],
+                "median_iteration_ms": iter_ms,
+                "img_per_s": VISION_BATCH * len(walls) / sum(walls),
+                # an epoch is 16 batches: the window holds two epoch
+                # starts, whose worker start and pipeline fill the median
+                # iteration leaves out
+                "steady_img_per_s": VISION_BATCH / iter_ms * 1e3,
+                "wait_on_loader_ms": [w * 1e3 for w in waits],
+                "median_wait_ms": statistics.median(waits) * 1e3,
+                "wait_share": sum(waits) / sum(walls),
+                "losses": losses,
+                "idle_share": profile["idle_share"],
+                "profiled_window_img_per_s":
+                    VISION_BATCH * VISION_TIMED / profile["step_wall_ms"]
+                    * 1e3,
+                "host_launch_calls": profile["host_launch_calls"],
+                "profile": profile_summary(profile),
+                "peak_mem_gb": peak / 1e9, "captures_after_warmup": captured}
+        if thread_pool is not None:
+            want = VISION_BATCH * 3 * VISION_CROP ** 2 * 4
+            check(set(nbytes) == {want}, f"vision {mode}: batch bytes "
+                  f"{sorted(set(nbytes))}, want {want}")
+            line["bytes_to_card_per_batch"] = want
+            line["loader_alone"] = vision_loader_alone(loader)
+        runs[mode] = line
+        del loader
+    return {"config": {"records": VISION_RECORDS, "image_hwc": VISION_IMAGE,
+                       "rec_mib": os.path.getsize(rec) / 2 ** 20,
+                       "classes": VISION_CLASSES, "batch": VISION_BATCH,
+                       "crop": VISION_CROP, "workers": workers,
+                       "cpu_count": os.cpu_count(),
+                       "transforms": "RandomResizedCrop(224), "
+                       "RandomFlipLeftRight, RandomColorJitter(0.4, 0.4, "
+                       "0.4), RandomLighting(0.1), ToTensor, Normalize",
+                       "loader": "shuffle, last_batch discard, pin_memory",
+                       "model": "resnet50_v1, hybridized, fp32, TF32 off",
+                       "trainer": dict(VISION_OPT, optimizer="sgd",
+                                       kvstore="device"),
+                       "warmup": VISION_WARMUP, "timed": VISION_TIMED},
+            "source": "BASELINE.json config 2, example/image-"
+                      "classification ResNet-50 ImageNet; gluon-cv's "
+                      "ImageNet training transforms",
+            "records_write_s": write_s, **runs, "card": smi}, net
+
+
+def step_flop(mx, net, loss_fn, x, y):
+    """One eager forward and backward of ``net`` counted under
+    `FlopCounterMode` (`compile_cache.measure_cost`, as the observatory
+    counts a program)."""
+    from mxnet_tpu_torch.compile_cache import measure_cost
+
+    def step():
+        with mx.autograd.record():
+            loss = loss_fn(net(x), y)
+        loss.backward()
+        return loss._data
+
+    _, cost = measure_cost(step)
+    check(cost, "vision: the FLOP counter failed")
+    return cost["flops"]
+
+
+def vision_family(torch, mx, name, size, count, peak_fp32, smi):
+    """Part (b) for one family: `get_model(name, classes=1000)` at batch
+    `VISION_BATCH` x ``size``², from `VISION_POOL` device-resident batches,
+    fp32: the step's FLOPs counted eagerly (`step_flop`), then hybridized,
+    SGD, `VISION_WARMUP` + `VISION_FAMILY_TIMED` iterations. Returns its
+    line."""
+    import numpy as np
+
+    ctx = mx.gpu(0)
+    rng = np.random.RandomState(0)
+    pool = [(mx.nd.array(rng.uniform(-1, 1, (VISION_BATCH, 3, size, size)),
+                         ctx=ctx),
+             mx.nd.array(rng.randint(0, VISION_CLASSES, VISION_BATCH),
+                         ctx=ctx, dtype="float32"))
+            for _ in range(VISION_POOL)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    mx.random.seed(0)
+    net = mx.gluon.model_zoo.vision.get_model(name, classes=VISION_CLASSES)
+    net.initialize(mx.init.Xavier(), ctx=ctx)
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    flop = step_flop(mx, net, loss_fn, *pool[0])
+    params = sum(p.data().size for p in net.collect_params().values())
+    check(params == count, f"vision {name}: {params} parameters, the JAX "
+          f"package's {count}")
+    net.hybridize()
+    loss_fn.hybridize()
+    trainer = mx.gluon.Trainer(net.collect_params(), "sgd",
+                               dict(VISION_FAMILY_OPT))
+    state = {"i": 0}
+
+    def fetch():
+        state["i"] += 1
+        return pool[state["i"] % VISION_POOL]
+
+    t0 = time.perf_counter()
+    walls, _, losses, captured = vision_train_loop(
+        torch, mx, net, loss_fn, trainer, fetch, VISION_WARMUP,
+        VISION_FAMILY_TIMED)
+    wall_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    check(all(math.isfinite(v) for v in losses),
+          f"vision {name}: a non-finite loss in {losses}")
+    check(captured == 0, f"vision {name}: {captured} captures after the "
+          "warm-up")
+    step_ms = statistics.median(walls) * 1e3
+    bound_ms = flop / peak_fp32 * 1e3
+    line = {"input": [VISION_BATCH, 3, size, size],
+            "trainer": dict(VISION_FAMILY_OPT, optimizer="sgd"),
+            "params": params,
+            "pinned_params": count, "step_flop": flop,
+            "step_ms": [w * 1e3 for w in walls], "median_step_ms": step_ms,
+            "img_per_s": VISION_BATCH / step_ms * 1e3,
+            "bound_ms": bound_ms, "bound_by": "operations",
+            "bound_share": bound_ms / step_ms, "losses": losses,
+            "captures_after_warmup": captured, "run_s": wall_s,
+            "peak_mem_gb": (peak - held) / 1e9}
+    del net, trainer, loss_fn, pool
+    return line
+
+
+def vision_ops_card_vs_cpu(mx, rec):
+    """Check (c): the deterministic image ops and transforms of the
+    pipeline on 4 of the records' images on the card against the CPU:
+    ``_image_resize`` (float, to the short side 256 and to 224²),
+    ``_image_crop``, the flips, ``_image_to_tensor``, ``_image_normalize``,
+    ``_image_adjust_lighting``; and the transforms `ToTensor`, `Normalize`,
+    `Resize`, `CenterCrop`, `CropResize` on a card array (a CPU array out).
+    uint8 results equal, float ones within `VISION_OP_TOL` of their largest
+    magnitude. Returns the count compared and the largest error."""
+    import numpy as np
+
+    T = mx.gluon.data.vision.transforms
+    reader = mx.recordio.MXIndexedRecordIO(rec[:-4] + ".idx", rec, "r")
+    imgs = np.stack([np.frombuffer(mx.recordio.unpack(reader.read_idx(k))[1],
+                                   np.uint8).reshape(VISION_IMAGE)
+                     for k in reader.keys[:4]])
+    reader.close()
+    chw = imgs[:, :3].transpose(0, 3, 1, 2)
+
+    def ops(ctx):
+        x8 = mx.nd.array(imgs, ctx=ctx, dtype="uint8")
+        xf = x8.astype("float32")
+        img = mx.nd.array(imgs[0], ctx=ctx, dtype="uint8")
+        t = mx.nd.image.to_tensor(x8)
+        return [mx.nd.image.resize(xf, size=256, keep_ratio=True),
+                mx.nd.image.resize(xf, size=(224, 224)),
+                mx.nd.image.resize(xf, size=(224, 224), interp=0),
+                mx.nd.image.crop(x8, x=48, y=16, width=224, height=224),
+                mx.nd.image.flip_left_right(x8),
+                mx.nd.image.flip_top_bottom(x8), t,
+                mx.nd.image.normalize(t, mean=IMAGENET_MEAN,
+                                      std=IMAGENET_STD),
+                mx.nd.image.adjust_lighting(xf, alpha=(0.05, -0.1, 0.02)),
+                T.ToTensor()(img),
+                T.Normalize(IMAGENET_MEAN, IMAGENET_STD)(
+                    mx.nd.array(chw[0] / 255.0, ctx=ctx)),
+                T.Resize(224, keep_ratio=True)(img), T.CenterCrop(224)(img),
+                T.CropResize(10, 20, 200, 180, size=(64, 48))(img)]
+
+    got, want = ([o.asnumpy() for o in ops(ctx)]
+                 for ctx in (mx.gpu(0), mx.cpu()))
+    worst = 0.0
+    for k, (a, b) in enumerate(zip(got, want)):
+        check(a.dtype == b.dtype and a.shape == b.shape,
+              f"vision (c) op {k}: {a.dtype}{a.shape} vs {b.dtype}{b.shape}")
+        if a.dtype == np.uint8:
+            check(np.array_equal(a, b), f"vision (c) op {k}: uint8 differs")
+            continue
+        err = float(np.abs(a.astype(np.float64) - b).max())
+        bound = VISION_OP_TOL["of_largest"] * float(np.abs(b).max())
+        worst = max(worst, err)
+        check(err <= bound, f"vision (c) op {k}: max err {err} over "
+              f"{bound}")
+    return {"compared": len(got), "max_abs_err": worst, "tol": VISION_OP_TOL}
+
+
+def logged_figures(fn):
+    """``fn()`` with the root logger's records captured: returns its
+    result and the messages logged."""
+    import logging
+
+    records = []
+    handler = logging.Handler()
+    handler.emit = lambda r: records.append(r.getMessage())
+    root = logging.getLogger()
+    old = root.level
+    root.addHandler(handler)
+    root.setLevel(logging.INFO)
+    try:
+        return fn(), records
+    finally:
+        root.removeHandler(handler)
+        root.setLevel(old)
+
+
+def run_image_classification_example(argv, ctx=None):
+    """`example/gluon/image_classification.py` through the port with only
+    its five imports changed. Returns the messages it logged (each epoch's
+    accuracy and img/s)."""
+    ns = example_namespace(IMAGE_CLS_EXAMPLE, 5)
+    _, logged = logged_figures(lambda: run_example(ns, argv, ctx))
+    return logged
+
+
+def run_train_imagenet_example(argv, ctx=None):
+    """`example/image-classification/train_imagenet.py` through the port
+    with only its import changed, and its `common.fit` with its own: the
+    port's `fit` module stands as ``common`` while it runs. Returns its
+    figures (``benchmark-img-per-sec``) and the messages it logged."""
+    import types
+
+    fit = example_namespace(FIT_MODULE, 1)
+    common = types.ModuleType("common")
+    common.fit = types.SimpleNamespace(**{k: v for k, v in fit.items()
+                                          if not k.startswith("__")})
+    saved = {k: sys.modules.get(k) for k in ("common", "common.fit")}
+    sys.modules["common"], sys.modules["common.fit"] = common, common.fit
+    try:
+        ns = example_namespace(TRAIN_IMAGENET_EXAMPLE, 1)
+        check(ns["fit"] is common.fit, "train_imagenet.py did not take the "
+              "port's fit module")
+        return logged_figures(lambda: run_example(ns, argv, ctx))
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                sys.modules.pop(k, None)
+            else:
+                sys.modules[k] = v
+
+
+def vision_checks(torch, mx, folder, rec):
+    """Check (c): every family's small model and the record-fed step on
+    the card (cuDNN deterministic) against the CPU from one weight file;
+    the pipeline's deterministic ops (`vision_ops_card_vs_cpu`); the two
+    examples through the port. Returns their figures."""
+    from mxnet_tpu_torch import recordio
+
+    small = {}
+    for name in VISION_SMALL:
+        params_file = os.path.join(folder, f"small_{name}.params")
+        want = vision_small_step(mx, mx.cpu(), name, params_file)
+        if VISION_SMALL[name][2] == "witness":
+            small[name] = vision_witness_step(mx, name, params_file, want)
+            continue
+        with cudnn_deterministic():
+            got = vision_small_step(mx, mx.gpu(0), name, params_file)
+        small[name] = vision_compare(f"vision (c) {name} card vs CPU", got,
+                                     want, ND_SMALL_TOL)
+    cfg = VISION_SMALL_RECORDS
+    sub = os.path.join(folder, "small_records")
+    os.makedirs(sub, exist_ok=True)
+    small_rec, _ = vision_records(recordio, sub, cfg["n"], cfg["image"],
+                                  cfg["classes"], seed=1)
+    params_file = os.path.join(folder, "small_resnet.params")
+    with mx.cpu():
+        mx.random.seed(0)
+        net = gluon_small_net(mx)()
+        net.initialize(mx.init.Xavier())
+        net(mx.nd.zeros((1, 3, cfg["crop"], cfg["crop"])))
+        net.save_parameters(params_file)
+    want = vision_record_step(mx, mx.cpu(), small_rec, params_file)
+    with cudnn_deterministic():
+        got = vision_record_step(mx, mx.gpu(0), small_rec, params_file,
+                                 pin_memory=True)
+    small["record_fed_small_resnet"] = vision_compare(
+        "vision (c) record-fed step card vs CPU", got, want,
+        ND_SMALL_TOL)
+    ops = vision_ops_card_vs_cpu(mx, rec)
+    cls_logged = run_image_classification_example(
+        ["--model", "mobilenetv2_1.0", "--image-shape", "3,224,224",
+         "--batch-size", "8", "--num-batches", "2", "--epochs", "1"],
+        ctx=mx.gpu(0))
+    check(any(m.startswith("epoch 0:") for m in cls_logged),
+          f"vision (c): image_classification.py logged {cls_logged}")
+    figures, imagenet_logged = run_train_imagenet_example(
+        ["--network", "densenet121", "--benchmark", "1", "--image-shape",
+         "3,224,224", "--batch-size", "8", "--num-batches", "2"],
+        ctx=mx.gpu(0))
+    check(figures.get("benchmark-img-per-sec", 0) > 0,
+          f"vision (c): train_imagenet.py's figures {figures}")
+    return {"small_card_vs_cpu": dict(small, tol=ND_SMALL_TOL),
+            "ops_card_vs_cpu": ops,
+            "examples": {
+                "image_classification": {
+                    "argv": "--model mobilenetv2_1.0 --image-shape "
+                            "3,224,224 --batch-size 8 --num-batches 2 "
+                            "--epochs 1", "logged": cls_logged},
+                "train_imagenet": dict(
+                    figures, argv="--network densenet121 --benchmark 1 "
+                    "--image-shape 3,224,224 --batch-size 8 "
+                    "--num-batches 2", logged=imagenet_logged[-3:])}}
+
+
+def vision_phase(torch, smi):
+    """Slice 16's path: (a) the record-fed ResNet-50 in both worker modes
+    beside the device-resident ceiling (`vision_record_fed`), (b) each new
+    family at full width (`vision_family`), (c) the checks
+    (`vision_checks`) and no kernel launched. fp32, TF32 off. Returns the
+    line."""
+    import gc
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import observatory
+
+    with tempfile.TemporaryDirectory() as folder:
+        reset_launches()
+        t0 = time.perf_counter()
+        try:
+            record_fed, net = vision_record_fed(torch, mx, smi, folder)
+        finally:
+            mx.gluon.data.dataloader.shutdown_worker_processes()
+        del net
+        gc.collect()
+        record_s = time.perf_counter() - t0
+        peak_fp32 = observatory.peaks()["matmul_flops"]["float32"]
+        families = {}
+        for name, size, count in VISION_FAMILIES:
+            families[name] = vision_family(torch, mx, name, size, count,
+                                           peak_fp32, smi)
+            gc.collect()
+            torch.cuda.empty_cache()
+        launches = read_launches()
+        check(not any(launches.values()),
+              f"the vision path launched kernels: {launches}")
+        families_s = time.perf_counter() - t0 - record_s
+        checks = vision_checks(torch, mx, folder,
+                               os.path.join(folder, "images.rec"))
+    return {"record_fed_resnet50": record_fed, "families": families,
+            "peak_fp32_flops": peak_fp32, "kernel_launches": launches,
+            "checks": checks, "record_fed_s": record_s,
+            "families_s": families_s, "card": smi}
+
+
+def profiler_session(torch, lm_state, settle=True):
+    """One `mx.profiler` session around one full-width train step (bf16,
+    8 x 2048) under a span, with telemetry and tracing on, dumped to a
+    file. With ``settle``, the session runs one tiny kernel and waits for
+    the card before the step and after it, so the step's kernels lie well
+    inside the session (one whole run on an H100 lost a K1 event from the
+    trace without it; `tools/torch_profiler_repeat.py` counts such
+    losses). Returns the step's
+    K1 launches, the trace's K1 kernel events, its telemetry counter
+    events, its ``train.step`` spans, its event count and the loss."""
     from mxnet_tpu_torch import profiler, telemetry, tracing
 
     lm, step, state, tokens, targets = lm_state
+
+    def settled():
+        if settle:
+            torch.ones(1, device="cuda").add_(1)
+            torch.cuda.synchronize()
+
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "profile.json")
         profiler.set_config(filename=path)
@@ -7021,9 +8003,11 @@ def profiler_phase(torch, lm_state, smi):
             telemetry.counter("chip_smoke.profiled_steps").inc()
             reset_launches()
             profiler.start()
+            settled()
             with tracing.span("train.step", cat="train"):
                 loss = step(state, tokens, targets, TRAIN_STEPS + 1)
                 torch.cuda.synchronize()
+            settled()
             profiler.stop()
             profiler.dump()
             launched = read_launches()["flash_attention_fwd"]
@@ -7036,17 +8020,31 @@ def profiler_phase(torch, lm_state, smi):
                 and e.get("cat") == "telemetry"]
     spans = [e for e in events if e.get("name") == "train.step"
              and e.get("ph") == "X"]
-    want = lm.cfg.n_layers
+    return {"launched": launched, "k1": k1, "counters": counters,
+            "spans": spans, "events": len(events), "loss": float(loss)}
+
+
+def profiler_phase(torch, lm_state, smi):
+    """``mx.profiler`` on the card (`profiler_session`). The dumped trace
+    must hold the step's 4 K1 launches by the kernel's name, a telemetry
+    counter event and the span. Runs last: the profiler session and a
+    torch.profiler session never overlap, and no graph is captured or
+    replayed after it."""
+    run = profiler_session(torch, lm_state)
+    k1, launched = run["k1"], run["launched"]
+    want = lm_state[0].cfg.n_layers
     check(len(k1) == launched == want,
           f"profiler: {len(k1)} K1 kernels in the trace, {launched} "
           f"launched, want {want}")
-    check(counters, "profiler: no telemetry counter event in the trace")
-    check(len(spans) == 1, f"profiler: {len(spans)} train.step spans")
-    check(math.isfinite(float(loss)), "profiler: non-finite loss")
-    return {"events": len(events), "k1_kernels": len(k1),
+    check(run["counters"], "profiler: no telemetry counter event in the "
+          "trace")
+    check(len(run["spans"]) == 1, f"profiler: {len(run['spans'])} "
+          "train.step spans")
+    check(math.isfinite(run["loss"]), "profiler: non-finite loss")
+    return {"events": run["events"], "k1_kernels": len(k1),
             "k1_device_us": sum(e.get("dur", 0) for e in k1),
-            "telemetry_counter_events": len(counters),
-            "spans": len(spans), "card": smi}
+            "telemetry_counter_events": len(run["counters"]),
+            "spans": len(run["spans"]), "card": smi}
 
 
 def attention_case(torch, fa, F, *, b, l, h, d, dtype, causal, tol, timed):
@@ -7536,6 +8534,8 @@ def main(argv=None):
     progress("lstm_lm")
     sparse = sparse_phase(torch, smi)
     progress("sparse")
+    vision = vision_phase(torch, smi)
+    progress("vision")
     kernels = kernels_phase(torch, fa, gcm, {
         "train": train["kernel_launches"],
         "ring": ring["kernel_launches"],
@@ -7549,7 +8549,8 @@ def main(argv=None):
         "overlap": overlap["kernel_launches"],
         "gan": gan["kernel_launches"],
         "lstm_lm": lstm_lm["kernel_launches"],
-        "sparse": sparse["kernel_launches"]})
+        "sparse": sparse["kernel_launches"],
+        "vision": vision["kernel_launches"]})
     emit(kernels=kernels)
     emit(train=train, small_reference=small)
     emit(ring=ring, small_reference=small_ring)
@@ -7566,6 +8567,7 @@ def main(argv=None):
     emit(gan=gan)
     emit(lstm_lm=lstm_lm)
     emit(sparse=sparse)
+    emit(vision=vision)
     if args.profile:
         def one_more_step(state_of_path):
             _, step, state, tokens, targets = state_of_path

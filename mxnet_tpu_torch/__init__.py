@@ -53,7 +53,11 @@ autoscale signal, `profiler` over torch.profiler, the memory census
 and the recurrent path (the fused `RNN` op over cuDNN, `gluon.rnn` and
 `gluon.contrib.rnn`, `nd.contrib` / `sym.contrib` foreach, while_loop and
 cond, `rnn.BucketSentenceIter` and `mod.BucketingModule`), which runs no
-TPU kernel's port either.
+TPU kernel's port either; and the image input pipeline (`recordio`,
+`image` / `img` with the augmenters, `ImageIter` and `ImageRecordIter`,
+`gluon.data` with the `DataLoader` and the vision datasets and
+transforms, the ``_image_*`` ops) and the whole vision model zoo, which
+runs no TPU kernel's port either.
 """
 from . import autograd, ndarray, random
 from . import ndarray as nd
@@ -64,6 +68,8 @@ from . import attribute, symbol, module, model, callback, monitor
 from . import analysis, telemetry, tracing, profiler, memory, observatory
 from . import resilience, health, serving
 from . import rnn
+from . import recordio, image
+from . import image as img
 from . import symbol as sym
 from . import module as mod
 from .attribute import AttrScope
@@ -77,6 +83,6 @@ __all__ = ["nd", "ndarray", "autograd", "random", "initializer", "init",
            "attribute", "symbol", "sym", "Symbol", "module", "mod", "model",
            "callback", "monitor", "AttrScope", "resilience", "health",
            "serving", "analysis", "telemetry", "tracing", "profiler",
-           "memory", "observatory", "rnn",
+           "memory", "observatory", "rnn", "recordio", "image", "img",
            "cpu", "gpu", "tpu", "num_gpus", "Context", "current_context",
            "MXNetError", "resolve_device"]

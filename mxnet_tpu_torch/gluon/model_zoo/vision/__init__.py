@@ -1,33 +1,56 @@
-"""gluon.model_zoo.vision: the ResNet family (parity
-`mxnet_tpu/gluon/model_zoo/vision/__init__.py` `get_model`).
-
-The other families of the JAX package's model zoo (alexnet, vgg, densenet,
-squeezenet, inception, mobilenet) are not ported yet (ROADMAP.md queue A):
-`get_model` names them and raises NotImplementedError.
+"""gluon.model_zoo.vision: the port of
+`mxnet_tpu/gluon/model_zoo/vision/__init__.py` (parity
+`python/mxnet/gluon/model_zoo/vision/__init__.py` `get_model`): the 34
+classification networks of the JAX package's model zoo.
 """
+from .alexnet import *  # noqa: F401,F403
+from .densenet import *  # noqa: F401,F403
+from .inception import *  # noqa: F401,F403
 from .resnet import *  # noqa: F401,F403
-from . import resnet as _resnet
-
-_NOT_PORTED = ("vgg11", "vgg13", "vgg16", "vgg19", "vgg11_bn", "vgg13_bn",
-               "vgg16_bn", "vgg19_bn", "alexnet", "densenet121",
-               "densenet161", "densenet169", "densenet201", "squeezenet1.0",
-               "squeezenet1.1", "inceptionv3", "mobilenet1.0",
-               "mobilenet0.75", "mobilenet0.5", "mobilenet0.25",
-               "mobilenetv2_1.0", "mobilenetv2_0.75", "mobilenetv2_0.5",
-               "mobilenetv2_0.25")
+from .squeezenet import *  # noqa: F401,F403
+from .vgg import *  # noqa: F401,F403
+from .mobilenet import *  # noqa: F401,F403
 
 
 def get_model(name, **kwargs):
     """A model by name, e.g. ``"resnet50_v1"``; ``kwargs`` go to its
-    constructor (``classes``, ``thumbnail``). ``pretrained=True`` raises:
-    there are no weight files."""
-    models = {f"resnet{n}_v{v}": getattr(_resnet, f"resnet{n}_v{v}")
-              for n in (18, 34, 50, 101, 152) for v in (1, 2)}
+    constructor (``classes``, ``pretrained``, ``ctx``, ``root``)."""
+    models = {"resnet18_v1": resnet18_v1,
+              "resnet34_v1": resnet34_v1,
+              "resnet50_v1": resnet50_v1,
+              "resnet101_v1": resnet101_v1,
+              "resnet152_v1": resnet152_v1,
+              "resnet18_v2": resnet18_v2,
+              "resnet34_v2": resnet34_v2,
+              "resnet50_v2": resnet50_v2,
+              "resnet101_v2": resnet101_v2,
+              "resnet152_v2": resnet152_v2,
+              "vgg11": vgg11,
+              "vgg13": vgg13,
+              "vgg16": vgg16,
+              "vgg19": vgg19,
+              "vgg11_bn": vgg11_bn,
+              "vgg13_bn": vgg13_bn,
+              "vgg16_bn": vgg16_bn,
+              "vgg19_bn": vgg19_bn,
+              "alexnet": alexnet,
+              "densenet121": densenet121,
+              "densenet161": densenet161,
+              "densenet169": densenet169,
+              "densenet201": densenet201,
+              "squeezenet1.0": squeezenet1_0,
+              "squeezenet1.1": squeezenet1_1,
+              "inceptionv3": inception_v3,
+              "mobilenet1.0": mobilenet1_0,
+              "mobilenet0.75": mobilenet0_75,
+              "mobilenet0.5": mobilenet0_5,
+              "mobilenet0.25": mobilenet0_25,
+              "mobilenetv2_1.0": mobilenet_v2_1_0,
+              "mobilenetv2_0.75": mobilenet_v2_0_75,
+              "mobilenetv2_0.5": mobilenet_v2_0_5,
+              "mobilenetv2_0.25": mobilenet_v2_0_25,
+              }
     name = name.lower()
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"model {name} is not ported yet (ROADMAP.md queue A, the other "
-            "model-zoo families)")
     if name not in models:
         raise ValueError(
             f"Model {name} is not supported. Available options are\n\t"

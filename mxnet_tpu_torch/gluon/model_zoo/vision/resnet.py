@@ -228,23 +228,26 @@ resnet_block_versions = [
 
 def get_resnet(version, num_layers, pretrained=False, ctx=None,
                root="~/.mxnet/models", **kwargs):
-    """A ResNet of ``version`` 1 or 2 and depth ``num_layers``. Pretrained
-    weights are not available (no weight files), so ``pretrained=True``
-    raises."""
+    """A ResNet of ``version`` 1 or 2 and depth ``num_layers``; with
+    ``pretrained``, its parameters loaded onto ``ctx`` from
+    ``{root}/resnet{num_layers}_v{version}.params`` (`model_store`, which
+    raises `FileNotFoundError` without the file)."""
     if num_layers not in resnet_spec:
         raise ValueError(f"Invalid number of layers: {num_layers}. Options "
                          f"are {sorted(resnet_spec)}")
     if version not in (1, 2):
         raise ValueError(f"Invalid resnet version: {version}. Options are 1 "
                          "and 2.")
-    if pretrained:
-        raise NotImplementedError(
-            "pretrained=True: the port has no model store and no pretrained "
-            "weight files; load weights with load_parameters")
     block_type, layers, channels = resnet_spec[num_layers]
     block_class = resnet_block_versions[version - 1][block_type]
-    return resnet_net_versions[version - 1](block_class, layers, channels,
-                                            **kwargs)
+    net = resnet_net_versions[version - 1](block_class, layers, channels,
+                                           **kwargs)
+    if pretrained:
+        from ..model_store import get_model_file
+
+        net.load_parameters(get_model_file(
+            f"resnet{num_layers}_v{version}", root=root), ctx=ctx)
+    return net
 
 
 def _named(version, depth):

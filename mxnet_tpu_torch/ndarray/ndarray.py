@@ -122,9 +122,14 @@ class NDArray:
         return _invoke("Cast", self, dtype=dtype)
 
     def as_in_context(self, ctx):
+        """This array on ``ctx`` (itself if it is there). A copy from
+        page-locked host memory (a `DataLoader` batch with ``pin_memory``)
+        does not block the host: it is ordered on the current stream."""
         if ctx == self.context:
             return self
-        return NDArray(self._data.detach().to(ctx.torch_device))
+        t = self._data.detach()
+        return NDArray(t.to(ctx.torch_device, non_blocking=not t.is_cuda
+                            and t.is_pinned()))
 
     def copyto(self, other):
         if isinstance(other, NDArray):

@@ -345,13 +345,16 @@ def _batch_norm(data, gamma, beta, moving_mean, moving_var, eps=1e-3,
     if axis != 1:
         data = torch.movedim(data, axis, 1)
     eps, momentum = float(eps), float(momentum)
-    gamma = gamma.to(torch.float32)
-    beta = beta.to(torch.float32)
+    # half data keeps fp32 statistics; fp32 and fp64 data their own type
+    stat = torch.float32 if data.dtype in (torch.float16, torch.bfloat16) \
+        else data.dtype
+    gamma = gamma.to(stat)
+    beta = beta.to(stat)
     if parse_bool(fix_gamma):
         # ones, but still a function of gamma with a zero gradient
         gamma = gamma * 0 + 1 if gamma.requires_grad \
             else torch.ones_like(gamma)
-    rm, rv = moving_mean.to(torch.float32), moving_var.to(torch.float32)
+    rm, rv = moving_mean.to(stat), moving_var.to(stat)
     if parse_bool(_train) and not parse_bool(use_global_stats):
         # half inputs with fp32 gamma/beta run torch's mixed-type kernels,
         # which compute in fp32
@@ -359,9 +362,9 @@ def _batch_norm(data, gamma, beta, moving_mean, moving_var, eps=1e-3,
             data, gamma, beta, None, None, True, 0.0, eps)
         with torch.no_grad():
             # m * old + (1 - m) * batch, one kernel each
-            new_mean = torch.lerp(mean.to(torch.float32), rm, momentum).to(
+            new_mean = torch.lerp(mean.to(stat), rm, momentum).to(
                 moving_mean.dtype)
-            new_var = torch.lerp(invstd.to(torch.float32) ** -2 - eps, rv,
+            new_var = torch.lerp(invstd.to(stat) ** -2 - eps, rv,
                                  momentum).to(moving_var.dtype)
     else:
         out = torch.batch_norm(data, gamma, beta, rm, rv, False, 0.0, eps,

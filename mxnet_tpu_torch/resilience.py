@@ -20,14 +20,15 @@ The port of the parts of `mxnet_tpu/resilience.py` the serving stack uses:
   to fault, 1-based, default 1), ``times`` (consecutive events to fault,
   ``inf`` allowed, default 1), ``error`` (errno name, default EIO; ``KILL``
   raises :class:`ThreadKilled`), ``truncate`` (byte count). The port fires
-  only the ``publish`` point (`serving.rollout.publish`). Errno rules
-  raise there; three publish-only modes return the rule for the publisher
-  to enact on its own output: ``truncate=K`` tears the manifest at K bytes,
+  the ``publish`` point (`serving.rollout.publish`), and ``open`` (through
+  :func:`open_checked`) and ``read`` in `recordio`. Errno rules raise;
+  three publish-only modes return the rule for the publisher to enact on
+  its own output: ``truncate=K`` tears the manifest at K bytes,
   ``error=CORRUPT`` flips a payload byte after the CRC footers land, and
   ``error=STALE`` stamps the manifest with an already-published version.
 
 Not ported yet (ROADMAP.md queue A, item A.8): `wrap_retry`,
-`open_checked`, `WorkerLostError` and the other fault points' call sites.
+`WorkerLostError` and the other fault points' call sites.
 """
 from __future__ import annotations
 
@@ -43,7 +44,7 @@ from .log import get_logger
 
 __all__ = ["CorruptCheckpointError", "ThreadKilled", "FaultRule",
            "retry_call", "inject", "fault_scope", "reset_fault_counters",
-           "durable_replace"]
+           "durable_replace", "open_checked"]
 
 register_env("MXNET_IO_RETRY_BUDGET", 3,
              "retries after the first failed IO attempt")
@@ -221,6 +222,15 @@ def _rules():
             _fault_rules = _parse_spec(spec)
             _fault_spec = spec
     return _fault_rules
+
+
+def open_checked(path, mode="rb"):
+    """`open` with the ``open`` fault point and transient-fault retry: the
+    entry point of the recordio and image file opens."""
+    def attempt():
+        inject("open", path)
+        return open(path, mode)
+    return retry_call(attempt, desc=f"open {path}")
 
 
 def reset_fault_counters():

@@ -254,3 +254,24 @@ def test_matmul_out_dtype_overloads_are_counted():
                                     torch.mm(a[0], b[0],
                                              out_dtype=torch.float32)))
     assert cost["flops"] == 2 * 2 * 3 * 4 * 5 + 2 * 3 * 4 * 5
+
+
+@pytest.mark.parametrize("groups", [1, 8], ids=["dense", "depthwise"])
+def test_convolution_backward_counts_one_forward_a_gradient(groups):
+    """A convolution's backward counts one forward's FLOPs for each
+    gradient: torch's own formula takes a grouped convolution's weight
+    gradient as ungrouped, and counted mobilenet's depthwise layers many
+    times over."""
+    import torch.nn.functional as F
+
+    from mxnet_tpu_torch.compile_cache import measure_cost
+
+    x = torch.randn(2, 8, 9, 9, requires_grad=True)
+    w = torch.randn(16, 8 // groups, 3, 3, requires_grad=True)
+    forward = 2 * 2 * 16 * 7 * 7 * (8 // groups) * 9
+    _, cost = measure_cost(lambda: F.conv2d(x, w, groups=groups).sum()
+                           .backward())
+    assert cost["flops"] == 3 * forward
+    _, cost = measure_cost(lambda: F.conv2d(x.detach(), w, groups=groups)
+                           .sum().backward())
+    assert cost["flops"] == 2 * forward

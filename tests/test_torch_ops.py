@@ -27,7 +27,7 @@ ALL_CASES = cs.op_cases()
 CASES = [c for c in ALL_CASES if c[1] not in cs.RANDOM_OPS]
 JAX_OP_FILES = ("elemwise", "broadcast", "reduce", "shape_ops", "indexing",
                 "init_ops", "nn", "optimizer_ops", "random_ops", "ctc", "rnn",
-                "control_flow_ops")
+                "control_flow_ops", "image_ops")
 # the names ported from files the port holds only in part
 PORTED_NN = ("ROIPooling", "SpatialTransformer", "Correlation", "SVMOutput",
              "dot", "batch_dot")
@@ -40,8 +40,11 @@ def aux_inputs(op, attrs):
     return aux(attrs) if callable(aux) else aux
 
 
-# data-dependent output shapes: run eagerly, outside the one jitted program
-EAGER = ("_contrib_boolean_mask", "contrib_boolean_mask", "_ag_getitem")
+# data-dependent output shapes, and the host ops (eager_only in the JAX
+# package): run eagerly, outside the one jitted program
+EAGER = ("_contrib_boolean_mask", "contrib_boolean_mask", "_ag_getitem",
+         "_cvimdecode", "cvimdecode", "_cvimread", "cvimread", "_cvimresize",
+         "cvimresize", "_cvcopyMakeBorder", "cvcopyMakeBorder")
 
 
 def jax_case(case, args, cts):
@@ -115,18 +118,18 @@ def test_op_matches_jax(case, results):
 
 
 def test_every_jax_op_name_is_registered_with_a_case():
-    """The coverage case: every name the JAX registry takes from the twelve
-    op files ported whole (346), plus the ported vision and product ops,
-    is registered in the port, and every registered name has a case in the
-    table (354 of the JAX registry's 471)."""
+    """The coverage case: every name the JAX registry takes from the
+    thirteen op files ported whole (384), plus the ported vision and
+    product ops, is registered in the port, and every registered name has
+    a case in the table (392 of the JAX registry's 471)."""
     want = {n for n in jreg.list_ops()
             if jreg.get_op(n).fn.__module__.rsplit(".", 1)[-1]
             in JAX_OP_FILES}
-    assert len(want) == 346
+    assert len(want) == 384
     want |= set(PORTED_NN)
     assert not want - set(treg.list_ops())
     assert set(treg.list_ops()) == {c[1] for c in ALL_CASES}
-    assert len(treg.list_ops()) == 354
+    assert len(treg.list_ops()) == 392
     # an alias names the same op in both registries
     for name in want:
         assert treg.get_op(name) is treg.get_op(jreg.get_op(name).name), name

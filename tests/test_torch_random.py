@@ -24,7 +24,11 @@ def test_every_random_name_has_a_case():
     want = {n for n in jreg.list_ops() if jreg.get_op(n).fn.__module__
             == "mxnet_tpu.ops.random_ops"}
     assert len(want) == 38
-    assert {c[1] for c in RANDOM_CASES} == want
+    # and the random image ops (slice 16), held by shape and range too
+    image = {n for n in jreg.list_ops() if jreg.get_op(n).needs_rng
+             and jreg.get_op(n).fn.__module__ == "mxnet_tpu.ops.image_ops"}
+    assert len(image) == 16 and image == cs.IMAGE_RANDOM_OPS
+    assert {c[1] for c in RANDOM_CASES} == want | image
 
 
 @pytest.mark.parametrize("case", RANDOM_CASES,
@@ -146,3 +150,17 @@ def test_random_ops_inside_a_hybridized_block():
     captured graph): fresh draws at each call, an eager call's shapes,
     ``shuffle`` a permutation, the zipfian tries an eager call's."""
     assert cs.random_in_graph(mx, CPU) == 19
+
+
+IMAGE_CASES = [c for c in RANDOM_CASES if c[1] in cs.IMAGE_RANDOM_OPS]
+
+
+@pytest.mark.parametrize("case", IMAGE_CASES,
+                         ids=[c[0] for c in IMAGE_CASES])
+def test_random_image_ops_stay_in_their_range(case):
+    """Each random image op (slice 16), over a few seeds, gives an output
+    its transform can reach from the input (`image_random_in_range`)."""
+    for seed in range(4):
+        mx.random.seed(seed)
+        cs.image_random_in_range(case, cs.port_op_case(
+            mx, case, cs.op_case_arrays(case), CPU))
